@@ -17,12 +17,30 @@ Phases, one result line each (any failure exits non-zero):
    inputs; times each kernel,
    its plain version and ``scaled_dot_product_attention`` (a yardstick the
    port never calls) with CUDA events, warm L2;
+   3c. the wire codecs K1–K4 (quant8, sparse encode/decode) against their
+   plain versions, bitwise: ragged smoke shapes (all-zero tiles, exact .5
+   ties, f32 and bf16 sparse values, a block over capacity, a threshold
+   through ``tensor_sparse_enc``) and the full-width stacked shapes of
+   phase 6; times each kernel, its plain version and, where one PyTorch
+   call computes the same function, that call (K2: a broadcast
+   ``torch.mul``; K4: ``index_add_``; yardsticks the port never calls);
 4. serve — stablelm-1.6b at full width (24 layers, bf16, flash attention)
    behind ``serve_pipeline(slots=8, max_seq=1024)`` with 8 staggered
    clients; checks every answer, token conservation, the kernels' launch
    counts on this run, continuous == sequential decode bitwise for every
    stream (replayed in the slot it was served in), and a small fp32 server
-   on the card against the port's CPU path.
+   on the card against the port's CPU path;
+5. (``--profile``) where one prefill and one decode tick spend device time
+   (and, in phase 6, 8 fused offload ticks of each codec);
+6. codec offload — 8 clients offload f32 [1, 512, 2048] activation frames
+   (stablelm-1.6b width) with ``codec=quant8`` (6a) and ``sparse:0.15``
+   (6b) to one ``tensor_filter`` server at ``query_batch=8`` for 4 ticks;
+   checks one answer per client per tick, the fused frame count, wire bytes
+   per request, no sparse truncation, fused == eager == batch-1 bitwise,
+   every answer == the chain of plain versions on the card bitwise, the
+   kernels' launch counts, and a small fp32 run on the card against the
+   port's CPU path; then times 48 more fused ticks of each codec and
+   prints their min/p10/median/p90/max ms.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -210,6 +228,184 @@ def phase_kernels(seed):
     return table
 
 
+def _bits(t):
+    """A tensor's bytes, for bitwise comparison (+0 and -0 differ)."""
+    import torch
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.element_size() == 1 else \
+        t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            t.element_size()])
+
+
+def same_bits(a, b, what):
+    import torch
+    check(a.dtype == b.dtype and a.shape == b.shape and
+          torch.equal(_bits(a), _bits(b)),
+          f"{what}: kernel and plain version differ "
+          f"({a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)})")
+
+
+def _tie_tiles(rng, n_tiles):
+    """f32 tiles whose x/scale lands exactly on k + 0.5 (rounding ties)."""
+    tiles = []
+    inv127 = np.float32(1.0) / np.float32(127.0)
+    for _ in range(n_tiles):
+        amax = np.float32(rng.uniform(0.5, 4.0))
+        s = np.float32(amax * inv127)
+        k = rng.integers(-126, 126, 32 * 128)
+        x = ((k + 0.5).astype(np.float32) * s).astype(np.float32)
+        x[0] = amax
+        tiles.append(x.reshape(32, 128))
+    return np.concatenate(tiles, 0)
+
+
+def phase_codec_kernels(seed):
+    """3c: K1–K4 against their plain versions on the card, bitwise."""
+    import torch
+    from repro_torch.core.buffers import StreamBuffer
+    from repro_torch.core.elements import TensorSparseEnc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quant8 as kq
+    from repro_torch.kernels import sparse_dec as kd
+    from repro_torch.kernels import sparse_enc as ke
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 3)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def cu(a):
+        return torch.as_tensor(a, device=dev)
+
+    # -- smoke shapes --------------------------------------------------------
+    n_cases = 0
+    q8 = [(rng.standard_normal(s) * 3).astype(np.float32)
+          for s in [(3, 5), (70, 300), (2, 3, 4, 5), (), (129,)]]
+    zero = (rng.standard_normal((64, 256)) * 2).astype(np.float32)
+    zero[:32, :128] = 0.0                               # an all-zero tile
+    q8 += [zero, _tie_tiles(rng, 8)]
+    for x in q8:
+        x2 = ops._pad_tiles(ops._as2d(cu(x)))
+        q, s = kq.quantize8(x2)
+        pq, ps = ref.quantize8_plain(x2)
+        same_bits(q, pq, f"K1 {x.shape}")
+        same_bits(s, ps, f"K1 scales {x.shape}")
+        same_bits(kq.dequantize8(q, s), ref.dequantize8_plain(q, s),
+                  f"K2 {x.shape}")
+        n_cases += 1
+    for n, cap, dtype in [(1000, 100, torch.float32),
+                          (4096, 300, torch.bfloat16),
+                          (700, 350, torch.float32),
+                          (512, 8, torch.float32),     # a block over capacity
+                          (3000, 3000, torch.bfloat16)]:
+        x = rng.standard_normal(n).astype(np.float32)
+        x[rng.random(n) < 0.7] = 0.0
+        flat = cu(x).to(dtype)
+        nb, kb = ref._sparse_dims(n, cap)
+        flat = torch.nn.functional.pad(flat, (0, nb * ref.SPARSE_B - n))
+        got = ke.sparse_enc(flat, kb=kb)
+        want = ref.sparse_enc_plain(flat, kb)
+        for g_, w_, part in zip(got, want, ("values", "indices", "counts")):
+            same_bits(g_, w_, f"K3 {part} n={n} kb={kb} {dtype}")
+        v2, i2 = got[0].reshape(nb, kb), got[1].reshape(nb, kb)
+        same_bits(kd.sparse_dec(v2, i2), ref.sparse_dec_plain(v2, i2),
+                  f"K4 n={n} kb={kb} {dtype}")
+        n_cases += 1
+    x = cu(rng.standard_normal((6, 200)).astype(np.float32))
+    elem = TensorSparseEnc(max_nnz=1200, threshold=0.5)
+    sp = elem.apply({}, [StreamBuffer(tensors=(x,))])[0].tensors[0]
+    nb, kb = ref._sparse_dims(x.numel(), 1200)
+    flat = torch.nn.functional.pad(x.reshape(-1), (0, nb * ref.SPARSE_B
+                                                   - x.numel()))
+    pv, pi, pc = ref.sparse_enc_plain(flat, kb, 0.5)
+    same_bits(sp.values, pv, "K3 threshold 0.5 values")
+    same_bits(sp.indices, pi, "K3 threshold 0.5 indices")
+    check(int(sp.nnz) == int(pc.sum()) == int((x.abs() > 0.5).sum()),
+          "K3 threshold 0.5 count")
+    n_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 3c codec kernels smoke shapes: {n_cases} cases bitwise "
+          f"(ragged, zero tile, .5 ties, bf16, over capacity, threshold)")
+
+    # -- the full-width stacked shapes of phase 6 -------------------------------
+    table = {}
+    b, l, d = 8, 512, 2048
+    x = torch.randn(b * l, d, generator=g, device=dev) * cu(
+        rng.uniform(0.1, 4.0, (b * l, 1)).astype(np.float32))
+    q, s = kq.quantize8(x)
+    pq, ps = ref.quantize8_plain(x)
+    same_bits(q, pq, "K1 full width")
+    same_bits(s, ps, "K1 full width scales")
+    dq = kq.dequantize8(q, s)
+    pdq = ref.dequantize8_plain(q, s)
+    same_bits(dq, pdq, "K2 full width")
+    gm, gn = s.shape
+
+    def lib_dequant():     # one broadcast multiply, int8 * f32 -> f32
+        return torch.mul(q.view(gm, ref.QUANT_BM, gn, ref.QUANT_BN),
+                         s.view(gm, 1, gn, 1))
+    same_bits(lib_dequant().view(dq.shape), dq, "K2 vs torch.mul")
+    nbytes = x.numel() * 4 + q.numel() + s.numel() * 4
+    table["quantize8"] = dict(
+        shape=f"f32 [{b}*{l}, {d}]",
+        max_abs_err=max(err(q, pq), err(s, ps)),
+        ms=cuda_ms(lambda: kq.quantize8(x)),
+        plain_ms=cuda_ms(lambda: ref.quantize8_plain(x)),
+        library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    table["dequantize8"] = dict(
+        shape=f"int8 [{b}*{l}, {d}]", max_abs_err=err(dq, pdq),
+        ms=cuda_ms(lambda: kq.dequantize8(q, s)),
+        plain_ms=cuda_ms(lambda: ref.dequantize8_plain(q, s)),
+        library_ms=cuda_ms(lib_dequant), library="torch.mul",
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+    n = l * d
+    nb, kb = ref._sparse_dims(n, int(n * 0.15))
+    check(kb == 80, f"sparse:0.15 at {n} elements gives kb={kb}, not 80")
+    xs = torch.randn(b * n, generator=g, device=dev)
+    xs = torch.where(torch.rand(b * n, generator=g, device=dev) < 0.10, xs,
+                     torch.zeros_like(xs))
+    got = ke.sparse_enc(xs, kb=kb)
+    want = ref.sparse_enc_plain(xs, kb)
+    for g_, w_, part in zip(got, want, ("values", "indices", "counts")):
+        same_bits(g_, w_, f"K3 full width {part}")
+    v2 = got[0].reshape(b * nb, kb)
+    i2 = got[1].reshape(b * nb, kb)
+    dense = kd.sparse_dec(v2, i2)
+    pdense = ref.sparse_dec_plain(v2, i2)
+    same_bits(dense, pdense, "K4 full width")
+    kept = int(got[2].sum())
+    truth = int((xs != 0).sum())
+    idx64 = i2.reshape(-1).long()
+    vflat = v2.reshape(-1)
+    enc_bytes = xs.numel() * 4 + v2.numel() * 8 + nb * b * 4
+    dec_bytes = v2.numel() * 8 + dense.numel() * 4
+    table["sparse_enc"] = dict(
+        shape=f"f32 [{b}*{n}], 10% nonzero, kb={kb}",
+        max_abs_err=max(err(g_, w_) for g_, w_ in zip(got, want)),
+        ms=cuda_ms(lambda: ke.sparse_enc(xs, kb=kb)),
+        plain_ms=cuda_ms(lambda: ref.sparse_enc_plain(xs, kb)),
+        library_ms=None, bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", kept=kept, nonzeros=truth)
+    table["sparse_dec"] = dict(
+        shape=f"[{b}*{nb}, {kb}] -> f32 [{b}*{n}]",
+        max_abs_err=err(dense, pdense),
+        ms=cuda_ms(lambda: kd.sparse_dec(v2, i2)),
+        plain_ms=cuda_ms(lambda: ref.sparse_dec_plain(v2, i2)),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            b * nb * ref.SPARSE_B, device=dev).index_add_(0, idx64, vflat)),
+        library="index_add_", bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    for name, row in table.items():
+        lib = "library —" if row["library_ms"] is None else \
+            f"{row['library']} {row['library_ms']:.4f} ms"
+        print(f"phase 3c {name} {row['shape']}: bitwise, kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{lib}, bound {row['bound_ms']:.5f} ms (bytes)")
+    return table
+
+
 def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
     """Drive one serve pipeline plus staggered clients until every client
     has its answers.  ``clients`` is a list of (join_tick, prompts, gens)."""
@@ -287,7 +483,7 @@ def phase_serve(seed):
         gens = [int(rng.integers(16, 65)) for _ in range(n_req)]
         clients.append((2 * i, prompts, gens))
 
-    fa.reset_launches()
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     rt, srv, runs, wall = _serve(None, "stablelm-1.6b-flash", 8, 1024,
                                  clients, seed, max_ticks=400)
@@ -412,6 +608,308 @@ def phase_profile(srv, seed):
     return out
 
 
+OFFLOAD_L, OFFLOAD_D, OFFLOAD_CLIENTS, OFFLOAD_TICKS = 512, 2048, 8, 4
+#: fused ticks timed after the checks, and ticks in the profiled window
+OFFLOAD_TIMED_TICKS, OFFLOAD_PROFILED_TICKS = 48, 8
+#: client i's tensor_transform option per codec (phase 6)
+OFFLOAD_TRANSFORMS = {
+    "quant8": "typecast:float32,add:-127.5,div:127.5,mul:{m}",
+    # exactly 50 of every 512-element block survive the clamp: lossless at
+    # kb = 80
+    "sparse:0.15": "typecast:float32,add:-230,clamp:0:25,mul:{m}",
+}
+
+
+def _register_offload_models(seed):
+    """The phase 6 server model y = x * sigmoid(x @ W), which keeps the
+    request's zeros: W f32 [2048, 2048] = 0.02 N(0, 1) drawn on the card
+    from the seed, and a [256, 256] one from numpy for the card-vs-CPU
+    run."""
+    import torch
+    from repro_torch.core.elements import register_model
+    from repro_torch.core.formats import TensorSpec
+
+    def apply(p, x):
+        return x * torch.sigmoid(x @ p["w"])
+
+    def init_full(g, dev):
+        return {"w": 0.02 * torch.randn(OFFLOAD_D, OFFLOAD_D, generator=g,
+                                        device=dev)}
+    register_model("offload-gate", init_full, apply,
+                   out_specs=(TensorSpec((1, OFFLOAD_L, OFFLOAD_D),
+                                         "float32"),))
+    w_small = (0.02 * np.random.default_rng(seed + 6).standard_normal(
+        (256, 256))).astype(np.float32)
+    register_model("offload-gate-small",
+                   lambda g, dev: {"w": torch.as_tensor(w_small,
+                                                        device=dev)},
+                   apply, out_specs=(TensorSpec((1, 64, 256), "float32"),))
+    return apply
+
+
+def _offload(device, model, codec, width, channels, n_clients, ticks, seed,
+             **rt_kw):
+    """One offload run: a tensor_filter server and ``n_clients`` clients,
+    ``ticks`` scheduler ticks.  -> (runtime, client runs, server run,
+    [(wire bytes, request buffer)] as pushed to the server, tick seconds)"""
+    import torch
+    from repro_torch.core import parse_launch
+    from repro_torch.device import make_generator
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(device=device, **rt_kw)
+    hub = Device("hub", device=device)
+    ps = parse_launch(
+        f"tensor_query_serversrc operation=act name=ssrc ! "
+        f"tensor_filter model={model} ! tensor_query_serversink name=ssink")
+    ps.elements["ssink"].pair_with(ps.elements["ssrc"])
+    srv = hub.add_pipeline(ps, generator=make_generator(seed, rt.device))
+    rt.add_device(hub)
+    ep = ps.elements["ssrc"].endpoint
+    seen = []
+    push = ep.requests.push
+
+    def spy(buf, nbytes=None):
+        seen.append((nbytes, buf))
+        return push(buf, nbytes)
+    ep.requests.push = spy
+    runs = []
+    for i in range(n_clients):
+        opt = OFFLOAD_TRANSFORMS[codec].format(m=1 + i / 8)
+        pc = parse_launch(
+            f"testsrc width={width} height=1 channels={channels} ! "
+            f"tensor_converter ! tensor_transform mode=arithmetic "
+            f"option={opt} ! tensor_query_client operation=act "
+            f"codec={codec} name=qc ! appsink name=res")
+        dev = Device(f"cl{i}", device=device)
+        runs.append(dev.add_pipeline(pc))
+        rt.add_device(dev)
+    return rt, runs, srv, seen, _timed_ticks(rt, ticks)
+
+
+def _timed_ticks(rt, ticks):
+    """Run ``ticks`` scheduler ticks -> each one's host seconds, the card
+    synchronized at its end."""
+    import torch
+    secs = []
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        rt.tick()
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def _wire_bytes(codec, rows, cols):
+    """Wire bytes of one f32 [1, rows, cols] request: 1 B per element + 4 B
+    per (32, 128) tile scale (quant8), or nb*kb (value, int32 index) slots
+    + a 4 B count (sparse).  At [1, 512, 2048]: 1,049,600 and 1,310,724."""
+    from repro_torch.core.compression import _sparse_cap
+    from repro_torch.kernels import ref
+    n = rows * cols
+    if codec == "quant8":
+        return n + (-(-rows // ref.QUANT_BM)) * (-(-cols // ref.QUANT_BN)) * 4
+    nb, kb = ref._sparse_dims(n, _sparse_cap(n, float(codec.split(":")[1])))
+    return nb * kb * 8 + 4
+
+
+def _answers(runs, ticks, what):
+    out = []
+    for i, run in enumerate(runs):
+        bufs = run.sink_log.get("res", [])
+        check(len(bufs) == ticks, f"{what}: client {i} has {len(bufs)} "
+                                  f"answers after {ticks} ticks")
+        for b in bufs:
+            check("codec" not in b.meta and "sparse_dropped" not in b.meta,
+                  f"{what}: a decoded answer claims a codec")
+        out.append([b.tensor for b in bufs])
+    return out
+
+
+def _plain_roundtrip(x, codec):
+    """encode -> decode of one frame by the plain versions alone."""
+    import torch.nn.functional as F
+    from repro_torch.core.compression import _sparse_cap
+    from repro_torch.kernels import ops, ref
+    if codec == "quant8":
+        x2 = ops._pad_tiles(ops._as2d(x))
+        q, s = ref.quantize8_plain(x2)
+        m, n = ops._as2d(x).shape
+        return ref.dequantize8_plain(q, s)[:m, :n].reshape(x.shape)
+    n = x.numel()
+    nb, kb = ref._sparse_dims(n, _sparse_cap(n, float(codec.split(":")[1])))
+    flat = F.pad(x.reshape(-1), (0, nb * ref.SPARSE_B - n))
+    v, i, _ = ref.sparse_enc_plain(flat, kb)
+    dense = ref.sparse_dec_plain(v.reshape(nb, kb), i.reshape(nb, kb))
+    return dense[:n].reshape(x.shape)
+
+
+def _client_frames(codec, i, ticks, device):
+    """The request frames client ``i`` sends, rebuilt by the port's own
+    source and transform elements."""
+    from repro_torch.core import parse_launch
+    opt = OFFLOAD_TRANSFORMS[codec].format(m=1 + i / 8)
+    p = parse_launch(f"testsrc width={OFFLOAD_L} height=1 "
+                     f"channels={OFFLOAD_D} ! tensor_converter ! "
+                     f"tensor_transform mode=arithmetic option={opt} ! "
+                     f"appsink name=out")
+    st = p.init_state(device)
+    frames = []
+    for _ in range(ticks):
+        out, st = p.step({}, st)
+        frames.append(out["out"].tensor)
+    return frames
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attn, quant8, sparse_dec, sparse_enc
+    counts = {}
+    for mod in (flash_attn, quant8, sparse_enc, sparse_dec):
+        counts.update(mod.LAUNCHES)
+    return counts
+
+
+def _reset_launches():
+    from repro_torch.kernels import flash_attn, quant8, sparse_dec, sparse_enc
+    for mod in (flash_attn, quant8, sparse_enc, sparse_dec):
+        mod.reset_launches()
+
+
+def _quant_step_excess(a, b):
+    """Largest |a - b| beyond one quant step of its (32, 128) tile (the
+    step read off the decoded answers: a tile's amax is 127 steps)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    a2, b2 = ops._pad_tiles(ops._as2d(a)), ops._pad_tiles(ops._as2d(b))
+    step = torch.maximum(ref._tiles(a2).abs().amax(dim=(2, 3)),
+                         ref._tiles(b2).abs().amax(dim=(2, 3))) / 127
+    return ((ref._tiles(a2) - ref._tiles(b2)).abs()
+            - step[:, :, None, None] * (1 + 1e-5)).max().item()
+
+
+def phase_offload(seed, profile=False):
+    """6: the codec offload path at full width, one run per codec.  After
+    the checks (which see exactly ``OFFLOAD_TICKS`` ticks) each fused run
+    goes on for ``OFFLOAD_TIMED_TICKS`` timed ticks; with ``profile``, then
+    ``OFFLOAD_PROFILED_TICKS`` more under the profiler."""
+    import torch
+    from repro_torch.core import compression as comp
+    from repro_torch.core.buffers import tree_flatten
+    apply = _register_offload_models(seed)
+    L, D, C, T = OFFLOAD_L, OFFLOAD_D, OFFLOAD_CLIENTS, OFFLOAD_TICKS
+    expect_bytes = {codec: _wire_bytes(codec, L, D)
+                    for codec in OFFLOAD_TRANSFORMS}
+    expect_kernels = {"quant8": ("quantize8", "dequantize8"),
+                      "sparse:0.15": ("sparse_enc", "sparse_dec")}
+    out = {}
+    for tag, codec in (("6a", "quant8"), ("6b", "sparse:0.15")):
+        comp.reset_codec_stats()
+        _reset_launches()
+        rt, runs, srv, seen, secs = _offload(None, "offload-gate", codec, L,
+                                             D, C, T, seed, query_batch=8)
+        launches = _launch_counts()
+        fused = _answers(runs, T, f"{tag} fused")
+        qb = rt.stats()["query_batching"]
+        check(qb["fused_frames"] == C * T,
+              f"{tag}: fused_frames {qb['fused_frames']} != {C * T}")
+        check(len(seen) == C * T and
+              all(nb == expect_bytes[codec] for nb, _ in seen),
+              f"{tag}: wire bytes per request "
+              f"{sorted({nb for nb, _ in seen})} != {expect_bytes[codec]}")
+        stats = comp.codec_stats()
+        check(codec == "quant8" or stats["sparse_dropped_values"] == 0,
+              f"{tag}: sparse truncation {stats}")
+        for k in expect_kernels[codec]:
+            check(launches[k] == 2 * T,
+                  f"{tag}: {k} launched {launches[k]} times, expected "
+                  f"{2 * T} (one request and one answer batch per tick)")
+        # fused == eager == batch 1, bitwise
+        for label, kw in (("eager", dict(query_batch=8, fused_wire=False)),
+                          ("batch 1", dict(query_batch=1))):
+            _, runs2, _, _, _ = _offload(None, "offload-gate", codec, L, D,
+                                         C, T, seed, **kw)
+            other = _answers(runs2, T, f"{tag} {label}")
+            for i in range(C):
+                for t in range(T):
+                    same_bits(other[i][t], fused[i][t],
+                              f"{tag} {label} != fused, client {i} tick {t}")
+        # every answer == the chain of plain versions on the card
+        params = srv.params[next(iter(srv.params))]
+        for i in range(C):
+            for t, x in enumerate(_client_frames(codec, i, T, rt.device)):
+                y = apply(params, _plain_roundtrip(x, codec))
+                same_bits(fused[i][t], _plain_roundtrip(y, codec),
+                          f"{tag} client {i} tick {t}: answer != plain chain")
+        torch.cuda.synchronize()
+        for r in runs:              # the timed window keeps no answers
+            r.sink_log.clear()
+        timed = np.array(_timed_ticks(rt, OFFLOAD_TIMED_TICKS)) * 1e3
+        if profile:
+            P = OFFLOAD_PROFILED_TICKS
+            wall, busy, top = _profile(
+                lambda: [rt.tick() for _ in range(P)])
+            out[f"profile {codec}"] = {"ticks": P, "wall_ms": wall,
+                                       "device_ms": busy,
+                                       "top": [list(r) for r in top[:15]]}
+            print(f"phase 6 profile {codec} {P} ticks: host wall {wall:.2f} "
+                  f"ms, device busy {busy:.2f} ms "
+                  f"({100 * busy / wall:.0f}%); top: " +
+                  ", ".join(f"{k[:40]} {ms_:.3f} ms x{n}"
+                            for k, ms_, n in top[:6]))
+        pct = np.percentile(timed, [0, 10, 50, 90, 100])
+        row = dict(codec=codec, ms_per_tick=[1e3 * x for x in secs],
+                   timed_ticks=len(timed), timed_ms_per_tick=timed.tolist(),
+                   timed_ms_min_p10_median_p90_max=pct.tolist(),
+                   wire_kib_per_request=expect_bytes[codec] / 1024,
+                   raw_kib_per_request=L * D * 4 / 1024,
+                   launches={k: launches[k] for k in expect_kernels[codec]},
+                   codec_stats=stats, fused_frames=qb["fused_frames"])
+        out[codec] = row
+        print(f"phase {tag} offload {codec} f32 [1, {L}, {D}] x {C} clients "
+              f"x {T} ticks: {C * T} answers; ms/tick "
+              f"{', '.join(f'{x:.2f}' for x in row['ms_per_tick'])}; over "
+              f"{len(timed)} more fused ticks ms/tick min/p10/median/p90/max "
+              f"{'/'.join(f'{x:.3f}' for x in pct)}; "
+              f"{row['wire_kib_per_request']:.2f} KiB on the wire per "
+              f"request (raw {row['raw_kib_per_request']:.0f} KiB); "
+              f"launches {row['launches']}; fused == eager == batch 1 and "
+              f"== plain chain, bitwise")
+
+    # a small fp32 run on the card against the port's CPU path
+    for codec in ("quant8", "sparse:0.15"):
+        res = {}
+        for label, device in (("card", "cuda"), ("cpu", "cpu")):
+            _, runs, _, seen, _ = _offload(device, "offload-gate-small",
+                                           codec, 64, 256, 4, 2, seed)
+            res[label] = (_answers(runs, 2, f"6c {codec} {label}"), seen)
+        (ga, gs), (ca, cs) = res["card"], res["cpu"]
+        check(len(gs) == len(cs) == 8, "6c: request counts differ")
+        for (gn, gb), (cn, cb) in zip(gs, cs):
+            check(gn == cn, "6c: wire bytes differ")
+            for gl, cl in zip(tree_flatten(gb.tensors)[0],
+                              tree_flatten(cb.tensors)[0]):
+                same_bits(gl.cpu(), cl, f"6c {codec}: request payload card "
+                                        f"!= CPU")
+        worst = float("-inf")
+        for gi, ci in zip(ga, ca):
+            for a, b in zip(gi, ci):
+                a = a.cpu()
+                if codec == "quant8":
+                    e = _quant_step_excess(a, b)
+                    check(e <= 0, f"6c quant8: answers differ by {e} beyond "
+                                  f"one quant step")
+                else:
+                    e = ((a - b).abs() - 1e-5 * b.abs()).max().item()
+                    check(e <= 1e-6, f"6c sparse: answers differ by {e} "
+                                     f"beyond rtol 1e-5")
+                worst = max(worst, e)
+        print(f"phase 6c {codec} small fp32 run, card == CPU path: request "
+              f"payloads bitwise, answers within "
+              f"{'one quant step' if codec == 'quant8' else 'rtol 1e-5'} "
+              f"(worst excess {worst:.2e})")
+    return out
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -424,7 +922,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-width prefill and decode tick")
+                    help="also profile one full-width prefill, one decode "
+                         "tick and 8 offload ticks per codec")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -434,31 +933,42 @@ def main(argv=None):
     smi = phase_env()
     build_s = phase_build()
     table = phase_kernels(args.seed)
+    codec_table = phase_codec_kernels(args.seed)
     serve, srv = phase_serve(args.seed)
     profile = phase_profile(srv, args.seed) if args.profile else None
+    offload = phase_offload(args.seed, profile=args.profile)
 
-    k5, k6 = table["K5 L=512"], table["K6 S=8 max_seq=1024"]
-    kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
-         "replaces": "src/repro/kernels/flash_attn.py:70",
-         "launches": serve["launches"]["flash_attention"],
-         **{k: k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}},
-        {"name": "flash_decode", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_attn.py:110",
-         "launches": serve["launches"]["flash_decode"],
-         **{k: k6[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}},
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    rows = [  # name, source, TPU kernel, timing row, launches on its path
+        ("quantize8", "quant8.cu", "src/repro/kernels/quant8.py:41",
+         codec_table["quantize8"], offload["quant8"]["launches"]),
+        ("dequantize8", "quant8.cu", "src/repro/kernels/quant8.py:62",
+         codec_table["dequantize8"], offload["quant8"]["launches"]),
+        ("sparse_enc", "sparse_enc.cu", "src/repro/kernels/sparse_enc.py:55",
+         codec_table["sparse_enc"], offload["sparse:0.15"]["launches"]),
+        ("sparse_dec", "sparse_dec.cu", "src/repro/kernels/sparse_dec.py:43",
+         codec_table["sparse_dec"], offload["sparse:0.15"]["launches"]),
+        ("flash_attention", "flash_prefill.cu",
+         "src/repro/kernels/flash_attn.py:70", table["K5 L=512"],
+         serve["launches"]),
+        ("flash_decode", "flash_decode.cu",
+         "src/repro/kernels/flash_attn.py:110",
+         table["K6 S=8 max_seq=1024"], serve["launches"]),
     ]
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": where, "launches": launches[name],
+                **{k: row[k] for k in timed}}
+               for name, src, where, row, launches in rows]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"nvidia_smi": smi, "build_s": build_s,
-                                   "kernels": table, "serve": serve,
-                                   "profile": profile},
-                                  indent=1))
+                                   "kernels": table,
+                                   "codec_kernels": codec_table,
+                                   "serve": serve, "profile": profile,
+                                   "offload": offload}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

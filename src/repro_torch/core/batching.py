@@ -1,12 +1,12 @@
-"""Server-side batching for the query protocol — port of the streaming half
-of ``src/repro/core/batching.py``.
+"""Server-side batching for the query protocol — port of
+``src/repro/core/batching.py``.
 
-:class:`StreamingQueryBatcher` runs the continuous-batching lifecycle of a
-``stream_serving`` server (DESIGN.md §7): prefill on arrival, decode ticks
-in a slot of the plan-state batch, one answer when the generation budget is
-spent.  :class:`QueryBatcher` holds the members it shares with the
-stateless gather-stack-flush batcher; that batcher's own serve path, the
-stage batchers and the delivery guard wait (ROADMAP M3, M8, M10).
+:class:`QueryBatcher` is the stateless gather-stack-flush batcher, with the
+codec-fused wire path (DESIGN.md §5).  :class:`StreamingQueryBatcher` runs
+the continuous-batching lifecycle of a ``stream_serving`` server (DESIGN.md
+§7): prefill on arrival, decode ticks in a slot of the plan-state batch,
+one answer when the generation budget is spent.  The stage batchers and the
+delivery guard wait (ROADMAP M8, M10).
 
 Requests drain through one :class:`~.admission.AdmissionQueue`; the port
 runs it at ``qos=None`` — global arrival order, plus the per-tenant ledger.
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .admission import AdmissionQueue
-from .buffers import StreamBuffer
+from .buffers import StreamBuffer, structure_key, unstack_buffers
 from .query import QueryServerEndpoint
 from . import compression as comp
 
@@ -57,20 +57,51 @@ class BatchingPolicy:
 
 
 class QueryBatcher:
-    """Shared state of a server endpoint's batcher: the admission queue,
-    the routing-meta hoist and the stats ledger.  ``run`` is the scheduler's
-    pipeline-run record of the server pipeline."""
+    """Gather-stack-flush loop for one stateless server endpoint.
+
+    ``run`` is the scheduler's pipeline-run record of the server pipeline;
+    ``inline_step`` is a zero-arg callable doing one interpreted server step
+    (serversrc pull → … → serversink route), the path for a server plan
+    that is not ``query_batchable``.
+
+    Per flush, requests leave the admission queue in arrival order, at most
+    ``max_batch`` at a time:
+
+    * fused (default): no decode at gather time.  Requests group by
+      consecutive (codec, wire structure); each group serves through
+      ``plan.compiled_serve_batch(codec=...)`` — stacked decode, the DAG
+      once per frame, stacked answer encode — and the wire answers go out
+      through the serversink's ``push_wire``.  The deferred sparse
+      truncation counts sync once per flush.  ``codec=none`` groups have
+      nothing to fuse and take the eager route below.
+    * eager (``fused=False``): each request is decoded, requests group by
+      decoded structure, each group serves through
+      ``plan.compiled_serve_batch()`` and every answer is encoded by the
+      serversink's own ``apply``.
+
+    Routing meta (``client_id``, ``codec``, ...) is hoisted out before
+    grouping and restored on every answer.  The mesh placement, the
+    delivery guard and failover of the JAX package wait (ROADMAP M11, M10,
+    M6)."""
 
     def __init__(self, endpoint: QueryServerEndpoint, run: Any,
-                 policy: BatchingPolicy, *,
+                 policy: BatchingPolicy,
+                 inline_step: Optional[Callable[[], Any]] = None,
+                 fused: bool = True, *,
                  clock: Optional[Callable[[], int]] = None):
         self.endpoint = endpoint
         self.run = run
         self.policy = policy
+        self.inline_step = inline_step
+        #: codec-fused serving; False = decode, serve, encode per request
+        self.fused = fused
         self.admission = AdmissionQueue(qos=None, clock=clock)
         self.flushes = 0
         self.batches = 0
         self.batched_frames = 0
+        self.sequential_frames = 0
+        self.fused_batches = 0
+        self.fused_frames = 0
 
     def in_flight(self, client_id: int) -> bool:
         """Whether ``client_id`` has work the scheduler must keep waiting on."""
@@ -88,15 +119,49 @@ class QueryBatcher:
             self.pending() >= max(1, self.policy.max_batch)
 
     def flush(self) -> int:
-        raise NotImplementedError("stateless batched query serving "
-                                  "(gather-stack-flush): ROADMAP M3")
+        """Serve every pending request; returns the number served."""
+        if not self.endpoint.alive:
+            raise NotImplementedError("re-dispatch after an endpoint death "
+                                      "(failover): ROADMAP M6")
+        adm = self.admission
+        served = 0
+        batchable = self.run.pipe.plan.query_batchable
+        while True:
+            self._ingest()
+            if not len(adm):
+                break
+            if not batchable:
+                rec = adm.take(1)[0]
+                self._serve_sequential(rec)
+                served += 1
+                continue
+            recs = adm.take(self.policy.max_batch)
+            raws = [r.raw for r in recs]
+            if self.fused:
+                for pairs, codec in self._group_wire(raws):
+                    if codec.partition(":")[0] == "none":
+                        self._serve_batched(pairs)    # nothing to fuse
+                    else:
+                        self._serve_batched_wire(pairs, codec)
+            else:
+                for group in self._group(raws):
+                    self._serve_batched(group)
+            for rec in recs:
+                adm.mark_served(rec)
+            served += len(recs)
+        if served:
+            self.flushes += 1
+        return served
 
     def _ingest(self):
         self.admission.ingest_channel(self.endpoint.requests)
 
+    # -- gather & grouping -----------------------------------------------------
     def _decode(self, raw: StreamBuffer) -> Tuple[StreamBuffer, Dict]:
         """Host-level decode + routing-meta hoist -> (clean frame, routing
-        dict to re-attach on the answer)."""
+        dict to re-attach on the answer).  Routing is read off the WIRE
+        buffer: decode strips the wire-form ``codec`` claim, but the
+        client's codec still routes its answer's encode."""
         codec = raw.meta.get("codec", "none")
         buf = comp.decode(raw, codec)
         routing = {k: raw.meta[k] for k in _ROUTING_KEYS if k in raw.meta}
@@ -104,11 +169,148 @@ class QueryBatcher:
                                 if k not in _ROUTING_KEYS})
         return clean, routing
 
+    def _group(self, raws: List[StreamBuffer]):
+        """Decoded requests in consecutive same-structure groups, arrival
+        order kept (eager path)."""
+        groups: List[List[Tuple[StreamBuffer, Dict]]] = []
+        last_key = None
+        for raw in raws:
+            clean, routing = self._decode(raw)
+            key = structure_key(clean)
+            if groups and key == last_key:
+                groups[-1].append((clean, routing))
+            else:
+                groups.append([(clean, routing)])
+                last_key = key
+        return groups
+
+    def _group_wire(self, raws: List[StreamBuffer]):
+        """Fused-path grouping: consecutive same-(codec, WIRE structure)
+        runs of raw requests, arrival order kept, no decode.  Yields
+        ``([(clean_wire, routing), ...], codec)``; ``codec=none`` requests
+        are already dense."""
+        groups: List[Tuple[List[Tuple[StreamBuffer, Dict]], str]] = []
+        last_key = None
+        for raw in raws:
+            codec = raw.meta.get("codec", "none")
+            pair = self._hoist_wire(raw)
+            key = (codec, structure_key(pair[0]))
+            if groups and key == last_key:
+                groups[-1][0].append(pair)
+            else:
+                groups.append(([pair], codec))
+                last_key = key
+        return groups
+
+    def _hoist_wire(self, raw: StreamBuffer) -> Tuple[StreamBuffer, Dict]:
+        """Routing hoist for a WIRE request: strip routing meta and the
+        wire-form meta (``codec`` becomes the group's parameter and
+        ``sparse_dropped`` differs per frame; either would split
+        same-shaped requests)."""
+        routing = {k: raw.meta[k] for k in _ROUTING_KEYS if k in raw.meta}
+        keep = {k: v for k, v in raw.meta.items()
+                if k not in _ROUTING_KEYS and k not in comp._WIRE_META}
+        return raw.with_(meta=keep), routing
+
+    # -- serving ---------------------------------------------------------------
+    def _serve_sequential(self, rec):
+        """One interpreted server step for a plan the batcher cannot drive
+        hoisted: the request re-enters the HEAD of the channel (no double
+        byte accounting) so the serversrc's own pull sees it."""
+        if self.inline_step is None:
+            raise RuntimeError("sequential serving needs an inline_step")
+        self.endpoint.requests.q.appendleft(rec.raw)
+        self.inline_step()
+        self.sequential_frames += 1
+        self.admission.mark_served(rec)
+
+    def _serve_batched(self, group: List[Tuple[StreamBuffer, Dict]]):
+        """One ``serve_batch`` call over a group of dense requests; each
+        answer replays through the serversink's real apply (encode + push)
+        with its routing restored."""
+        run = self.run
+        plan = run.pipe.plan
+        src = plan.query_sources[0].name
+        frames_in = tuple({src: clean} for clean, _ in group)
+        frames_out, run.state = plan.compiled_serve_batch()(
+            run.params, run.state, frames_in)
+        for (_, routing), frame in zip(group, frames_out):
+            self._route(frame, routing)
+            run.frames += 1
+        self._count(len(group))
+
+    def _serve_batched_wire(self, pairs: List[Tuple[StreamBuffer, Dict]],
+                            codec: str):
+        """One codec-fused ``serve_batch_wire`` call over a same-(codec,
+        structure) group of hoisted wire requests.  The stacked wire
+        answers are split into per-frame views on the device and pushed
+        through the serversink's ``push_wire`` with routing and the loss
+        signal restored; the truncation counts sync once."""
+        run = self.run
+        plan = run.pipe.plan
+        n = len(pairs)
+        src = plan.query_sources[0].name
+        frames_in = tuple({src: clean} for clean, _ in pairs)
+        (wire_outs, app_outs, dropped), run.state = \
+            plan.compiled_serve_batch(codec=codec)(run.params, run.state,
+                                                   frames_in)
+        dropped = {name: d.cpu().numpy() for name, d in dropped.items()}
+        base_codec = codec.partition(":")[0]
+        wire_frames = {name: unstack_buffers(b, n)
+                       for name, b in wire_outs.items()}
+        app_frames = {name: unstack_buffers(b, n)
+                      for name, b in app_outs.items()}
+        for i, (_, routing) in enumerate(pairs):
+            for name, frames in wire_frames.items():
+                wb = frames[i]
+                frame_dropped = (comp.account_sparse_dropped(
+                    dropped[name][:, i]) if name in dropped else 0)
+                # meta layering of the eager path: answer meta, routing,
+                # then the wire-form claims encode stamps
+                meta = {**wb.meta, **routing, "codec": base_codec}
+                if frame_dropped:
+                    meta["sparse_dropped"] = frame_dropped
+                wb = wb.with_(meta=meta)
+                run.pipe.elements[name].push_wire(
+                    wb, comp.wire_nbytes(wb), routing["client_id"])
+            outs_i = {name: frames[i] for name, frames in app_frames.items()}
+            for name, buf in outs_i.items():
+                run.sink_log.setdefault(name, []).append(buf)
+            run.last_outputs = outs_i
+            run.frames += 1
+        self.fused_batches += 1
+        self.fused_frames += n
+        self._count(n)
+
+    def _count(self, n: int):
+        self.batched_frames += n
+        if n > 1:
+            self.batches += 1
+
+    def _route(self, frame_outs: Dict[str, StreamBuffer], routing: Dict):
+        """Deliver one frame's captured outputs: serversink answers replay
+        through the element's apply with routing restored; other sinks land
+        in the server run's sink log."""
+        run = self.run
+        app_outs = {}
+        for name, buf in frame_outs.items():
+            elem = run.pipe.elements[name]
+            if getattr(elem, "is_query_sink", False):
+                answer = buf.with_(meta={**buf.meta, **routing})
+                elem.apply(run.params.get(name, {}), [answer])
+            else:
+                app_outs[name] = buf
+                run.sink_log.setdefault(name, []).append(buf)
+        run.last_outputs = app_outs
+
     def stats(self) -> Dict[str, int]:
         """Base schema every batcher shares (subclasses extend it)."""
         adm = self.admission.stats()
         return {"flushes": self.flushes, "batches": self.batches,
                 "batched_frames": self.batched_frames,
+                "sequential_frames": self.sequential_frames,
+                "fused_batches": self.fused_batches,
+                "fused_frames": self.fused_frames,
                 "admitted_requests": sum(t["admitted"] for t in adm.values()),
                 "served_requests": sum(t["served"] for t in adm.values()),
                 "shed_requests": sum(t["shed"] for t in adm.values()),

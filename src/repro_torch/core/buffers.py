@@ -4,9 +4,13 @@ Port of ``src/repro/core/buffers.py``.  A ``StreamBuffer`` mirrors a
 GstBuffer: tensor payload(s) + presentation timestamp + a metadata dict
 (client-id tags, topic, ...).  The JAX package registers buffers as pytrees;
 the port has its own small flatten (:func:`tree_flatten`) over dicts,
-lists, tuples and StreamBuffers, which gives :func:`structure_key`,
-:func:`stack_buffers` and :func:`unstack_buffers` the same meaning.  The
-codec payload classes (quant8, sparse) wait for slice 2.
+lists, tuples, StreamBuffers and the codec payloads, which gives
+:func:`structure_key`, :func:`stack_buffers` and :func:`unstack_buffers`
+the same meaning.  SPARSE frames carry ``SparsePayload`` block-COO triples
+(``tensor_sparse_enc`` and the sparse wire codec); quant8 wire frames carry
+``Quant8Payload``.  A payload's static fields (``dense_shape``; ``dtype``,
+``shape``, ``view2d``) are part of its treedef, so two framings never
+share a structure key.
 """
 from __future__ import annotations
 
@@ -16,8 +20,49 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StreamBuffer", "structure_key", "tree_flatten", "tree_unflatten",
-           "stack_buffers", "unstack_buffers"]
+__all__ = ["StreamBuffer", "Quant8Payload", "SparsePayload", "structure_key",
+           "tree_flatten", "tree_unflatten", "stack_buffers",
+           "unstack_buffers"]
+
+
+@dataclass
+class SparsePayload:
+    """Fixed-capacity block-COO: values [nb*kb], global flat indices int32
+    [nb*kb], nnz int32 scalar (leading frame axis when stacked)."""
+
+    values: Any
+    indices: Any
+    nnz: Any
+    dense_shape: Tuple[int, ...] = ()
+
+    @property
+    def wire_nbytes(self) -> int:
+        """Bytes transmitted (capacity-bounded framing): values + int32
+        indices + the 4-byte count, from static shapes."""
+        return int(self.values.numel() * self.values.element_size()
+                   + self.indices.numel() * 4 + 4)
+
+
+@dataclass
+class Quant8Payload:
+    """quant8 wire form: int8 tiles + one f32 scale per (32, 128) tile.
+    ``dtype`` is the source dtype's tag (``formats.dtype_name``), ``shape``
+    the source shape, ``view2d`` its logical 2-d view."""
+
+    q: Any
+    scale: Any
+    dtype: str = "float32"
+    shape: Tuple[int, ...] = ()
+    view2d: Tuple[int, int] = (1, 1)
+
+    @property
+    def wire_nbytes(self) -> int:
+        """Bytes transmitted: 1 per LOGICAL element + 4 per scale (the
+        padded tile layout is a kernel-side detail, not wire format)."""
+        n = 1
+        for d in self.shape:
+            n *= int(d)
+        return n + int(self.scale.numel()) * 4
 
 
 @dataclass
@@ -61,13 +106,21 @@ class StreamBuffer:
 def tree_flatten(tree) -> Tuple[List[Any], Tuple]:
     """-> (leaves, treedef).  Containers: dict (sorted keys, as JAX sorts
     them), list, tuple, StreamBuffer (children tensors/pts/headers, static
-    meta in the treedef); ``None`` is an empty node; anything else is a
-    leaf.  Treedefs are hashable and compare equal iff the structures do."""
+    meta in the treedef), Quant8Payload and SparsePayload (array children,
+    static framing fields in the treedef); ``None`` is an empty node;
+    anything else is a leaf.  Treedefs are hashable and compare equal iff
+    the structures do."""
     leaves: List[Any] = []
 
     def go(node):
         if node is None:
             return ("none",)
+        if isinstance(node, Quant8Payload):
+            return ("quant8", go(node.q), go(node.scale), node.dtype,
+                    tuple(node.shape), tuple(node.view2d))
+        if isinstance(node, SparsePayload):
+            return ("sparse", go(node.values), go(node.indices),
+                    go(node.nnz), tuple(node.dense_shape))
         if isinstance(node, StreamBuffer):
             return ("buf", go(node.tensors), go(node.pts), go(node.headers),
                     tuple(sorted(node.meta.items())))
@@ -92,6 +145,12 @@ def tree_unflatten(treedef: Tuple, leaves) -> Any:
             return None
         if kind == "leaf":
             return next(it)
+        if kind == "quant8":
+            return Quant8Payload(q=go(td[1]), scale=go(td[2]), dtype=td[3],
+                                 shape=td[4], view2d=td[5])
+        if kind == "sparse":
+            return SparsePayload(values=go(td[1]), indices=go(td[2]),
+                                 nnz=go(td[3]), dense_shape=td[4])
         if kind == "buf":
             tensors, pts, headers = go(td[1]), go(td[2]), go(td[3])
             return StreamBuffer(tensors=tensors, pts=pts, headers=headers,

@@ -10,22 +10,31 @@ links or rebuilds dicts.  What the serve path needs:
   can drive a server pipeline directly.
 * ``run_deferred`` and :class:`PendingQuery` — a client frame paused at its
   ``tensor_query_client`` until the scheduler has the answer.
-* ``compiled_serve_tick(state)`` — the stateful decode tick of a
-  ``stream_serving`` plan, cached in a process-wide registry keyed by the
-  plan's topology fingerprint and the state's :func:`structure_key`.
+* ``serve_batch`` / ``serve_batch_wire`` — N query requests through the
+  hoisted schedule; the wire variant decodes the stacked requests, runs
+  the DAG once per frame and re-encodes the stacked answers (the fused
+  wire path, DESIGN.md §5).
+* ``compiled_serve_tick(state)`` / ``compiled_serve_batch(codec=)`` — the
+  callables the batchers call, cached in a process-wide registry keyed by
+  the plan's topology fingerprint (plus the state's :func:`structure_key`,
+  or the codec).
 
 The registry holds plain callables (PyTorch runs eagerly); it is kept
 fingerprint-keyed and LRU-capped like the JAX package's executable cache so
-that CUDA-graph captures can take the callables' place later.  Bursts,
-mesh sharding, the fused wire path and compiled deferred segments wait
-(ROADMAP M1, M3, M11).
+that CUDA-graph captures can take the callables' place later.  Mesh
+sharding and compiled deferred segments wait (ROADMAP M11, M1).
+
+Every path serves the DAG once per frame, at the frame's own shapes, so a
+model sees the same GEMM shapes whether a request was served alone, in a
+batch, fused or eager: that is what makes the paths agree bitwise.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from .buffers import StreamBuffer, structure_key
+from .buffers import (StreamBuffer, stack_buffers, structure_key,
+                      unstack_buffers)
 from .element import Element, PipelineContext
 
 __all__ = ["ExecutionPlan", "PendingQuery", "PlanOp",
@@ -206,6 +215,56 @@ class ExecutionPlan:
             return outputs, ctx.next_state
         return PendingQuery(self, params, inputs, ctx, vals, outputs, *res)
 
+    # -- batched serving -------------------------------------------------------
+    def serve_batch(self, params: dict, state: dict, frames: Tuple
+                    ) -> Tuple[Tuple, dict]:
+        """Serve N query requests: ``frames`` is a tuple of
+        ``{serversrc_name: StreamBuffer}`` dicts; returns (per-frame
+        outputs, final state), frame ``i`` being the ``i``-th sequential
+        hoisted ``run``."""
+        outs = []
+        for frame in frames:
+            o, state = self.run(params, state, frame, hoist_io=True,
+                                hoist_queries=True)
+            outs.append(o)
+        return tuple(outs), state
+
+    def serve_batch_wire(self, params: dict, state: dict, wire_frames: Tuple,
+                         codec: str) -> Tuple[Tuple, dict]:
+        """Codec-fused :meth:`serve_batch`: decode of the stacked requests
+        (one launch per tensor), the DAG once per frame, one stacked
+        re-encode of the query answers.
+
+        ``wire_frames`` is a tuple of ``{serversrc_name: wire
+        StreamBuffer}`` dicts of one structure and one ``codec``.  Returns
+        ``((stacked_wire_answers, stacked_app_outs, dropped),
+        final_state)``: wire answers per sink with a leading frame axis
+        (frame ``i`` bitwise what decode → serve → ``encode`` gives), the
+        other sinks' outputs stacked, and per sink the deferred sparse
+        truncation counts int32 [tensors, frames] (empty unless the codec
+        is sparse), still on the device."""
+        from . import compression as comp
+        src = self.query_sources[0].name
+        stacked_wire = stack_buffers([f[src] for f in wire_frames])
+        dense = comp.decode_stacked(stacked_wire, codec)
+        frames = tuple({src: f} for f in unstack_buffers(dense,
+                                                         len(wire_frames)))
+        per_frame, final = self.serve_batch(params, state, frames)
+        outs = stack_buffers(per_frame)
+        sink_names = {e.name for e in self.query_sinks}
+        wire_outs: Dict[str, StreamBuffer] = {}
+        app_outs: Dict[str, StreamBuffer] = {}
+        dropped: Dict[str, Any] = {}
+        for name, buf in outs.items():
+            if name in sink_names:
+                w, drp = comp.encode_stacked(buf, codec)
+                wire_outs[name] = w
+                if drp is not None:
+                    dropped[name] = drp
+            else:
+                app_outs[name] = buf
+        return (wire_outs, app_outs, dropped), final
+
     # -- cached executables ----------------------------------------------------
     def _cache(self) -> Dict[str, Any]:
         ent = _EXEC_CACHE.get(self.fingerprint)
@@ -233,6 +292,25 @@ class ExecutionPlan:
                 return _self.run(params, st, inputs, hoist_io=True,
                                  hoist_queries=True)
             fns[key] = serve_tick
+        return fns[key]
+
+    def compiled_serve_batch(self, codec: Optional[str] = None) -> Callable:
+        """:meth:`serve_batch` ``(params, state, frames) -> (per-frame
+        outputs, final state)``, or with ``codec`` the fused
+        :meth:`serve_batch_wire` ``(params, state, wire_frames) ->
+        ((stacked wire answers, stacked app outs, dropped), final)``,
+        cached under ``("serve_batch", codec)`` so the two kinds, and two
+        codecs, never share an entry."""
+        fns = self._cache()["fns"]
+        key = ("serve_batch", codec)
+        if key not in fns:
+            if codec is None:
+                def serve(params, st, frames, _self=self):
+                    return _self.serve_batch(params, st, frames)
+            else:
+                def serve(params, st, frames, _self=self, _codec=codec):
+                    return _self.serve_batch_wire(params, st, frames, _codec)
+            fns[key] = serve
         return fns[key]
 
 

@@ -219,7 +219,14 @@ class TensorQueryServerSink(Element):
         if client_id is None:
             raise BrokerError(f"{self.name}: answer buffer lost its client_id tag")
         payload, nbytes = comp.encode(buf, buf.meta.get("codec", "none"))
+        self.push_wire(payload, nbytes, client_id)
+        return []
+
+    def push_wire(self, payload: StreamBuffer, nbytes: int, client_id: int):
+        """Route an ALREADY-ENCODED answer (the fused wire path re-encodes
+        a whole batch in one launch; the batcher routes the wire frames with
+        meta restored).  Same channel push and byte accounting as
+        :meth:`apply`."""
         if not self.serversrc.endpoint.client_channel(client_id).push(
                 payload, nbytes):
             self.answer_drops += 1
-        return []

@@ -28,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, str] = {
     "flash_prefill": "flash_prefill.cu",
     "flash_decode": "flash_decode.cu",
+    "quant8": "quant8.cu",
+    "sparse_enc": "sparse_enc.cu",
+    "sparse_dec": "sparse_dec.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -105,3 +108,48 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+# ---------------------------------------------------------------------------
+# what every kernel wrapper shares
+# ---------------------------------------------------------------------------
+
+#: dtype codes of the C entry points (``kFloat32``/``kBFloat16`` in
+#: ``csrc/common.cuh``), keyed by torch dtype name
+DTYPE_CODE = {"float32": 0, "bfloat16": 1}
+
+
+def dtype_code(name: str, dtype) -> int:
+    """The C code of ``dtype``; raises for a dtype the kernels do not
+    take."""
+    tag = str(dtype).rpartition(".")[2]
+    if tag not in DTYPE_CODE:
+        raise TypeError(f"{name} kernel: float32 or bfloat16, got {dtype}")
+    return DTYPE_CODE[tag]
+
+
+def entry(name: str, fn: str, argtypes):
+    """C entry point ``fn`` of library ``name``, its argument types set
+    (``c_void_p`` for pointers and the stream) and returning an int."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def route(name: str, device) -> str:
+    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA tensor; there
+    is no other route and no fallback between the two."""
+    if device.type == "cpu":
+        return "plain"
+    if device.type == "cuda":
+        return "kernel"
+    raise ValueError(f"{name}: no kernel or plain version for {device}")
+
+
+def raise_on(rc: int, name: str):
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

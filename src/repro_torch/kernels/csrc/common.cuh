@@ -14,7 +14,7 @@ namespace repro {
 // Masked-score value; matches NEG_INF of the JAX kernels (kernels/ref.py).
 constexpr float kNegInf = -1e30f;
 
-// dtype codes shared with kernels/flash_attn.py (_DTYPE_CODE)
+// dtype codes shared with kernels/build.py (DTYPE_CODE)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 

@@ -23,6 +23,8 @@ from typing import Dict
 
 import torch
 
+from .build import (dtype_code, entry as _lib, raise_on as _raise_on,
+                    route as _route)
 from .ref import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
@@ -41,8 +43,6 @@ KERNEL_HEAD_DIM = 64
 PREFILL_BLOCK = 64
 DECODE_BLOCK = 128
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 _c = ctypes
 _PREFILL_ARGS = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 6
                  + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
@@ -55,16 +55,8 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _lib(name: str, fn: str, argtypes):
-    from .build import load
-    f = getattr(load(name), fn)
-    if f.argtypes is None:
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    return f
-
-
-def _check_cuda(name: str, *ts):
+def _check_cuda(name: str, *ts) -> int:
+    """Validate the kernel's tensors; -> the C code of their dtype."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -73,22 +65,7 @@ def _check_cuda(name: str, *ts):
             raise TypeError(f"{name}: mixed dtypes {t.dtype} / {ts[0].dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: last dimension must be contiguous")
-    if ts[0].dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16, "
-                        f"got {ts[0].dtype}")
-
-
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
-def _route(name: str, device: torch.device) -> str:
-    if device.type == "cpu":
-        return "plain"
-    if device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"{name}: no kernel or plain version for {device}")
+    return dtype_code(name, ts[0].dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +85,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
     if _route("flash_attention", q.device) == "plain":
         return flash_attention_plain(q, k, v, causal=causal,
                                      kv_groups=kv_groups)
-    _check_cuda("flash_attention", q, k, v)
+    code = _check_cuda("flash_attention", q, k, v)
     sk, dv = v.shape[1], v.shape[2]
     if dk != KERNEL_HEAD_DIM or dv != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: dk == dv == "
@@ -122,7 +99,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
     fn = _lib("flash_prefill", "repro_flash_prefill", _PREFILL_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+        rc = fn(code, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), bh, sq, sk, dk, kv_groups,
                 int(causal), q.stride(0), q.stride(1), k.stride(0),
                 k.stride(1), v.stride(0), v.stride(1), o.stride(0),
@@ -191,7 +168,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
     if _route("flash_decode", q.device) == "plain":
         return flash_decode_plain(q, k_cache, v_cache, pos,
                                   kv_groups=kv_groups)
-    _check_cuda("flash_decode", q, k_cache, v_cache)
+    code = _check_cuda("flash_decode", q, k_cache, v_cache)
     if pos.device != q.device or pos.dtype != torch.int32 or \
             not pos.is_contiguous():
         raise ValueError("flash_decode: pos must be a contiguous int32 "
@@ -206,7 +183,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
     ks, vs = k_cache.stride(), v_cache.stride()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+        rc = fn(code, q.data_ptr(), k_cache.data_ptr(),
                 v_cache.data_ptr(), pos.data_ptr(), o.data_ptr(), s_, h, dk,
                 kv_groups, smax, q.stride(0), ks[0], ks[1], ks[2], vs[0],
                 vs[1], vs[2], o.stride(0), dk ** -0.5, stream)

@@ -1,12 +1,112 @@
-"""Full-softmax attention references (plain torch), in the JAX package's
-layouts and signatures (``src/repro/kernels/ref.py``).  They materialize the
-whole score tensor in f32 — the thing the flash kernels exist to avoid — and
-serve as the oracles the kernels and their plain versions are held to."""
+"""Plain PyTorch references, in the JAX package's layouts and signatures
+(``src/repro/kernels/ref.py``).
+
+* The wire codecs' tile/block constants, ``_sparse_dims``, and the plain
+  versions of K1–K4 (``quantize8_plain``, ``dequantize8_plain``,
+  ``sparse_enc_plain``, ``sparse_dec_plain``).  They state the same
+  contract as the ``*_xla`` functions of ``quant8.py``, ``sparse_enc.py``
+  and ``sparse_dec.py``, bitwise; the kernel wrappers run them for CPU
+  tensors, and ``chip_smoke.py`` holds the CUDA kernels to them.
+* Full-softmax attention (``attn_ref``, ``attn_decode_ref``): they
+  materialize the whole score tensor in f32 — the thing the flash kernels
+  exist to avoid — and serve as the oracles the flash kernels and their
+  plain versions are held to.
+
+Codec contract (shared by the plain versions and the kernels):
+
+* quantize8: per (32, 128) tile, ``scale = amax * f32(1/127)`` (1.0 for an
+  all-zero tile), ``q = round_half_even(x / scale)`` with an IEEE division.
+  The reference writes ``amax / 127.0``, but XLA folds a division by a
+  constant into a multiply by its f32 reciprocal, so that product is what
+  the JAX package computes, on both its routes.
+* sparse_enc (block-COO): each block of 512 keeps its first ``kb``
+  elements with ``|x| > threshold`` (compared in f32), in position order,
+  as (value in the source dtype, global index); empty slots are
+  ``(0, block_base)``; ``cnt = min(nnz, kb)``.
+* sparse_dec: scatter-add of every slot into a zeroed dense block.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
+
+QUANT_BM, QUANT_BN = 32, 128
+SPARSE_B = 512  # elements per sparse block
+
+#: f32(1/127), the reciprocal XLA multiplies by for ``amax / 127.0``
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _sparse_dims(n: int, cap: int):
+    nb = max(1, -(-n // SPARSE_B))
+    kb = max(1, cap // nb)
+    # the per-block capacity is rounded up to a multiple of 8 (the JAX
+    # package's sublane alignment); the wire carries the logical kb
+    kb = min(SPARSE_B, -(-kb // 8) * 8)
+    return nb, kb
+
+
+def _tiles(x: torch.Tensor) -> torch.Tensor:
+    """[M, N] -> [gm, gn, BM, BN] tile view (M % BM == 0, N % BN == 0)."""
+    m, n = x.shape
+    return x.reshape(m // QUANT_BM, QUANT_BM, n // QUANT_BN,
+                     QUANT_BN).permute(0, 2, 1, 3)
+
+
+def _untile(t: torch.Tensor) -> torch.Tensor:
+    gm, gn, bm, bn = t.shape
+    return t.permute(0, 2, 1, 3).reshape(gm * bm, gn * bn)
+
+
+def quantize8_plain(x: torch.Tensor):
+    """x f32 [M, N] (M % 32 == N % 128 == 0) -> (q int8 [M, N], scales f32
+    [M/32, N/128]): the tile view with ``amax``, as ``quantize8_xla``."""
+    tiles = _tiles(x.to(torch.float32))
+    amax = tiles.abs().amax(dim=(2, 3))
+    scales = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
+    # tensor / tensor: a true division on the card too (a CPU-scalar
+    # divisor would be turned into a multiply by its reciprocal there)
+    q = torch.round(tiles / scales[:, :, None, None]).to(torch.int8)
+    return _untile(q), scales
+
+
+def dequantize8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8 [M, N] + f32 [M/32, N/128] -> f32 [M, N]: ``q * scale``."""
+    return _untile(_tiles(q).to(torch.float32) * scales[:, :, None, None])
+
+
+def sparse_enc_plain(flat: torch.Tensor, kb: int, threshold: float = 0.0):
+    """flat [nb*512] -> (values [nb*kb] in flat's dtype, indices int32
+    [nb*kb], counts int32 [nb]): the rank search over ``cumsum(mask)`` of
+    ``sparse_enc_xla`` — slot k of block r holds the (k+1)-th kept element,
+    found by ``searchsorted(cumsum(mask[r]), k+1)``."""
+    nb = flat.shape[0] // SPARSE_B
+    x2 = flat.reshape(nb, SPARSE_B)
+    mask = x2.to(torch.float32).abs() > float(np.float32(threshold))
+    csum = torch.cumsum(mask.to(torch.int32), dim=1).to(torch.int32)
+    ks = torch.arange(1, kb + 1, dtype=torch.int32, device=flat.device)
+    pos = torch.searchsorted(csum, ks.expand(nb, kb).contiguous(),
+                             side="left")
+    valid = pos < SPARSE_B
+    posc = pos.clamp_max(SPARSE_B - 1)
+    base = (torch.arange(nb, dtype=torch.int64, device=flat.device)
+            * SPARSE_B)[:, None]
+    vals = torch.where(valid, torch.gather(x2, 1, posc),
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+    idxs = torch.where(valid, base + posc, base).to(torch.int32)
+    cnts = csum[:, -1].clamp_max(kb).to(torch.int32)
+    return vals.reshape(-1), idxs.reshape(-1), cnts
+
+
+def sparse_dec_plain(v2: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
+    """values/indices [nb, kb] -> dense [nb*512] in the values' dtype: the
+    scatter-add ``zeros().index_add_`` of ``sparse_dec_xla``."""
+    nb = v2.shape[0]
+    dense = torch.zeros(nb * SPARSE_B, dtype=v2.dtype, device=v2.device)
+    return dense.index_add_(0, i2.reshape(-1).to(torch.int64),
+                            v2.reshape(-1))
 
 
 def attn_ref(q, k, v, *, causal: bool = True, kv_groups: int = 1):

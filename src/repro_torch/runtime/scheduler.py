@@ -10,10 +10,18 @@ with a global tick (60 Hz frame cadence, as in the paper's evaluation):
   the Broker ranks first (its batcher flushes early when full);
 * the drain flushes every server batcher — for a ``model_serve`` server
   that is the continuous-batching lifecycle (prefill on arrival, one decode
-  tick per scheduler tick) — and resumes each paused frame with its answer,
-  routed back by ``client_id``; streams still mid-generation re-enter the
-  drain next tick;
+  tick per scheduler tick), for any other server the stateless
+  gather-stack-flush — and resumes each paused frame with its answer,
+  routed back by ``client_id`` and decoded per (codec, structure) group;
+  streams still mid-generation re-enter the drain next tick;
 * pipelines without query clients step once per tick.
+
+Fused wire path (default on, ``fused_wire=True``, DESIGN.md §5): a round's
+requests encode in one stacked launch per codec group, a stateless server
+decodes, serves and re-encodes each group in one fused call, and the
+answers decode in one launch per group.  ``fused_wire=False`` encodes,
+decodes and serves each request on its own (the eager path); both give the
+same answers bitwise.
 
 Every pipeline's tensors live on one device: the GPU unless the caller
 passes ``device="cpu"``.  Leases and failover, parking deadlines, live
@@ -29,8 +37,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..core.admission import merge_tenant_stats
-from ..core.batching import (BatchingPolicy, StreamingQueryBatcher,
-                             DEFAULT_QUERY_BATCH)
+from ..core.batching import (BatchingPolicy, QueryBatcher,
+                             StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
 from ..core.broker import Broker, BrokerError
 from ..core.buffers import StreamBuffer, structure_key
 from ..core.pipeline import Pipeline
@@ -95,7 +103,7 @@ class Runtime:
     def __init__(self, broker: Optional[Broker] = None,
                  tick_ns: int = TICK_NS, query_batch=DEFAULT_QUERY_BATCH,
                  device: DeviceLike = None, qos=None, mesh=None,
-                 delivery=None):
+                 delivery=None, fused_wire: bool = True):
         for value, what in ((qos, "tenant QoS (qos=): ROADMAP M9"),
                             (mesh, "mesh placement (mesh=): ROADMAP M11"),
                             (delivery, "the delivery layer (delivery=): "
@@ -111,8 +119,10 @@ class Runtime:
         if not self.batching.enabled:
             raise NotImplementedError("query_batch=0 (synchronous round "
                                       "trips inside the client): ROADMAP M3")
+        #: fused batched wire path (module docstring)
+        self.fused_wire = bool(fused_wire)
         #: endpoint_id -> batcher for every runtime-wired serversrc
-        self._batchers: Dict[int, StreamingQueryBatcher] = {}
+        self._batchers: Dict[int, QueryBatcher] = {}
         #: frames paused at a query client with no live server yet
         self._parked: List[Tuple[_PipeRun, PendingQuery]] = []
         #: frames whose stream is mid-generation on a live server
@@ -138,14 +148,16 @@ class Runtime:
             if isinstance(e, TensorQueryClient) and e.broker is None:
                 e.connect(self.broker)
             if isinstance(e, TensorQueryServerSrc) and e.registration is None:
-                if not run.pipe.plan.stream_serving:
-                    raise NotImplementedError(
-                        "stateless query servers (gather-stack-flush "
-                        "batching): ROADMAP M3; the port serves "
-                        "model_serve pipelines")
-                batcher = StreamingQueryBatcher(
-                    e.endpoint, run, self.batching,
-                    tick_source=lambda: self.ticks, clock=lambda: self.ticks)
+                if run.pipe.plan.stream_serving:
+                    batcher = StreamingQueryBatcher(
+                        e.endpoint, run, self.batching,
+                        tick_source=lambda: self.ticks,
+                        clock=lambda: self.ticks)
+                else:
+                    batcher = QueryBatcher(
+                        e.endpoint, run, self.batching,
+                        inline_step=lambda r=run: self._run_once(r),
+                        fused=self.fused_wire, clock=lambda: self.ticks)
                 self._batchers[e.endpoint.endpoint_id] = batcher
                 e.connect(self.broker, inline_runner=batcher.flush)
         # renegotiate with the broker wiring in place; the plan keeps its
@@ -230,9 +242,18 @@ class Runtime:
 
     def _dispatch_round(self, fresh: List[Tuple[_PipeRun, PendingQuery]]
                         ) -> List[Tuple[_PipeRun, PendingQuery]]:
-        """Ship a round of freshly paused frames: resolve every endpoint
-        first (unplaceable frames park), encode the requests per codec
-        group, then push in arrival order."""
+        """Ship a round of freshly paused frames.  Fused wire path: resolve
+        every endpoint first (unplaceable frames park), encode the requests
+        per codec group, then push in arrival order.  Eager path: encode
+        and ship each frame on its own."""
+        if not self.fused_wire:
+            out = []
+            for run, pq in fresh:
+                if self._dispatch_query(pq):
+                    out.append((run, pq))
+                else:
+                    self._park(run, pq)
+            return out
         ready = []
         for run, pq in fresh:
             try:
@@ -301,9 +322,8 @@ class Runtime:
                         + ("" if ep.alive else " (endpoint died; failover "
                            "is ROADMAP M6)"))
                 answered.append((run, pq, raw))
-            answers = self._codec_round(
-                [(pq.client, raw) for _, pq, raw in answered],
-                comp.decode_batch)
+            answers = self._decode_answers(
+                [(pq.client, raw) for _, pq, raw in answered])
             for (run, pq, _), answer in zip(answered, answers):
                 res = pq.resume(answer)
                 if isinstance(res, PendingQuery):
@@ -315,6 +335,14 @@ class Runtime:
                     outputs, run.state = res
                     self._finish_frame(run, outputs)
             pending = nxt
+
+    def _decode_answers(self, pairs) -> List[StreamBuffer]:
+        """Decode a drain round's raw answers: one batched decode per
+        (codec, structure) group on the fused path, per frame on the eager
+        one."""
+        if not self.fused_wire:
+            return [comp.decode(raw, qc.codec) for qc, raw in pairs]
+        return self._codec_round(pairs, comp.decode_batch)
 
     def tick(self):
         self.ticks += 1

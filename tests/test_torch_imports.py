@@ -36,8 +36,21 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+#: the wire-codec slice's modules, which the scan must reach
+CODEC_MODULES = ("kernels/ops.py", "kernels/quant8.py",
+                 "kernels/sparse_enc.py", "kernels/sparse_dec.py",
+                 "kernels/ref.py", "core/compression.py",
+                 "core/batching.py", "core/elements.py")
+
+
+def test_the_scan_covers_the_codec_modules():
+    for rel in CODEC_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
+@pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     bad = [m for m in _imports(path)
@@ -47,7 +60,8 @@ def test_no_jax_or_repro_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.launch.model_serve, "
-            "repro_torch.runtime; "
+            "repro_torch.runtime, repro_torch.core.compression, "
+            "repro_torch.kernels.ops, repro_torch.core.elements; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -126,13 +140,3 @@ def test_windowed_layers_wait_for_m5():
                               layer_pattern="GL", window=8)
     with pytest.raises(NotImplementedError, match="M5"):
         tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-
-def test_wire_codecs_wait_for_slice_2():
-    from repro_torch.core import compression as comp
-    from repro_torch.core.buffers import StreamBuffer
-    buf = StreamBuffer(tensors=(torch.zeros(4),))
-    assert comp.encode(buf, "none") == (buf, 16)
-    for codec in ("quant8", "sparse:0.25"):
-        with pytest.raises(NotImplementedError, match="M2"):
-            comp.encode(buf, codec)
