@@ -9,14 +9,18 @@ Phases, one result line each (any failure exits non-zero):
 
 1. environment — torch/CUDA versions and the card's name and power limit;
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once) and prints the seconds;
-3. kernels vs plain — K5 (flash prefill) and K6 (flash decode) against
-   their plain PyTorch versions: fp32 at smoke shapes within atol = rtol =
-   2e-5, and bf16 at the full-width shapes within one bf16 ulp (plus 1e-5
-   absolute) of the plain version computed in f32 from the same bf16
-   inputs; times each kernel,
-   its plain version and ``scaled_dot_product_attention`` (a yardstick the
-   port never calls) with CUDA events, warm L2;
+   (one ``nvcc`` per source, all at once) and prints the seconds and each
+   kernel's registers and spill bytes as ``ptxas`` reports them;
+3. kernels vs plain — K5 (flash prefill: bf16 on the tensor-core kernel,
+   fp32 on the scalar one) and K6 (split-KV flash decode) against their
+   plain PyTorch versions.  3a, smoke shapes (ragged, unequal Sq/Sk, GQA,
+   non-causal) in fp32 within atol = rtol = 2e-5 and in bf16 within one
+   bf16 ulp (plus 1e-5 absolute) of the plain version computed in f32 from
+   the same bf16 inputs, plus the serve path's strided q/k/v views and a
+   misaligned bf16 view that must raise; 3b, the full-width bf16 shapes
+   (K5 at L = 128, 512, 1024) at the same bf16 tolerance; times each
+   kernel, its plain version and ``scaled_dot_product_attention`` (a
+   yardstick the port never calls) with CUDA events, warm L2;
    3c. the wire codecs K1–K4 (quant8, sparse encode/decode) against their
    plain versions, bitwise: ragged smoke shapes (all-zero tiles, exact .5
    ties, f32 and bf16 sparse values, a block over capacity, a threshold
@@ -50,6 +54,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,13 +80,24 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+#: device cycles the stream sleeps before a timed loop (~10 ms at the
+#: H100's 1.98 GHz boost clock): longer than the host takes to enqueue it
+SLEEP_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, iters=20, warmup=3):
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls,
+    warm L2.  The calls are queued behind a device sleep, so they run back
+    to back and the reading is the card's time, not the host's time to
+    enqueue them (a wrapper's Python and ctypes overhead can exceed a fast
+    kernel's device time)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(iters):
         fn()
@@ -117,16 +133,54 @@ def phase_env():
     return smi
 
 
+def _kernel_name(mangled):
+    """The ``..._kernel`` identifier inside a mangled name (identifiers are
+    length-prefixed), plus its dtype where it is a template."""
+    tag = "bf16" if "kernelI13__nv_bfloat16" in mangled else \
+        "f32" if "kernelIf" in mangled else ""
+    for i in range(len(mangled)):   # a length may follow a hex digit
+        m = re.match(r"\d+", mangled[i:])
+        if m:
+            name = mangled[i + m.end():i + m.end() + int(m.group())]
+            if re.fullmatch(r"[A-Za-z]\w*_kernel", name):
+                return name + (f"<{tag}>" if tag else "")
+    return mangled
+
+
+def ptxas_report(log):
+    """``nvcc -Xptxas -v`` output -> [{kernel, registers, spill_stores,
+    spill_loads}], one per compiled kernel."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     log = build.build_all()
     secs = time.perf_counter() - t0
-    regs = {n: [l.split(":", 1)[1].strip() for l in e["ptxas"].splitlines()
-                if "registers" in l] for n, e in log.items()}
-    print(f"phase 2 build: {secs:.1f} s for {sorted(log)}; "
-          f"ptxas {json.dumps(regs)}")
-    return secs
+    report = {n: ptxas_report(e["ptxas"]) for n, e in log.items()}
+    print(f"phase 2 build: {secs:.1f} s for {sorted(log)}")
+    for n, rows in report.items():
+        print(f"phase 2 ptxas {n}: " + ("; ".join(
+            f"{r['kernel']} {r.get('registers', '?')} registers, spill "
+            f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} B "
+            f"stores/loads" for r in rows) or "loaded from an earlier "
+                                               "build, no report"))
+    return secs, report
 
 
 def phase_kernels(seed):
@@ -140,37 +194,73 @@ def phase_kernels(seed):
     def rn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    # -- fp32 at smoke shapes: atol = rtol = 2e-5 ----------------------------
-    worst = 0.0
-    for bh, L, d, grp, causal in [(4, 64, 64, 1, True), (8, 100, 64, 4, True),
-                                  (8, 77, 64, 4, False), (4, 96, 64, 2, True),
-                                  (2, 130, 64, 1, False)]:
-        q, k, v = rn(bh, L, d), rn(bh // grp, L, d), rn(bh // grp, L, d)
-        o = fa.flash_attention(q, k, v, causal=causal, kv_groups=grp)
-        r = fa.flash_attention_plain(q, k, v, causal=causal, kv_groups=grp)
-        torch.cuda.synchronize()
-        err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
-        check(err <= FP32_TOL, f"K5 fp32 {bh}x{L}x{d} g{grp} causal={causal}"
-                               f": error {err}")
-        worst = max(worst, err)
-    for S, H, KV, smax, d in [(3, 8, 2, 300, 64), (3, 4, 4, 64, 64),
-                              (3, 4, 1, 129, 64)]:
-        q, kc, vc = rn(S * H, d), rn(S, smax, KV, d), rn(S, smax, KV, d)
-        pos = torch.tensor([0, smax // 2, smax - 1], dtype=torch.int32,
-                           device=dev)
-        o = fa.flash_decode(q, kc, vc, pos, kv_groups=H // KV)
-        r = fa.flash_decode_plain(q, kc, vc, pos, kv_groups=H // KV)
-        torch.cuda.synchronize()
-        err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
-        check(err <= FP32_TOL, f"K6 fp32 S{S} H{H} KV{KV} Smax{smax} d{d}: "
-                               f"error {err}")
-        worst = max(worst, err)
-    print(f"phase 3a kernels fp32 smoke shapes: pass (atol=rtol={FP32_TOL}, "
-          f"worst excess {worst:.2e})")
+    def excess(o, r, dt):
+        """-> (excess over the tolerance's slack, the tolerance) of kernel
+        output o against the f32 plain version r"""
+        if dt == torch.float32:
+            return ((o - r).abs() - FP32_TOL * r.abs()).max().item(), FP32_TOL
+        return bf16_excess(o, r), BF16_ATOL
+
+    # -- smoke shapes, fp32 (scalar K5) and bf16 (tensor-core K5) -------------
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).rpartition(".")[2]
+        w = float("-inf")
+        for bh, sq, sk, grp, causal in [
+                (4, 64, 64, 1, True), (8, 100, 100, 4, True),
+                (8, 77, 77, 4, False), (4, 96, 96, 2, True),
+                (2, 130, 130, 1, False), (4, 100, 130, 2, True),
+                (4, 130, 100, 1, True)]:
+            q, k, v = (rn(bh, sq, 64, dtype=dt),
+                       rn(bh // grp, sk, 64, dtype=dt),
+                       rn(bh // grp, sk, 64, dtype=dt))
+            o = fa.flash_attention(q, k, v, causal=causal, kv_groups=grp)
+            r = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         causal=causal, kv_groups=grp)
+            torch.cuda.synchronize()
+            err, tol = excess(o, r, dt)
+            check(err <= tol, f"K5 {tag} {bh}x{sq}x{sk} g{grp} "
+                              f"causal={causal}: error {err}")
+            w = max(w, err)
+        for S, H, KV, smax in [(3, 8, 2, 300), (3, 4, 4, 64), (3, 4, 1, 129)]:
+            q = rn(S * H, 64, dtype=dt)
+            kc, vc = (rn(S, smax, KV, 64, dtype=dt) for _ in range(2))
+            pos = torch.tensor([0, smax // 2, smax - 1], dtype=torch.int32,
+                               device=dev)
+            o = fa.flash_decode(q, kc, vc, pos, kv_groups=H // KV)
+            r = fa.flash_decode_plain(q.float(), kc.float(), vc.float(), pos,
+                                      kv_groups=H // KV)
+            torch.cuda.synchronize()
+            err, tol = excess(o, r, dt)
+            check(err <= tol, f"K6 {tag} S{S} H{H} KV{KV} Smax{smax}: "
+                              f"error {err}")
+            w = max(w, err)
+        worst[tag] = w
+    # the serve path's q/k/v: strided [H, L, 64] views of [1, L, H, 64]
+    L, H = 300, 32
+    q2, k2, v2 = (rn(1, L, H, 64, dtype=torch.bfloat16).permute(0, 2, 1, 3)
+                  .reshape(H, L, 64) for _ in range(3))
+    check(q2.stride() == (64, H * 64, 1), f"serve view strides {q2.stride()}")
+    o = fa.flash_attention(q2, k2, v2, causal=True)
+    r = fa.flash_attention_plain(q2.float(), k2.float(), v2.float(),
+                                 causal=True)
+    err = bf16_excess(o, r)
+    check(err <= BF16_ATOL, f"K5 bf16 strided serve view: error {err}")
+    worst["bfloat16"] = max(worst["bfloat16"], err)
+    bad = rn(8, 100, 65, dtype=torch.bfloat16)[:, :, 1:]    # 2-byte offset
+    try:
+        fa.flash_attention(bad, bad, bad)
+        raise SmokeFailure("K5 took a misaligned bf16 view")
+    except ValueError:
+        pass
+    print(f"phase 3a kernels smoke shapes: fp32 pass (atol=rtol={FP32_TOL}, "
+          f"worst excess {worst['float32']:.2e}); bf16 pass (1 ulp + "
+          f"{BF16_ATOL}, worst excess {worst['bfloat16']:.2e}), strided "
+          f"serve view included; a misaligned bf16 view raises")
 
     # -- bf16 at the full-width shapes ----------------------------------------
     table = {}
-    for L in (128, 512):
+    for L in (128, 512, 1024):
         q, k, v = (rn(32, L, 64, dtype=torch.bfloat16) for _ in range(3))
         o = fa.flash_attention(q, k, v, causal=True)
         r = fa.flash_attention_plain(q.float(), k.float(), v.float(),
@@ -488,6 +578,7 @@ def phase_serve(seed):
     rt, srv, runs, wall = _serve(None, "stablelm-1.6b-flash", 8, 1024,
                                  clients, seed, max_ticks=400)
     launches = dict(fa.LAUNCHES)
+    routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
     answers = _check_answers(runs, clients, cfg.vocab, 8)
     qb = rt.stats()["query_batching"]
     check(qb["tokens_generated"] == qb["tokens_delivered"] +
@@ -495,6 +586,9 @@ def phase_serve(seed):
           f"token conservation broken: {qb}")
     check(launches["flash_attention"] == cfg.n_layers * qb["prefills"],
           f"K5 launches {launches} != {cfg.n_layers} x {qb['prefills']}")
+    check(routes == {"sm90": launches["flash_attention"], "scalar": 0},
+          f"K5 launches by route {routes}: the bf16 serve path must run "
+          f"the tensor-core kernel only")
     check(launches["flash_decode"] == cfg.n_layers * qb["decode_ticks"],
           f"K6 launches {launches} != {cfg.n_layers} x "
           f"{qb['decode_ticks']}")
@@ -510,14 +604,15 @@ def phase_serve(seed):
                  qb["decode_ticks"],
                  mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
                  tokens_per_s=qb["tokens_generated"] / wall,
-                 peak_gib=peak_gib, launches=launches)
+                 peak_gib=peak_gib, launches=launches,
+                 prefill_route_launches=routes)
     print(f"phase 4a serve stablelm-1.6b bf16 24 layers slots 8 max_seq "
           f"1024: {len(answers)} answers in {rt.ticks} ticks, "
           f"{wall:.2f} s; prefill {serve['prefill_ms_per_request']:.2f} "
           f"ms/request, decode {serve['decode_ms_per_tick']:.2f} ms/tick "
           f"(mean {serve['mean_active_slots']:.2f} active slots), "
           f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
-          f"launches {launches}")
+          f"launches {launches}, K5 by route {routes}")
 
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     for prompt, gen, got, slot in answers:
@@ -931,7 +1026,7 @@ def main(argv=None):
     import repro_torch  # noqa: F401  (fails at once outside a checkout)
     import torch
     smi = phase_env()
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     table = phase_kernels(args.seed)
     codec_table = phase_codec_kernels(args.seed)
     serve, srv = phase_serve(args.seed)
@@ -949,22 +1044,26 @@ def main(argv=None):
          codec_table["sparse_enc"], offload["sparse:0.15"]["launches"]),
         ("sparse_dec", "sparse_dec.cu", "src/repro/kernels/sparse_dec.py:43",
          codec_table["sparse_dec"], offload["sparse:0.15"]["launches"]),
-        ("flash_attention", "flash_prefill.cu",
+        ("flash_attention", "flash_prefill_sm90.cu",
          "src/repro/kernels/flash_attn.py:70", table["K5 L=512"],
          serve["launches"]),
         ("flash_decode", "flash_decode.cu",
          "src/repro/kernels/flash_attn.py:110",
          table["K6 S=8 max_seq=1024"], serve["launches"]),
     ]
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{src}",
+    csrc = "src/repro_torch/kernels/csrc/"
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
                 **{k: row[k] for k in timed}}
                for name, src, where, row, launches in rows]
+    # K5's two routes: the row above is the bf16 one that the serve path runs
+    kernels[4]["sources"] = {"bfloat16": csrc + "flash_prefill_sm90.cu",
+                             "float32": csrc + "flash_prefill.cu"}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"nvidia_smi": smi, "build_s": build_s,
+                                   "ptxas": ptxas,
                                    "kernels": table,
                                    "codec_kernels": codec_table,
                                    "serve": serve, "profile": profile,

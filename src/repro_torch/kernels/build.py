@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_sm90": "flash_prefill_sm90.cu",
     "flash_decode": "flash_decode.cu",
     "quant8": "quant8.cu",
     "sparse_enc": "sparse_enc.cu",

@@ -1,10 +1,13 @@
-// Flash-attention prefill for Hopper (sm_90a): the port of the TPU kernel
-// ``flash_attention`` in src/repro/kernels/flash_attn.py (body
-// ``_flash_kernel``).
+// Flash-attention prefill for Hopper (sm_90a), fp32 route: the port of the
+// TPU kernel ``flash_attention`` in src/repro/kernels/flash_attn.py (body
+// ``_flash_kernel``).  This file now serves float32 only; bfloat16 (the
+// serve path) runs on the tensor cores in flash_prefill_sm90.cu.  fp32 stays
+// scalar because tensor cores would mean TF32, which the fp32 check (atol =
+// rtol = 2e-5 against the plain version) rightly refuses.
 //
 // Computes, for every (batch*head) row block, causal or full online-softmax
 // attention: scores in f32 scaled by dk^-0.5, masked entries at -1e30, a
-// running (m, l, acc) in f32, l clamped at 1e-30, output in the input type.
+// running (m, l, acc) in f32, l clamped at 1e-30, output in f32.
 // GQA: query head ``bh`` reads kv head ``bh / groups`` straight from memory
 // (never a repeated copy).
 //
@@ -12,16 +15,14 @@
 // query row keeps its scaled q row, its f32 accumulator and (m, l) in
 // registers.  The TPU kernel's sequential kv grid axis with scratch carried
 // across steps becomes a loop inside the block: 32-row K/V tiles are staged
-// through shared memory (converted to f32 once) and every thread reads the
-// same K/V element at a time, a broadcast.  The loop stops at the diagonal
-// tile under causal masking, and the ragged last query tile and key tile
-// are masked in the kernel, so no length has to be a multiple of a tile.
+// through shared memory and every thread reads the same K/V element at a
+// time, a broadcast.  The loop stops at the diagonal tile under causal
+// masking, and the ragged last query tile and key tile are masked in the
+// kernel, so no length has to be a multiple of a tile.
 //
-// Bound.  At the main path's shape (q/k/v [32, L, 64] bf16, causal) the
-// work is ~4*BH*D*L^2/2 FLOPs against 4*BH*L*D*2 bytes: at L = 512 the
-// bytes (8.4 MB, ~2.5 us at 3.35 TB/s) bound it ahead of the bf16 tensor
-// core rate.  This first version uses scalar f32 FMAs, not wgmma, so it is
-// compute-bound far above that bound; tensor cores and TMA are later work.
+// Bound.  The work is ~4*BH*D*L^2/2 FLOPs against 4*BH*L*D*4 bytes; on
+// scalar f32 FMAs (67 TFLOP/s peak) it is compute-bound far above the byte
+// bound.  Only the fp32 smoke configurations reach it.
 #include "common.cuh"
 
 namespace repro {
@@ -138,7 +139,7 @@ static void launch_prefill(const void* q, const void* k, const void* v,
 
 }  // namespace repro
 
-// Instantiated for head dim 64 only, that of every configuration served.
+// float32, head dim 64 only (that of every configuration served).
 extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int BH, int Sq,
                                    int Sk, int D, int groups, int causal,
@@ -154,8 +155,6 @@ extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                         k_sbh, k_ss, v_sbh, v_ss, o_sbh, o_ss, scale, st)
   if (dtype == kFloat32 && D == 64) {
     REPRO_PREFILL(float, 64);
-  } else if (dtype == kBFloat16 && D == 64) {
-    REPRO_PREFILL(__nv_bfloat16, 64);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,8 +10,14 @@ dispatches on the tensors' device:
   first use, see ``build.py`` — or raises.  There is no fallback from the
   card to the plain version.
 
+K5 has two routes on the card (:func:`prefill_route`): bfloat16 runs the
+tensor-core kernel ``flash_prefill_sm90.cu`` (wgmma + TMA), float32 the
+scalar kernel ``flash_prefill.cu``.  K6 is split-KV in ``flash_decode.cu``
+(a partial pass and a combine pass) for both dtypes.
+
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count), so a run can show that its path went through the kernels.
+count), so a run can show that its path went through the kernels;
+``PREFILL_ROUTE_LAUNCHES`` splits K5's count by route.
 
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its CUDA source.
@@ -23,16 +29,19 @@ from typing import Dict
 
 import torch
 
-from .build import (dtype_code, entry as _lib, raise_on as _raise_on,
-                    route as _route)
+from .build import (DTYPE_CODE, dtype_code, entry as _lib,
+                    raise_on as _raise_on, route as _route)
 from .ref import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
-           "flash_decode_plain", "LAUNCHES", "reset_launches",
-           "KERNEL_HEAD_DIM"]
+           "flash_decode_plain", "LAUNCHES", "PREFILL_ROUTE_LAUNCHES",
+           "reset_launches", "KERNEL_HEAD_DIM", "prefill_route",
+           "tma_aligned", "decode_splits", "decode_scratch_shape"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
+#: K5's launches by route (:func:`prefill_route`), counted with LAUNCHES
+PREFILL_ROUTE_LAUNCHES: Dict[str, int] = {"sm90": 0, "scalar": 0}
 
 #: the head dim the CUDA kernels are instantiated for (dk == dv): that of
 #: every configuration the port serves
@@ -42,17 +51,59 @@ KERNEL_HEAD_DIM = 64
 #: block; any width gives the same online softmax up to f32 rounding)
 PREFILL_BLOCK = 64
 DECODE_BLOCK = 128
+#: keys per block of K6's split-KV partial pass (``kDecodeSplit`` in
+#: csrc/flash_decode.cu)
+DECODE_SPLIT = 128
 
 _c = ctypes
 _PREFILL_ARGS = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 6
                  + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
-_DECODE_ARGS = ([_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5
+_PREFILL_SM90_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 5
+                      + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
+_DECODE_ARGS = ([_c.c_int] + [_c.c_void_p] * 6 + [_c.c_int] * 6
                 + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PREFILL_ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def prefill_route(dtype) -> str:
+    """K5's kernel on the card for ``dtype``: ``"sm90"`` (bfloat16, tensor
+    cores) or ``"scalar"`` (float32: tensor cores would mean TF32, outside
+    the fp32 tolerance).  Raises for a dtype no kernel takes."""
+    return "sm90" if dtype_code("flash_attention", dtype) == \
+        DTYPE_CODE["bfloat16"] else "scalar"
+
+
+def tma_aligned(data_ptr: int, strides, itemsize: int) -> bool:
+    """Whether a tensor meets the 16-byte rule of TMA and of 16-byte vector
+    loads: base address 16-byte aligned, last dim contiguous, every other
+    stride a whole number of 16-byte words."""
+    return (data_ptr % 16 == 0 and strides[-1] == 1 and
+            all(s * itemsize % 16 == 0 for s in strides[:-1]))
+
+
+def _check_aligned(name: str, *ts):
+    for t in ts:
+        if not tma_aligned(t.data_ptr(), t.stride(), t.element_size()):
+            raise ValueError(
+                f"{name} kernel: {tuple(t.shape)} {t.dtype} with strides "
+                f"{t.stride()} at address {t.data_ptr():#x} is not 16-byte "
+                f"aligned (base, and every stride but the last)")
+
+
+def decode_splits(max_seq: int) -> int:
+    """NSPLIT of K6's partial pass: one block per ``DECODE_SPLIT`` keys of
+    the cache, from the shape alone (the host never reads ``pos``)."""
+    return -(-max_seq // DECODE_SPLIT)
+
+
+def decode_scratch_shape(rows: int, max_seq: int, dv: int = KERNEL_HEAD_DIM):
+    """K6's f32 scratch: per (slot·head) row and split, (m, l, acc[dv])."""
+    return (rows, decode_splits(max_seq), dv + 2)
 
 
 def _check_cuda(name: str, *ts) -> int:
@@ -92,20 +143,31 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
                          f"{KERNEL_HEAD_DIM} required, got dk={dk} dv={dv}")
     if bh > 65535:
         raise ValueError(f"flash_attention kernel: {bh} heads exceed the "
-                         f"grid's y limit of 65535")
+                         f"grid's limit of 65535")
+    route = prefill_route(q.dtype)
+    if route == "sm90":
+        _check_aligned("flash_attention", q, k, v)
     o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     if sq == 0:
         return o
-    fn = _lib("flash_prefill", "repro_flash_prefill", _PREFILL_ARGS)
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+               v.stride(0), v.stride(1), o.stride(0), o.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(code, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), bh, sq, sk, dk, kv_groups,
-                int(causal), q.stride(0), q.stride(1), k.stride(0),
-                k.stride(1), v.stride(0), v.stride(1), o.stride(0),
-                o.stride(1), dk ** -0.5, stream)
+        if route == "sm90":
+            fn = _lib("flash_prefill_sm90", "repro_flash_prefill_sm90",
+                      _PREFILL_SM90_ARGS)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    bh, sq, sk, kv_groups, int(causal), *strides, dk ** -0.5,
+                    stream)
+        else:
+            fn = _lib("flash_prefill", "repro_flash_prefill", _PREFILL_ARGS)
+            rc = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), bh, sq, sk, dk, kv_groups, int(causal),
+                    *strides, dk ** -0.5, stream)
     _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    PREFILL_ROUTE_LAUNCHES[route] += 1
     return o
 
 
@@ -156,7 +218,12 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
     q [S·H, dk] (row ``s·H + h``); k_cache [S, max_seq, kv, dk] and v_cache
     [S, max_seq, kv, dv] in their stored layout (read by strides, never
     transposed); pos int32 [S] on the cache's device, the last valid cache
-    index per slot -> [S·H, dv] in q's dtype.  ``H = kv · kv_groups``."""
+    index per slot -> [S·H, dv] in q's dtype.  ``H = kv · kv_groups``.
+
+    On the card this is two launches (split-KV partials into an f32 scratch
+    of :func:`decode_scratch_shape`, then their combine); ``LAUNCHES``
+    counts the call once.  The caches must meet :func:`tma_aligned` (the
+    kernel loads 16 bytes a lane); one that does not raises."""
     s_, smax, kvh, dk = k_cache.shape
     dv = v_cache.shape[-1]
     h = kvh * kv_groups
@@ -176,17 +243,25 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
     if dk != KERNEL_HEAD_DIM or dv != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_decode kernel: dk == dv == "
                          f"{KERNEL_HEAD_DIM} required, got dk={dk} dv={dv}")
+    _check_aligned("flash_decode", k_cache, v_cache)
+    nsplit = decode_splits(smax)
+    if smax < 1 or nsplit > 65535:
+        raise ValueError(f"flash_decode kernel: max_seq {smax} outside "
+                         f"[1, {65535 * DECODE_SPLIT}]")
     o = torch.empty((s_ * h, dv), dtype=q.dtype, device=q.device)
     if s_ == 0:
         return o
+    part = torch.empty(decode_scratch_shape(s_ * h, smax, dv),
+                       dtype=torch.float32, device=q.device)
     fn = _lib("flash_decode", "repro_flash_decode", _DECODE_ARGS)
     ks, vs = k_cache.stride(), v_cache.stride()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(code, q.data_ptr(), k_cache.data_ptr(),
-                v_cache.data_ptr(), pos.data_ptr(), o.data_ptr(), s_, h, dk,
-                kv_groups, smax, q.stride(0), ks[0], ks[1], ks[2], vs[0],
-                vs[1], vs[2], o.stride(0), dk ** -0.5, stream)
+                v_cache.data_ptr(), pos.data_ptr(), part.data_ptr(),
+                o.data_ptr(), s_, h, dk, kv_groups, smax, nsplit,
+                q.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                o.stride(0), dk ** -0.5, stream)
     _raise_on(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return o

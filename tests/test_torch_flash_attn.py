@@ -214,36 +214,93 @@ def test_wrappers_reject_mismatched_shapes():
 # the CUDA kernels (on the card only)
 # ---------------------------------------------------------------------------
 
+def _card_tol(dt):
+    return TOL if dt == torch.float32 else dict(atol=1e-5, rtol=2 ** -7)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_kernel_matches_plain_on_card(cuda, dtype):
+@pytest.mark.parametrize("dtype,bh,sq,sk,groups,causal", [
+    ("float32", 8, 100, 100, 4, True),
+    ("bfloat16", 8, 100, 100, 4, True),
+    ("bfloat16", 4, 77, 77, 1, True),       # ragged Sq = Sk
+    ("bfloat16", 4, 100, 130, 2, True),     # Sq < Sk
+    ("bfloat16", 4, 130, 100, 2, True),     # Sq > Sk
+    ("bfloat16", 8, 130, 130, 4, False),
+    ("bfloat16", 4, 77, 100, 2, False),
+    ("bfloat16", 32, 512, 512, 1, True),
+])
+def test_prefill_kernel_matches_plain_on_card(cuda, dtype, bh, sq, sk,
+                                              groups, causal):
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(a).to(cuda, dt) for a in
-               _rand(6, (8, 100, 64), (2, 100, 64), (2, 100, 64)))
+               _rand(6, (bh, sq, 64), (bh // groups, sk, 64),
+                     (bh // groups, sk, 64)))
     before = fa.LAUNCHES["flash_attention"]
-    o = fa.flash_attention(q, k, v, causal=True, kv_groups=4)
+    route = dict(fa.PREFILL_ROUTE_LAUNCHES)
+    o = fa.flash_attention(q, k, v, causal=causal, kv_groups=groups)
     ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                   causal=True, kv_groups=4)
+                                   causal=causal, kv_groups=groups)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
-    tol = TOL if dt == torch.float32 else dict(atol=1e-5, rtol=2 ** -7)
+    want = fa.prefill_route(dt)
+    assert fa.PREFILL_ROUTE_LAUNCHES[want] == route[want] + 1
     np.testing.assert_allclose(o.float().cpu().numpy(), ref.cpu().numpy(),
-                               **tol)
+                               **_card_tol(dt))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_kernel_matches_plain_on_card(cuda, dtype):
+def test_prefill_kernel_takes_the_serve_layout_on_card(cuda):
+    """q/k/v as ``attn_prefill`` passes them at B = 1: [H, L, 64] views of
+    [1, L, H, 64] (head stride 128 B, row stride H·128 B), no copy."""
+    H, L = 32, 300
+    q2, k2, v2 = (torch.as_tensor(a).to(cuda, torch.bfloat16)
+                  .permute(0, 2, 1, 3).reshape(H, L, 64) for a in
+                  _rand(8, (1, L, H, 64), (1, L, H, 64), (1, L, H, 64)))
+    assert q2.stride() == (64, H * 64, 1)
+    o = fa.flash_attention(q2, k2, v2, causal=True)
+    ref = fa.flash_attention_plain(q2.float(), k2.float(), v2.float(),
+                                   causal=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(), ref.cpu().numpy(),
+                               **_card_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_misaligned_bf16_views_raise_on_card(cuda):
+    """TMA (K5) and K6's 16-byte loads need 16-byte aligned bases and
+    strides; a view that breaks that raises and is never copied."""
+    bad = torch.zeros((8, 100, 65), dtype=torch.bfloat16,
+                      device=cuda)[:, :, 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(bad, bad, bad)
+    cache = torch.zeros((2, 64, 2, 65), dtype=torch.bfloat16,
+                        device=cuda)[..., 1:]
+    q = torch.zeros((2 * 4, 64), dtype=torch.bfloat16, device=cuda)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_decode(q, cache, cache, pos, kv_groups=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S,H,kv,smax,pos", [
+    ("float32", 3, 8, 2, 300, [0, 150, 299]),
+    ("bfloat16", 3, 8, 2, 300, [0, 150, 299]),        # GQA 4, ragged
+    ("bfloat16", 4, 8, 4, 256, [0, 127, 128, 255]),   # GQA 2
+    ("bfloat16", 8, 32, 32, 1024, [0, 1, 127, 128, 511, 512, 1000, 1023]),
+])
+def test_decode_kernel_matches_plain_on_card(cuda, dtype, S, H, kv, smax,
+                                             pos):
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(a).to(cuda, dt) for a in
-               _rand(7, (3 * 8, 64), (3, 300, 2, 64), (3, 300, 2, 64)))
-    pos = torch.tensor([0, 150, 299], dtype=torch.int32, device=cuda)
+               _rand(7, (S * H, 64), (S, smax, kv, 64), (S, smax, kv, 64)))
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     before = fa.LAUNCHES["flash_decode"]
-    o = fa.flash_decode(q, k, v, pos, kv_groups=4)
+    o = fa.flash_decode(q, k, v, pos, kv_groups=H // kv)
     ref = fa.flash_decode_plain(q.float(), k.float(), v.float(), pos,
-                                kv_groups=4)
+                                kv_groups=H // kv)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_decode"] == before + 1
-    tol = TOL if dt == torch.float32 else dict(atol=1e-5, rtol=2 ** -7)
     np.testing.assert_allclose(o.float().cpu().numpy(), ref.cpu().numpy(),
-                               **tol)
+                               **_card_tol(dt))
+    # no atomics: the same call gives the same bits
+    assert torch.equal(o, fa.flash_decode(q, k, v, pos, kv_groups=H // kv))
