@@ -24,10 +24,14 @@ Phases, one result line each (any failure exits non-zero):
    3c. the wire codecs K1–K4 (quant8, sparse encode/decode) against their
    plain versions, bitwise: ragged smoke shapes (all-zero tiles, exact .5
    ties, f32 and bf16 sparse values, a block over capacity, a threshold
-   through ``tensor_sparse_enc``) and the full-width stacked shapes of
-   phase 6; times each kernel, its plain version and, where one PyTorch
-   call computes the same function, that call (K2: a broadcast
-   ``torch.mul``; K4: ``index_add_``; yardsticks the port never calls);
+   through ``tensor_sparse_enc``; K3 at kb = 1, 8, 80 and 512 with its
+   uncapped counts and frame-local indices, and a misaligned view on its
+   scalar-load route) and the full-width stacked shapes of phase 6; times
+   each kernel, its plain version and, where one PyTorch call computes the
+   same function, that call (K2: a broadcast ``torch.mul``; K4:
+   ``index_add_``; yardsticks the port never calls); K3 also with its
+   input cold in L2, as one stacked encode, and the two torch passes it
+   took over (the nonzero count and the index rebase);
 4. serve — stablelm-1.6b at full width (24 layers, bf16, flash attention)
    behind ``serve_pipeline(slots=8, max_seq=1024)`` with 8 staggered
    clients; checks every answer, token conservation, the kernels' launch
@@ -53,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -138,6 +143,8 @@ def _kernel_name(mangled):
     length-prefixed), plus its dtype where it is a template."""
     tag = "bf16" if "kernelI13__nv_bfloat16" in mangled else \
         "f32" if "kernelIf" in mangled else ""
+    if "sparse_enc_kernel" in mangled and "Lb1E" in mangled:
+        tag += ",scalar loads"          # K3's kScalar instantiation
     for i in range(len(mangled)):   # a length may follow a hex digit
         m = re.match(r"\d+", mangled[i:])
         if m:
@@ -402,6 +409,46 @@ def phase_codec_kernels(seed):
         same_bits(kd.sparse_dec(v2, i2), ref.sparse_dec_plain(v2, i2),
                   f"K4 n={n} kb={kb} {dtype}")
         n_cases += 1
+    # K3's kb range, its totals, frame-local indices and the scalar-load
+    # route of a misaligned view, each against the plain version
+    mixed = rng.standard_normal(4 * 5 * ref.SPARSE_B).astype(np.float32)
+    dens = np.repeat(rng.choice([0.0, 0.05, 0.3, 0.9], 20), ref.SPARSE_B)
+    mixed[rng.random(mixed.size) >= dens] = 0.0
+    mixed[(mixed == 0) & (rng.random(mixed.size) < 0.5)] = -0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = cu(mixed).to(dtype)
+        nb = flat.numel() // ref.SPARSE_B
+        for kb in (1, 8, 80, 512):
+            got = ke.sparse_enc(flat, kb=kb, threshold=0.5, frame_blocks=5,
+                                totals=True)
+            want = ref.sparse_enc_plain(flat, kb, 0.5, frame_blocks=5,
+                                        totals=True)
+            for g_, w_, part in zip(got, want, ("values", "indices",
+                                                "counts", "totals")):
+                same_bits(g_, w_, f"K3 {part} kb={kb} {dtype} frame-local")
+            truth = (flat.float().abs() > 0.5).reshape(nb, ref.SPARSE_B)
+            check(torch.equal(got[3], truth.sum(1, dtype=torch.int32)),
+                  f"K3 totals kb={kb} {dtype} != count of |x| > 0.5")
+            glob = ke.sparse_enc(flat, kb=kb, threshold=0.5)
+            off = (torch.arange(4, dtype=torch.int32, device=dev)
+                   * (5 * ref.SPARSE_B))[:, None]
+            same_bits(got[1].reshape(4, -1), glob[1].reshape(4, -1) - off,
+                      f"K3 frame-local kb={kb} {dtype} vs global - offset")
+            n_cases += 1
+        view = torch.cat([flat[:1], flat])[1:]  # the same data, one in
+        check(ke.enc_route(view) == "scalar", "K3: the misaligned view "
+                                              "is 16-byte aligned")
+        before = ke.ENC_ROUTE_LAUNCHES["scalar"]
+        got = ke.sparse_enc(view, kb=80, threshold=0.5, frame_blocks=5,
+                            totals=True)
+        check(ke.ENC_ROUTE_LAUNCHES["scalar"] == before + 1,
+              "K3: the misaligned view did not take the scalar route")
+        want = ref.sparse_enc_plain(view, 80, 0.5, frame_blocks=5,
+                                    totals=True)
+        for g_, w_, part in zip(got, want, ("values", "indices", "counts",
+                                            "totals")):
+            same_bits(g_, w_, f"K3 {part} misaligned {dtype}")
+        n_cases += 1
     x = cu(rng.standard_normal((6, 200)).astype(np.float32))
     elem = TensorSparseEnc(max_nnz=1200, threshold=0.5)
     sp = elem.apply({}, [StreamBuffer(tensors=(x,))])[0].tensors[0]
@@ -416,7 +463,9 @@ def phase_codec_kernels(seed):
     n_cases += 1
     torch.cuda.synchronize()
     print(f"phase 3c codec kernels smoke shapes: {n_cases} cases bitwise "
-          f"(ragged, zero tile, .5 ties, bf16, over capacity, threshold)")
+          f"(ragged, zero tile, .5 ties, bf16, over capacity, threshold; "
+          f"K3 kb 1..512 with totals and frame-local indices, and a "
+          f"misaligned view on the scalar-load route)")
 
     # -- the full-width stacked shapes of phase 6 -------------------------------
     table = {}
@@ -457,12 +506,18 @@ def phase_codec_kernels(seed):
     xs = torch.randn(b * n, generator=g, device=dev)
     xs = torch.where(torch.rand(b * n, generator=g, device=dev) < 0.10, xs,
                      torch.zeros_like(xs))
-    got = ke.sparse_enc(xs, kb=kb)
-    want = ref.sparse_enc_plain(xs, kb)
-    for g_, w_, part in zip(got, want, ("values", "indices", "counts")):
+    # the main path's call: frame-local indices and the uncapped counts
+    got = ke.sparse_enc(xs, kb=kb, frame_blocks=nb, totals=True)
+    want = ref.sparse_enc_plain(xs, kb, frame_blocks=nb, totals=True)
+    for g_, w_, part in zip(got, want, ("values", "indices", "counts",
+                                        "totals")):
         same_bits(g_, w_, f"K3 full width {part}")
-    v2 = got[0].reshape(b * nb, kb)
-    i2 = got[1].reshape(b * nb, kb)
+    glob = ke.sparse_enc(xs, kb=kb)        # global indices, K4's input
+    for g_, w_, part in zip(glob, ref.sparse_enc_plain(xs, kb),
+                            ("values", "indices", "counts")):
+        same_bits(g_, w_, f"K3 full width global {part}")
+    v2 = glob[0].reshape(b * nb, kb)
+    i2 = glob[1].reshape(b * nb, kb)
     dense = kd.sparse_dec(v2, i2)
     pdense = ref.sparse_dec_plain(v2, i2)
     same_bits(dense, pdense, "K4 full width")
@@ -470,15 +525,42 @@ def phase_codec_kernels(seed):
     truth = int((xs != 0).sum())
     idx64 = i2.reshape(-1).long()
     vflat = v2.reshape(-1)
-    enc_bytes = xs.numel() * 4 + v2.numel() * 8 + nb * b * 4
+    # one stacked encode as the codec runs it, and the two passes the
+    # kernel took over (the true-nonzero count and the index rebase), run
+    # as the earlier ops did them at the same shape
+    x8 = xs.view(b, n)
+    cap = int(n * 0.15)
+    st = ops.sparse_enc_stacked(x8, cap, 0.0, with_total=True)
+    same_bits(st[1], got[1].view(b, nb * kb), "K3 stacked indices")
+    same_bits(st[3], (x8 != 0).sum(1, dtype=torch.int32), "K3 stacked "
+                                                          "totals")
+    old_idx = glob[1].view(b, nb * kb)
+
+    def removed_glue():
+        off = (torch.arange(b, dtype=torch.int32, device=dev)
+               * (nb * ref.SPARSE_B))[:, None]
+        return old_idx - off, (x8.abs() > 0).sum(dim=1).to(torch.int32)
+    same_bits(removed_glue()[0], st[1], "K3 frame-local vs the old rebase")
+    same_bits(removed_glue()[1], st[3], "K3 totals vs the old count")
+    copies = [xs] + [xs.clone() for _ in range(3)]     # > 100 MB: past L2
+    cycle = itertools.cycle(copies)
+    enc_bytes = xs.numel() * 4 + v2.numel() * 8 + nb * b * 4 * 2
     dec_bytes = v2.numel() * 8 + dense.numel() * 4
     table["sparse_enc"] = dict(
         shape=f"f32 [{b}*{n}], 10% nonzero, kb={kb}",
         max_abs_err=max(err(g_, w_) for g_, w_ in zip(got, want)),
-        ms=cuda_ms(lambda: ke.sparse_enc(xs, kb=kb)),
-        plain_ms=cuda_ms(lambda: ref.sparse_enc_plain(xs, kb)),
+        ms=cuda_ms(lambda: ke.sparse_enc(xs, kb=kb, frame_blocks=nb,
+                                         totals=True)),
+        cold_ms=cuda_ms(lambda: ke.sparse_enc(next(cycle), kb=kb,
+                                              frame_blocks=nb, totals=True)),
+        plain_ms=cuda_ms(lambda: ref.sparse_enc_plain(
+            xs, kb, frame_blocks=nb, totals=True)),
+        removed_glue_ms=cuda_ms(removed_glue),
+        stacked_ms=cuda_ms(lambda: ops.sparse_enc_stacked(
+            x8, cap, 0.0, with_total=True)),
         library_ms=None, bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", kept=kept, nonzeros=truth)
+    del copies, cycle
     table["sparse_dec"] = dict(
         shape=f"[{b}*{nb}, {kb}] -> f32 [{b}*{n}]",
         max_abs_err=err(dense, pdense),
@@ -490,8 +572,12 @@ def phase_codec_kernels(seed):
     for name, row in table.items():
         lib = "library —" if row["library_ms"] is None else \
             f"{row['library']} {row['library_ms']:.4f} ms"
+        extra = "" if "cold_ms" not in row else (
+            f" (cold L2 {row['cold_ms']:.4f} ms; one stacked encode "
+            f"{row['stacked_ms']:.4f} ms; the removed count and rebase "
+            f"passes {row['removed_glue_ms']:.4f} ms)")
         print(f"phase 3c {name} {row['shape']}: bitwise, kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{row['ms']:.4f} ms{extra}, plain {row['plain_ms']:.4f} ms, "
               f"{lib}, bound {row['bound_ms']:.5f} ms (bytes)")
     return table
 
@@ -890,6 +976,7 @@ def phase_offload(seed, profile=False):
     import torch
     from repro_torch.core import compression as comp
     from repro_torch.core.buffers import tree_flatten
+    from repro_torch.kernels import sparse_enc as ke
     apply = _register_offload_models(seed)
     L, D, C, T = OFFLOAD_L, OFFLOAD_D, OFFLOAD_CLIENTS, OFFLOAD_TICKS
     expect_bytes = {codec: _wire_bytes(codec, L, D)
@@ -903,6 +990,7 @@ def phase_offload(seed, profile=False):
         rt, runs, srv, seen, secs = _offload(None, "offload-gate", codec, L,
                                              D, C, T, seed, query_batch=8)
         launches = _launch_counts()
+        enc_routes = dict(ke.ENC_ROUTE_LAUNCHES)
         fused = _answers(runs, T, f"{tag} fused")
         qb = rt.stats()["query_batching"]
         check(qb["fused_frames"] == C * T,
@@ -958,7 +1046,8 @@ def phase_offload(seed, profile=False):
                    wire_kib_per_request=expect_bytes[codec] / 1024,
                    raw_kib_per_request=L * D * 4 / 1024,
                    launches={k: launches[k] for k in expect_kernels[codec]},
-                   codec_stats=stats, fused_frames=qb["fused_frames"])
+                   codec_stats=stats, fused_frames=qb["fused_frames"],
+                   enc_routes=enc_routes)
         out[codec] = row
         print(f"phase {tag} offload {codec} f32 [1, {L}, {D}] x {C} clients "
               f"x {T} ticks: {C * T} answers; ms/tick "
@@ -967,7 +1056,9 @@ def phase_offload(seed, profile=False):
               f"{'/'.join(f'{x:.3f}' for x in pct)}; "
               f"{row['wire_kib_per_request']:.2f} KiB on the wire per "
               f"request (raw {row['raw_kib_per_request']:.0f} KiB); "
-              f"launches {row['launches']}; fused == eager == batch 1 and "
+              f"launches {row['launches']}"
+              f"{'' if codec == 'quant8' else f', K3 by route {enc_routes}'}"
+              f"; fused == eager == batch 1 and "
               f"== plain chain, bitwise")
 
     # a small fp32 run on the card against the port's CPU path
@@ -1056,6 +1147,10 @@ def main(argv=None):
                 "replaces": where, "launches": launches[name],
                 **{k: row[k] for k in timed}}
                for name, src, where, row, launches in rows]
+    # K3: the cold-L2 time, one stacked encode, and the passes it absorbed
+    for k in ("cold_ms", "stacked_ms", "removed_glue_ms"):
+        kernels[2][k] = codec_table["sparse_enc"][k]
+    kernels[2]["route_launches"] = offload["sparse:0.15"]["enc_routes"]
     # K5's two routes: the row above is the bf16 one that the serve path runs
     kernels[4]["sources"] = {"bfloat16": csrc + "flash_prefill_sm90.cu",
                              "float32": csrc + "flash_prefill.cu"}

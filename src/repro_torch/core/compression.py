@@ -115,8 +115,10 @@ def _sparse_enc(x: torch.Tensor, density: float = 0.25
     capacity could not carry, kept on the device."""
     cap = _sparse_cap(x.numel(), density)
     flat = x.reshape(-1)
-    values, indices, nnz = kops.sparse_enc(flat, cap, 0.0)
-    true_nnz = (flat.abs() > 0).sum().to(torch.int32)
+    # the codec encodes at threshold 0.0, so the kernel's uncapped count of
+    # |x| > 0 is the reference's true_nnz
+    values, indices, nnz, true_nnz = kops.sparse_enc(flat, cap, 0.0,
+                                                     with_total=True)
     dropped = (true_nnz - nnz).clamp_min(0)
     return SparsePayload(values=values, indices=indices, nnz=nnz,
                          dense_shape=tuple(x.shape)), dropped
@@ -154,8 +156,9 @@ def _sparse_enc_stacked(x: torch.Tensor, density: float
     size = int(np.prod(fshape)) if fshape else 1
     cap = _sparse_cap(size, density)
     flat = x.reshape(x.shape[0], size)
-    values, indices, nnz = kops.sparse_enc_stacked(flat, cap, 0.0)
-    true_nnz = (flat.abs() > 0).sum(dim=1).to(torch.int32)
+    # threshold 0.0: the kernel's uncapped counts are the true nonzeros
+    values, indices, nnz, true_nnz = kops.sparse_enc_stacked(
+        flat, cap, 0.0, with_total=True)
     dropped = (true_nnz - nnz).clamp_min(0)
     return SparsePayload(values=values, indices=indices, nnz=nnz,
                          dense_shape=fshape), dropped

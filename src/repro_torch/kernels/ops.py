@@ -85,35 +85,37 @@ def dequantize8_stacked(q: torch.Tensor, scales: torch.Tensor
     return x.reshape(b, mp, np_)
 
 
-def sparse_enc(flat: torch.Tensor, cap: int, threshold: float = 0.0):
+def sparse_enc(flat: torch.Tensor, cap: int, threshold: float = 0.0,
+               with_total: bool = False):
     """flat [N] -> (values [nb*kb], indices int32 [nb*kb], nnz int32
-    scalar); kb follows from ``cap`` by ``_sparse_dims``."""
+    scalar); kb follows from ``cap`` by ``_sparse_dims``.  ``with_total``
+    adds the uncapped count of |x| > threshold, an int32 scalar, from the
+    same launch."""
     n = int(flat.shape[0])
     nb, kb = _sparse_dims(n, cap)
     pad = nb * SPARSE_B - n
     if pad:
         flat = F.pad(flat, (0, pad))
-    vals, idxs, cnts = _sparse_enc(flat.contiguous(), kb=kb,
-                                   threshold=threshold)
-    return vals, idxs, cnts.sum().to(torch.int32)
+    out = _sparse_enc(flat.contiguous(), kb=kb, threshold=threshold,
+                      totals=with_total)
+    return out[:2] + tuple(c.sum(dtype=torch.int32) for c in out[2:])
 
 
-def sparse_enc_stacked(x: torch.Tensor, cap: int, threshold: float = 0.0):
+def sparse_enc_stacked(x: torch.Tensor, cap: int, threshold: float = 0.0,
+                       with_total: bool = False):
     """Stacked flat frames [B, N] -> (values [B, nb*kb], indices [B, nb*kb],
     nnz int32 [B]) in one launch; frame i is bitwise ``sparse_enc(x[i])``
-    (indices rebased to each frame's own flat coordinates)."""
+    (the kernel writes each frame's own flat coordinates).  ``with_total``
+    adds the uncapped counts, int32 [B]."""
     b, n = x.shape
     nb, kb = _sparse_dims(n, cap)
     pad = nb * SPARSE_B - n
     if pad:
         x = F.pad(x, (0, pad))
-    vals, idxs, cnts = _sparse_enc(x.reshape(-1).contiguous(), kb=kb,
-                                   threshold=threshold)
-    off = (torch.arange(b, dtype=torch.int32, device=x.device)
-           * (nb * SPARSE_B))[:, None]
-    return (vals.reshape(b, nb * kb),
-            idxs.reshape(b, nb * kb) - off,
-            cnts.reshape(b, nb).sum(dim=1).to(torch.int32))
+    out = _sparse_enc(x.reshape(-1).contiguous(), kb=kb, threshold=threshold,
+                      frame_blocks=nb, totals=with_total)
+    return (out[0].reshape(b, nb * kb), out[1].reshape(b, nb * kb)) + tuple(
+        c.reshape(b, nb).sum(dim=1, dtype=torch.int32) for c in out[2:])
 
 
 def sparse_dec(values: torch.Tensor, indices: torch.Tensor, nnz, n: int

@@ -21,11 +21,14 @@ Codec contract (shared by the plain versions and the kernels):
   the JAX package computes, on both its routes.
 * sparse_enc (block-COO): each block of 512 keeps its first ``kb``
   elements with ``|x| > threshold`` (compared in f32), in position order,
-  as (value in the source dtype, global index); empty slots are
-  ``(0, block_base)``; ``cnt = min(nnz, kb)``.
+  as (value in the source dtype, index from the frame's first element);
+  empty slots are ``(0, block_base)``; ``cnt = min(nnz, kb)``, and on
+  request the uncapped ``nnz`` itself.
 * sparse_dec: scatter-add of every slot into a zeroed dense block.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -77,12 +80,18 @@ def dequantize8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return _untile(_tiles(q).to(torch.float32) * scales[:, :, None, None])
 
 
-def sparse_enc_plain(flat: torch.Tensor, kb: int, threshold: float = 0.0):
+def sparse_enc_plain(flat: torch.Tensor, kb: int, threshold: float = 0.0,
+                     frame_blocks: Optional[int] = None,
+                     totals: bool = False):
     """flat [nb*512] -> (values [nb*kb] in flat's dtype, indices int32
     [nb*kb], counts int32 [nb]): the rank search over ``cumsum(mask)`` of
     ``sparse_enc_xla`` — slot k of block r holds the (k+1)-th kept element,
-    found by ``searchsorted(cumsum(mask[r]), k+1)``."""
+    found by ``searchsorted(cumsum(mask[r]), k+1)``.  Indices count from
+    the block's base within its frame of ``frame_blocks`` blocks (default:
+    all of them, i.e. global indices); ``totals`` adds the uncapped counts
+    of kept elements, int32 [nb]."""
     nb = flat.shape[0] // SPARSE_B
+    fb = nb if frame_blocks is None else frame_blocks
     x2 = flat.reshape(nb, SPARSE_B)
     mask = x2.to(torch.float32).abs() > float(np.float32(threshold))
     csum = torch.cumsum(mask.to(torch.int32), dim=1).to(torch.int32)
@@ -91,13 +100,15 @@ def sparse_enc_plain(flat: torch.Tensor, kb: int, threshold: float = 0.0):
                              side="left")
     valid = pos < SPARSE_B
     posc = pos.clamp_max(SPARSE_B - 1)
-    base = (torch.arange(nb, dtype=torch.int64, device=flat.device)
-            * SPARSE_B)[:, None]
+    base = (torch.arange(nb, dtype=torch.int64, device=flat.device) % max(
+        fb, 1) * SPARSE_B)[:, None]
     vals = torch.where(valid, torch.gather(x2, 1, posc),
                        torch.zeros((), dtype=flat.dtype, device=flat.device))
     idxs = torch.where(valid, base + posc, base).to(torch.int32)
-    cnts = csum[:, -1].clamp_max(kb).to(torch.int32)
-    return vals.reshape(-1), idxs.reshape(-1), cnts
+    nnz = csum[:, -1].contiguous()
+    out = (vals.reshape(-1), idxs.reshape(-1),
+           nnz.clamp_max(kb).to(torch.int32))
+    return out + (nnz,) if totals else out
 
 
 def sparse_dec_plain(v2: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
