@@ -39,7 +39,8 @@ Phases, one result line each (any failure exits non-zero):
    stream (replayed in the slot it was served in), and a small fp32 server
    on the card against the port's CPU path;
 5. (``--profile``) where one prefill and one decode tick spend device time
-   (and, in phase 6, 8 fused offload ticks of each codec);
+   (and, in phase 6, 8 fused offload ticks of each codec; in phase 7, one
+   burst tick);
 6. codec offload — 8 clients offload f32 [1, 512, 2048] activation frames
    (stablelm-1.6b width) with ``codec=quant8`` (6a) and ``sparse:0.15``
    (6b) to one ``tensor_filter`` server at ``query_batch=8`` for 4 ticks;
@@ -48,7 +49,26 @@ Phases, one result line each (any failure exits non-zero):
    every answer == the chain of plain versions on the card bitwise, the
    kernels' launch counts, and a small fp32 run on the card against the
    port's CPU path; then times 48 more fused ticks of each codec and
-   prints their min/p10/median/p90/max ms.
+   prints their min/p10/median/p90/max ms;
+7. pub/sub — 7a, Fig. 3 (``examples/multicam_pubsub.py``'s topology) at
+   FullHD: two cameras (one clock skewed by 40 ms) publish 1920x1080 uint8
+   frames over hybrid transport, a processing device scales them to
+   224x224, detects and republishes, a display muxes both cameras and the
+   inference, 16 ticks; checks conservation per topic (delivered +
+   dropped + queued == published), the mux's pts (the earliest rebased
+   camera pts), zero broker data bytes (a relay twin's broker bytes equal
+   its channels'), and the processing output on the card against the
+   port's CPU path on the first 3 frames (scaled uint8 frames |d| <= 1 on
+   at most 1% of values, detector outputs within the GEMM bound printed);
+   7b, 4 quant8 and 4 sparse:0.15 publishers of f32 [1, 512, 2048] frames
+   whose subscribers (``mqttsrc ! tensor_filter ! mqttsink``, same codec)
+   join late: each drains a 6-frame backlog in one burst, then steps one
+   frame a tick; checks bursts in ``rt.stats()``, republished payloads
+   bitwise equal to a ``burst=1`` twin's, stacked decode == per-frame
+   decode, wire bytes per frame, and the K1–K4 launch counts (encode once
+   per frame, decode once per burst or single step), with the peak
+   memory; 7c, phase 6a at ``query_batch=0`` == its fused batch-8
+   answers, bitwise.  With ``--profile``, one burst tick is profiled.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -57,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import re
@@ -727,12 +748,14 @@ def phase_serve(seed):
     return serve, srv
 
 
-def _profile(fn):
-    """Run ``fn`` once under torch.profiler -> (host wall ms, device busy
-    ms, [(op, self device ms, calls)] by device time)."""
+def _profile(fn, warm=True):
+    """Run ``fn`` once under torch.profiler (after one unprofiled call,
+    with ``warm``) -> (host wall ms, device busy ms, [(op, self device ms,
+    calls)] by device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()                                        # warm
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -972,7 +995,9 @@ def phase_offload(seed, profile=False):
     """6: the codec offload path at full width, one run per codec.  After
     the checks (which see exactly ``OFFLOAD_TICKS`` ticks) each fused run
     goes on for ``OFFLOAD_TIMED_TICKS`` timed ticks; with ``profile``, then
-    ``OFFLOAD_PROFILED_TICKS`` more under the profiler."""
+    ``OFFLOAD_PROFILED_TICKS`` more under the profiler.  -> (rows, the
+    fused quant8 answers [client][tick], which phase 7c holds its
+    query_batch=0 run against)"""
     import torch
     from repro_torch.core import compression as comp
     from repro_torch.core.buffers import tree_flatten
@@ -983,7 +1008,7 @@ def phase_offload(seed, profile=False):
                     for codec in OFFLOAD_TRANSFORMS}
     expect_kernels = {"quant8": ("quantize8", "dequantize8"),
                       "sparse:0.15": ("sparse_enc", "sparse_dec")}
-    out = {}
+    out, answers = {}, {}
     for tag, codec in (("6a", "quant8"), ("6b", "sparse:0.15")):
         comp.reset_codec_stats()
         _reset_launches()
@@ -991,7 +1016,7 @@ def phase_offload(seed, profile=False):
                                              D, C, T, seed, query_batch=8)
         launches = _launch_counts()
         enc_routes = dict(ke.ENC_ROUTE_LAUNCHES)
-        fused = _answers(runs, T, f"{tag} fused")
+        fused = answers[codec] = _answers(runs, T, f"{tag} fused")
         qb = rt.stats()["query_batching"]
         check(qb["fused_frames"] == C * T,
               f"{tag}: fused_frames {qb['fused_frames']} != {C * T}")
@@ -1093,7 +1118,410 @@ def phase_offload(seed, profile=False):
               f"payloads bitwise, answers within "
               f"{'one quant step' if codec == 'quant8' else 'rtol 1e-5'} "
               f"(worst excess {worst:.2e})")
-    return out
+    return out, answers["quant8"]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the pub/sub path (Fig. 3 at FullHD, codec bursts, query_batch=0)
+# ---------------------------------------------------------------------------
+
+#: FullHD at the paper's 60 Hz tick (Fig. 7); ticks of 7a
+FHD_W, FHD_H, FHD_TICKS = 1920, 1080, 16
+#: the detector's input side (the example's detector, widened)
+DET_SIDE = 224
+#: 7a card vs CPU: ticks compared, and the GEMM tolerance |Δz_j| <=
+#: DET_GEMM_TOL * sum_i |x_i W_ij| (two f32 sums of 150,528 products in
+#: different orders); the scaled uint8 frames may differ by 1 on at most
+#: DET_U8_SHARE of their values (a float within ulps of an integer
+#: truncates either way)
+DET_CPU_TICKS, DET_GEMM_TOL, DET_U8_SHARE = 3, 1e-5, 0.01
+#: 7b: frames a late subscriber finds queued, ticks after it joins
+BURST_BACKLOG, BURST_TICKS = 6, 8
+
+
+def _register_detector(seed):
+    """``examples/multicam_pubsub.py``'s detector widened to a 224·224·3
+    input: W f32 [150528, 12] = 0.02 N(0, 1) from numpy, the same on the
+    card and on the CPU.  -> (W, the detector's inputs in call order)"""
+    import torch
+    from repro_torch.core.elements import register_model
+    from repro_torch.core.formats import TensorSpec
+    n = DET_SIDE * DET_SIDE * 3
+    w = (0.02 * np.random.default_rng(seed + 7).standard_normal(
+        (n, 12))).astype(np.float32)
+    inputs = []
+
+    def apply(p, x):
+        inputs.append(x)
+        z = x.to(torch.float32).reshape(1, -1) @ p["w"]
+        return torch.sigmoid(z[:, :4]), torch.softmax(z[0, 4:], dim=0)
+    register_model("fullhd-detector",
+                   lambda g, dev: {"w": torch.as_tensor(w, device=dev)},
+                   apply, out_specs=(TensorSpec((1, 4), "float32"),
+                                     TensorSpec((8,), "float32")))
+    return w, inputs
+
+
+def _fig3(device, transport, ticks):
+    """Fig. 3 at FullHD: two skewed cameras, a processing device that
+    scales, detects and republishes, a display that muxes both cameras
+    and receives the inference.  -> (runtime, {name: run}, {topic:
+    mqttsink}, [(payload, wire bytes)] of the inference topic, tick s)"""
+    from repro_torch.core import SimClock, parse_launch
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(device=device)
+    sinks, runs = {}, {}
+    for side, skew_ms in (("left", 0), ("right", 40)):
+        cam = Device(f"cam_{side}", device=device,
+                     clock=SimClock(skew_ns=skew_ms * 1_000_000))
+        p = parse_launch(
+            f"testsrc name=v4l2src width={FHD_W} height={FHD_H} ! "
+            f"tensor_converter ! queue leaky=2 ! mqttsink "
+            f"pub-topic=edge/cam/{side} transport={transport} name=pub")
+        runs[f"cam_{side}"] = cam.add_pipeline(p)
+        sinks[f"edge/cam/{side}"] = p.elements["pub"]
+        rt.add_device(cam)
+    proc = Device("coral", device=device)
+    pp = parse_launch(
+        f"mqttsrc sub-topic=edge/cam/left transport={transport} name=src ! "
+        f"videoscale width={DET_SIDE} height={DET_SIDE} ! tensor_transform "
+        f"mode=arithmetic option=typecast:float32,div:255.0 ! tensor_filter "
+        f"model=fullhd-detector ! mqttsink pub-topic=edge/inference "
+        f"transport={transport} name=pub")
+    # videoscale negotiates from the publisher's caps: discover first
+    pp.elements["src"].connect(rt.broker)
+    runs["coral"] = proc.add_pipeline(pp)
+    sinks["edge/inference"] = pp.elements["pub"]
+    rt.add_device(proc)
+    seen, push = [], pp.elements["pub"].channel.push
+
+    def spy(buf, nbytes=None):
+        seen.append((buf, nbytes))
+        return push(buf, nbytes)
+    pp.elements["pub"].channel.push = spy
+    disp = Device("lcd", device=device)
+    runs["lcd"] = disp.add_pipeline(parse_launch(f"""
+        mqttsrc sub-topic=edge/cam/left transport={transport} ! queue ! mux.sink_0
+        mqttsrc sub-topic=edge/cam/right transport={transport} ! queue ! mux.sink_1
+        tensor_mux name=mux ! appsink name=video
+        mqttsrc sub-topic=edge/inference transport={transport} ! queue !
+          appsink name=boxes
+    """))
+    rt.add_device(disp)
+    return rt, runs, sinks, seen, _timed_ticks(rt, ticks)
+
+
+def _conservation(runs, sinks, what):
+    """Every published frame is delivered, dropped or still queued, for
+    each subscriber of each topic."""
+    from repro_torch.core import MqttSrc
+    per_topic = {}
+    for name, run in runs.items():
+        for e in run.pipe.elements.values():
+            if isinstance(e, MqttSrc):
+                pub = sinks[e.topic_filter].channel.msgs_sent
+                got = run.frames + e.drops + e.queued()
+                check(got == pub, f"{what}: {name} on {e.topic_filter}: "
+                                  f"{run.frames} delivered + {e.drops} "
+                                  f"dropped + {e.queued()} queued != {pub} "
+                                  f"published")
+                per_topic.setdefault(e.topic_filter, []).append(
+                    (name, run.frames, e.drops, e.queued(), pub))
+    return per_topic
+
+
+def _phase_fig3(seed):
+    """7a: Fig. 3 at FullHD on the card."""
+    import torch
+    w, det_inputs = _register_detector(seed)
+    rt, runs, sinks, seen, secs = _fig3(None, "hybrid", FHD_TICKS)
+    torch.cuda.synchronize()
+    per_topic = _conservation(runs, sinks, "7a")
+    lcd = runs["lcd"]
+    check(lcd.frames == FHD_TICKS and runs["coral"].frames == FHD_TICKS,
+          f"7a: display {lcd.frames} / processing {runs['coral'].frames} "
+          f"frames after {FHD_TICKS} ticks")
+    check(rt.broker.relay_bytes == 0 and rt.broker.relay_msgs == 0,
+          f"7a: the broker carried {rt.broker.relay_bytes} data bytes on "
+          f"hybrid")
+    # the mux's pts: the earliest of both cameras', rebased (§4.2.3)
+    base = {d.name: d.pipeline_clock.base_time_utc() for d in rt.devices}
+    delta = {s: base[f"cam_{s}"] - base["lcd"] for s in ("left", "right")}
+    for k, buf in enumerate(lcd.sink_log["video"]):
+        pts = k * (16_666_667 // 1000)
+        want = min(pts + delta["left"], pts + delta["right"])
+        check(int(buf.pts) == want, f"7a: muxed frame {k} pts "
+                                    f"{int(buf.pts)} != {want}")
+        check([tuple(t.shape) for t in buf.tensors] ==
+              [(FHD_H, FHD_W, 3)] * 2, f"7a: muxed frame {k} shapes")
+    for k, buf in enumerate(lcd.sink_log["boxes"]):
+        b, s = buf.tensors
+        check(b.shape == (1, 4) and s.shape == (8,) and
+              bool(torch.isfinite(b).all()) and bool(torch.isfinite(s).all())
+              and abs(float(s.sum()) - 1) < 1e-5,
+              f"7a: inference {k} is not finite boxes and a distribution")
+    frame_bytes = FHD_W * FHD_H * 3
+    check(sinks["edge/cam/left"].channel.bytes_sent ==
+          frame_bytes * FHD_TICKS, "7a: camera bytes on the wire")
+    # a relay twin: every data byte through the broker
+    rrt, _, rsinks, _, _ = _fig3(None, "relay", 4)
+    relay = sum(s.channel.bytes_sent for s in rsinks.values())
+    check(rrt.broker.relay_bytes == relay and rrt.broker.relay_msgs ==
+          sum(s.channel.msgs_sent for s in rsinks.values()),
+          f"7a relay: broker {rrt.broker.relay_bytes} B != channels "
+          f"{relay} B")
+    # the processing pipeline on the card against the port's CPU path
+    card_x = det_inputs[:DET_CPU_TICKS]
+    del det_inputs[:]
+    _, _, _, cseen, _ = _fig3("cpu", "hybrid", DET_CPU_TICKS)
+    cpu_x = det_inputs[:DET_CPU_TICKS]
+    check(len(cseen) == DET_CPU_TICKS and len(card_x) == len(cpu_x) ==
+          DET_CPU_TICKS, "7a card vs CPU: frame counts")
+    aw = np.abs(w.astype(np.float64))
+    worst_excess, worst_err, u8_share = float("-inf"), 0.0, 0.0
+    for k in range(DET_CPU_TICKS):
+        xa = card_x[k].reshape(-1).cpu().numpy()
+        xb = cpu_x[k].reshape(-1).numpy()
+        du8 = np.abs(np.rint(xa * 255) - np.rint(xb * 255))
+        check(du8.max() <= 1 and (du8 > 0).mean() <= DET_U8_SHARE,
+              f"7a card vs CPU: scaled frame {k} differs by {du8.max()} "
+              f"on {(du8 > 0).mean():.4%} of its values")
+        u8_share = max(u8_share, float((du8 > 0).mean()))
+        # |Δz_j| <= sum_i |W_ij| |Δx_i| + tol * sum_i |x_i W_ij|; sigmoid
+        # and softmax move by at most 2 max_j |Δz_j|
+        dz = (np.abs(xa - xb).astype(np.float64) @ aw +
+              DET_GEMM_TOL * (np.abs(xb).astype(np.float64) @ aw))
+        bound = 2 * dz.max()
+        (ga, _), (cb, _) = seen[k], cseen[k]
+        check(int(ga.pts) == int(cb.pts), f"7a card vs CPU: inference {k} "
+                                          f"pts differ")
+        err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(ga.tensors, cb.tensors))
+        check(err <= bound, f"7a card vs CPU: inference {k} differs by "
+                            f"{err} > bound {bound}")
+        worst_err = max(worst_err, err)
+        worst_excess = max(worst_excess, err - bound)
+    ms_tick = np.array(secs) * 1e3
+    counts = {t: [x[1:] for x in v] for t, v in per_topic.items()}
+    row = dict(ticks=FHD_TICKS, frame_bytes=frame_bytes,
+               ms_per_tick=ms_tick.tolist(),
+               ms_min_median_max=[float(ms_tick.min()),
+                                  float(np.median(ms_tick)),
+                                  float(ms_tick.max())],
+               per_topic=per_topic, relay_bytes_twin=relay,
+               card_vs_cpu_max_err=worst_err,
+               card_vs_cpu_u8_share=u8_share,
+               card_vs_cpu_worst_excess=worst_excess,
+               stats={k: v for k, v in rt.stats().items() if "/" in k})
+    print(f"phase 7a Fig. 3 at FullHD ({FHD_W}x{FHD_H} uint8, "
+          f"{frame_bytes:,} B a frame) over hybrid, 4 devices, "
+          f"{FHD_TICKS} ticks: display {lcd.frames} muxed frames, pts = "
+          f"min of the rebased camera pts; conservation per topic "
+          f"{counts} "
+          f"(delivered, dropped, queued, published); broker data bytes 0 "
+          f"(relay twin {relay:,} B == its channels); ms/tick min/median/"
+          f"max {'/'.join(f'{x:.2f}' for x in row['ms_min_median_max'])}; "
+          f"card vs CPU on {DET_CPU_TICKS} frames: scaled uint8 |d| <= 1 "
+          f"on {u8_share:.4%} (limit {DET_U8_SHARE:.0%}), detector max "
+          f"|d| {worst_err:.3e} within the GEMM bound (tol "
+          f"{DET_GEMM_TOL:g} x sum |x W|, worst excess {worst_excess:.2e})")
+    return row
+
+
+def _codec_pubsub(codecs, burst, ticks, seed):
+    """Publishers of f32 [1, 512, 2048] frames with ``codecs[i]``, and
+    subscribers joining after ``BURST_BACKLOG - 1`` ticks, each ``mqttsrc
+    ! tensor_filter model=offload-gate ! mqttsink`` with its publisher's
+    codec.  -> (runtime, publisher runs, subscriber
+    runs, [[(payload, wire bytes)] republished per subscriber], tick s)"""
+    from repro_torch.core import parse_launch
+    from repro_torch.device import make_generator
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(burst=burst)
+    pubs, subs, seen = [], [], []
+    for i, codec in enumerate(codecs):
+        opt = OFFLOAD_TRANSFORMS[codec].format(m=1 + i / 8)
+        dev = Device(f"pub{i}")
+        pubs.append(dev.add_pipeline(parse_launch(
+            f"testsrc width={OFFLOAD_L} height=1 channels={OFFLOAD_D} ! "
+            f"tensor_converter ! tensor_transform mode=arithmetic "
+            f"option={opt} ! mqttsink pub-topic=act/{i} codec={codec} "
+            f"name=pub")))
+        rt.add_device(dev)
+    rt.run(BURST_BACKLOG - 1)
+    for i, codec in enumerate(codecs):
+        dev = Device(f"sub{i}")
+        p = parse_launch(
+            f"mqttsrc sub-topic=act/{i} codec={codec} name=src ! "
+            f"tensor_filter model=offload-gate ! mqttsink "
+            f"pub-topic=act/{i}/out codec={codec} name=pub")
+        subs.append(dev.add_pipeline(p, generator=make_generator(
+            seed, rt.device)))
+        rt.add_device(dev)
+        log, push = [], p.elements["pub"].channel.push
+
+        def spy(buf, nbytes=None, _log=log, _push=push):
+            _log.append((buf, nbytes))
+            return _push(buf, nbytes)
+        p.elements["pub"].channel.push = spy
+        seen.append(log)
+    return rt, pubs, subs, seen, _timed_ticks(rt, ticks)
+
+
+def _same_tree(a, b, what):
+    import torch
+    from repro_torch.core.buffers import tree_flatten
+    la, ta = tree_flatten(a)
+    lb, tb = tree_flatten(b)
+    check(ta == tb and len(la) == len(lb), f"{what}: structures differ")
+    for x, y in zip(la, lb):
+        check(x.dtype == y.dtype and x.shape == y.shape and
+              torch.equal(_bits(x), _bits(y)), f"{what}: bits differ")
+
+
+def _phase_codec_bursts(seed, profile=False):
+    """7b: 4 quant8 and 4 sparse:0.15 publishers of stablelm-width
+    activations; each late subscriber drains its 6-frame backlog in one
+    burst, then steps one frame a tick."""
+    import torch
+    from repro_torch.core import MqttSrc
+    from repro_torch.core import compression as comp
+    _register_offload_models(seed)
+    codecs = ["quant8"] * 4 + ["sparse:0.15"] * 4
+    expect_bytes = {c: _wire_bytes(c, OFFLOAD_L, OFFLOAD_D)
+                    for c in ("quant8", "sparse:0.15")}
+    comp.reset_codec_stats()
+    gc.collect()            # runtimes of earlier phases hold cycles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    _reset_launches()
+    rt, pubs, subs, seen, secs = _codec_pubsub(codecs, 8, BURST_TICKS, seed)
+    launches = _launch_counts()
+    torch.cuda.synchronize()
+    # what the earlier phases still hold (phase 4's server) is the base
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gib
+    stats = rt.stats()
+    n_sub = BURST_BACKLOG + BURST_TICKS - 1
+    for i, (run, codec) in enumerate(zip(subs, codecs)):
+        st = stats[f"sub{i}/p0"]
+        check((run.frames, run.bursts, run.burst_frames) ==
+              (n_sub, 1, BURST_BACKLOG) and st["bursts"] == 1 and
+              st["burst_frames"] == BURST_BACKLOG and st["drops"] == 0,
+              f"7b: subscriber {i} frames/bursts/burst_frames/drops "
+              f"{st} != {n_sub}/1/{BURST_BACKLOG}/0")
+        check(len(seen[i]) == n_sub and all(
+            nb == expect_bytes[codec] for _, nb in seen[i]),
+            f"7b: subscriber {i} republished {len(seen[i])} frames of "
+            f"{sorted({nb for _, nb in seen[i]})} B, expected {n_sub} of "
+            f"{expect_bytes[codec]}")
+        pch = pubs[i].pipe.elements["pub"].channel
+        check(pch.bytes_sent == pch.msgs_sent * expect_bytes[codec],
+              f"7b: publisher {i} wire bytes")
+    check(comp.codec_stats()["sparse_dropped_values"] == 0,
+          f"7b: sparse truncation {comp.codec_stats()}")
+    expect = {}
+    for enc, dec, codec in (("quantize8", "dequantize8", "quant8"),
+                            ("sparse_enc", "sparse_dec", "sparse:0.15")):
+        idx = [i for i, c in enumerate(codecs) if c == codec]
+        expect[enc] = sum(pubs[i].frames + subs[i].frames for i in idx)
+        expect[dec] = sum(subs[i].bursts + subs[i].frames -
+                          subs[i].burst_frames for i in idx)
+    for k, n in expect.items():
+        check(launches[k] == n, f"7b: {k} launched {launches[k]} times, "
+                                f"expected {n} (encode: one per published "
+                                f"and republished frame; decode: one "
+                                f"stacked launch per burst, one per "
+                                f"single step)")
+    # the burst=1 twin steps the same frames one a tick
+    _, _, subs1, seen1, _ = _codec_pubsub(codecs, 1, n_sub, seed)
+    for i in range(len(codecs)):
+        check(subs1[i].bursts == 0 and len(seen1[i]) == n_sub,
+              f"7b twin: subscriber {i}")
+        for k, ((a, na), (b, nb)) in enumerate(zip(seen[i], seen1[i])):
+            check(na == nb and a.meta == b.meta and
+                  int(a.pts) == int(b.pts),
+                  f"7b: subscriber {i} frame {k}: meta/pts/bytes differ")
+            _same_tree(a.tensors, b.tensors,
+                       f"7b: subscriber {i} frame {k} burst != burst=1")
+    # pull_burst's stacked decode == per-frame decode, on queued payloads
+    for i in (0, 4):
+        raws = list(pubs[i].pipe.elements["pub"].channel.q)[:BURST_BACKLOG]
+        src = MqttSrc(sub_topic="x", codec=codecs[i])
+        for k, (a, b) in enumerate(zip(src._decode_burst(raws),
+                                       [comp.decode(r, codecs[i])
+                                        for r in raws])):
+            _same_tree(a.tensors, b.tensors,
+                       f"7b: {codecs[i]} stacked decode frame {k}")
+    ms_tick = np.array(secs) * 1e3
+    steady = ms_tick[1:]
+    row = dict(codecs=codecs, backlog=BURST_BACKLOG, ticks=BURST_TICKS,
+               burst_tick_ms=float(ms_tick[0]),
+               steady_ms_per_tick=steady.tolist(),
+               steady_ms_min_median_max=[float(steady.min()),
+                                         float(np.median(steady)),
+                                         float(steady.max())],
+               wire_bytes=expect_bytes, peak_gib_over_base=peak_gib,
+               base_gib=base_gib,
+               launches={k: launches[k] for k in expect},
+               stats={k: v for k, v in stats.items() if "/" in k})
+    print(f"phase 7b codec pub/sub f32 [1, {OFFLOAD_L}, {OFFLOAD_D}], 4 "
+          f"quant8 + 4 sparse:0.15 publishers: each late subscriber drained "
+          f"{BURST_BACKLOG} frames in 1 burst, then 1 a tick "
+          f"({n_sub} frames); == burst=1 twin bitwise; stacked decode == "
+          f"per-frame decode; wire B/frame {expect_bytes}; launches "
+          f"{row['launches']}; burst tick {ms_tick[0]:.2f} ms, steady "
+          f"ms/tick min/median/max "
+          f"{'/'.join(f'{x:.2f}' for x in row['steady_ms_min_median_max'])}"
+          f"; peak {peak_gib:.2f} GiB over the {base_gib:.2f} GiB the "
+          f"earlier phases hold")
+    if profile:
+        rt2, _, _, _, _ = _codec_pubsub(codecs, 8, 0, seed)
+        wall, busy, top = _profile(rt2.tick, warm=False)
+        row["profile burst tick"] = {"wall_ms": wall, "device_ms": busy,
+                                     "top": [list(r) for r in top[:15]]}
+        print(f"phase 7b profile burst tick: host wall {wall:.2f} ms, "
+              f"device busy {busy:.2f} ms ({100 * busy / wall:.0f}%); top: "
+              + ", ".join(f"{k[:40]} {ms_:.3f} ms x{n}"
+                          for k, ms_, n in top[:6]))
+    return row
+
+
+def _phase_query_batch_zero(seed, fused):
+    """7c: phase 6a's quant8 offload at query_batch=0 == its fused batch-8
+    answers, bitwise."""
+    L, D, C, T = OFFLOAD_L, OFFLOAD_D, OFFLOAD_CLIENTS, OFFLOAD_TICKS
+    _reset_launches()
+    rt, runs, srv, seen, secs = _offload(None, "offload-gate", "quant8", L,
+                                         D, C, T, seed, query_batch=0)
+    launches = _launch_counts()
+    qb = rt.stats()["query_batching"]
+    check(qb["sequential_frames"] == C * T and qb["batched_frames"] == 0,
+          f"7c: {qb}")
+    for k in ("quantize8", "dequantize8"):
+        check(launches[k] == 2 * C * T,
+              f"7c: {k} launched {launches[k]} times, expected {2 * C * T}"
+              f" (request and answer of every frame)")
+    got = _answers(runs, T, "7c")
+    for i in range(C):
+        for t in range(T):
+            same_bits(got[i][t], fused[i][t],
+                      f"7c: query_batch=0 != batch 8, client {i} tick {t}")
+    ms_tick = np.array(secs) * 1e3
+    print(f"phase 7c quant8 offload at query_batch=0: {C * T} answers == "
+          f"fused batch 8 bitwise; {qb['sequential_frames']} sequential "
+          f"serves; launches {{quantize8: {launches['quantize8']}, "
+          f"dequantize8: {launches['dequantize8']}}}; ms/tick "
+          f"{', '.join(f'{x:.2f}' for x in ms_tick)}")
+    return dict(ms_per_tick=ms_tick.tolist(), launches={
+        k: launches[k] for k in ("quantize8", "dequantize8")})
+
+
+def phase_pubsub(seed, fused_6a, profile=False):
+    """7: the paper's pub/sub path at full size."""
+    return {"7a": _phase_fig3(seed),
+            "7b": _phase_codec_bursts(seed, profile=profile),
+            "7c": _phase_query_batch_zero(seed, fused_6a)}
 
 
 def _to_numpy(tree):
@@ -1109,7 +1537,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width prefill, one decode "
-                         "tick and 8 offload ticks per codec")
+                         "tick, 8 offload ticks per codec and one pub/sub "
+                         "burst tick")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -1122,7 +1551,9 @@ def main(argv=None):
     codec_table = phase_codec_kernels(args.seed)
     serve, srv = phase_serve(args.seed)
     profile = phase_profile(srv, args.seed) if args.profile else None
-    offload = phase_offload(args.seed, profile=args.profile)
+    offload, fused_6a = phase_offload(args.seed, profile=args.profile)
+    pubsub = phase_pubsub(args.seed, fused_6a, profile=args.profile)
+    del fused_6a
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -1154,6 +1585,9 @@ def main(argv=None):
     # K5's two routes: the row above is the bf16 one that the serve path runs
     kernels[4]["sources"] = {"bfloat16": csrc + "flash_prefill_sm90.cu",
                              "float32": csrc + "flash_prefill.cu"}
+    # K1–K4 also carry the pub/sub path (7b): its own launch counts
+    for row in kernels[:4]:
+        row["launches_phase7"] = pubsub["7b"]["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1162,7 +1596,8 @@ def main(argv=None):
                                    "kernels": table,
                                    "codec_kernels": codec_table,
                                    "serve": serve, "profile": profile,
-                                   "offload": offload}, indent=1))
+                                   "offload": offload, "pubsub": pubsub},
+                                  indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

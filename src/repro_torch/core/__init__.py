@@ -1,7 +1,7 @@
 # Stream-pipeline infrastructure of the port (mirrors src/repro/core):
 # pipe-and-filter pipelines over tensor streams, the control-plane broker,
 # the query (inference offloading) protocol, timestamp synchronization and
-# the wire codecs — as far as the model-serving main path needs them.
+# the wire codecs.
 from .formats import Caps, CapsError, TensorFormat, TensorSpec
 from .buffers import (StreamBuffer, stack_buffers, structure_key,
                       unstack_buffers)
@@ -13,7 +13,9 @@ from .admission import (AdmissionQueue, QoSConfig, TenantSpec,
                         DEFAULT_TENANT)
 from .batching import BatchingPolicy, QueryBatcher, StreamingQueryBatcher
 from .broker import Broker, BrokerError, topic_matches
-from .pubsub import Channel
+from .pubsub import Channel, MqttSink, MqttSrc, Transport
+from .elements import (Compositor, Queue, Queue2, Tee, TensorDecoder,
+                       TensorDemux, TensorIf, TensorMux, VideoScale)
 from .query import (QueryServerEndpoint, QueryTransport, TensorQueryClient,
                     TensorQueryServerSink, TensorQueryServerSrc)
 from .modelserve import (ModelServeElement, TokenPromptSrc, SERVE_MODELS,
@@ -31,7 +33,9 @@ __all__ = [
     "AdmissionQueue", "QoSConfig", "TenantSpec", "DEFAULT_TENANT",
     "BatchingPolicy", "QueryBatcher", "StreamingQueryBatcher",
     "Broker", "BrokerError", "topic_matches",
-    "Channel",
+    "Channel", "MqttSink", "MqttSrc", "Transport",
+    "Compositor", "Queue", "Queue2", "Tee", "TensorDecoder", "TensorDemux",
+    "TensorIf", "TensorMux", "VideoScale",
     "QueryServerEndpoint", "QueryTransport", "TensorQueryClient",
     "TensorQueryServerSink", "TensorQueryServerSrc",
     "ModelServeElement", "TokenPromptSrc", "SERVE_MODELS",

@@ -125,7 +125,9 @@ class QueryBatcher:
                                       "(failover): ROADMAP M6")
         adm = self.admission
         served = 0
-        batchable = self.run.pipe.plan.query_batchable
+        # query_batch=0 serves each request through one interpreted step
+        batchable = self.policy.enabled and \
+            self.run.pipe.plan.query_batchable
         while True:
             self._ingest()
             if not len(adm):

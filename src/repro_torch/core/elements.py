@@ -1,10 +1,11 @@
-"""Stock pipeline elements — the part of ``src/repro/core/elements.py`` that
-the serve and query-offloading paths and caps negotiation need: appsrc,
-testsrc, appsink, fakesink, capsfilter, videoconvert, tensor_converter,
-tensor_transform (arithmetic and transpose), tensor_filter with its model
-registry, tensor_sparse_enc/dec, and videoscale/compositor as far as
-negotiation and ``parse_launch`` touch them.  tensor_decoder, mux/demux,
-tee, queue and tensor_if are ROADMAP M1.
+"""Stock pipeline elements — port of ``src/repro/core/elements.py``: the
+NNStreamer/GStreamer element set of the paper's examples (Listings 1 and
+2): sources and sinks, converters, transforms, NN filters, decoders,
+mux/demux, tee, queue, compositor, tensor_if and sparse enc/dec.
+
+No element writes into a tensor it received: a publisher's channel hands
+one frame object to every subscriber (``core/pubsub.py``), so an in-place
+op would reach another subscriber's frame.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .buffers import SparsePayload, StreamBuffer
@@ -105,8 +107,10 @@ class VideoConvert(Element):
 
 @register_element("videoscale")
 class VideoScale(Element):
-    """Negotiates the scaled caps (the target comes from a downstream
-    capsfilter, folded in by ``Pipeline.realize``)."""
+    """Resizes to ``width``/``height`` (or the target of a downstream
+    capsfilter, folded in by ``Pipeline.realize``); without a target it is
+    pass-through.  Bilinear with antialiasing on downscale, as the JAX
+    package's ``jax.image.resize(..., "bilinear")``, then cast back."""
 
     def __init__(self, name=None, width=None, height=None, **props):
         super().__init__(name=name, **props)
@@ -123,13 +127,20 @@ class VideoScale(Element):
     def apply(self, params, inputs, ctx=None):
         if self.target is None:
             return list(inputs)
-        raise NotImplementedError("videoscale resizing: ROADMAP M1")
+        buf = inputs[0]
+        x = buf.tensor
+        nchw = x.to(torch.float32).permute(2, 0, 1)[None]
+        y = F.interpolate(nchw, size=self.target, mode="bilinear",
+                          antialias=True, align_corners=False)
+        y = y[0].permute(1, 2, 0).to(x.dtype).contiguous()
+        return [buf.with_(tensors=(y,))]
 
 
 @register_element("compositor")
 class Compositor(Element):
-    """Overlay of N video frames; negotiation and pad properties
-    (``mix.sink_0::xpos=...``) only."""
+    """Overlay N video frames by zorder, each at its pad's xpos/ypos
+    (``mix.sink_0::xpos=...`` in Listing 2) and clipped to the first
+    frame's canvas."""
 
     n_sink_pads = None  # request pads
 
@@ -144,7 +155,23 @@ class Compositor(Element):
         return [in_caps[0]]
 
     def apply(self, params, inputs, ctx=None):
-        raise NotImplementedError("compositor overlay: ROADMAP M1")
+        base = inputs[0].tensor
+        h, w = base.shape[0], base.shape[1]
+        order = sorted(range(len(inputs)), key=lambda i: self.pad_props.get(
+            i, {}).get("zorder", 0))
+        canvas = torch.zeros(base.shape, dtype=torch.float32,
+                             device=base.device)
+        for i in order:
+            frame = inputs[i].tensor
+            props = self.pad_props.get(i, {})
+            xpos, ypos = props.get("xpos", 0), props.get("ypos", 0)
+            fh = min(frame.shape[0], h - ypos)
+            fw = min(frame.shape[1], w - xpos)
+            if fh <= 0 or fw <= 0:
+                continue
+            canvas[ypos:ypos + fh, xpos:xpos + fw, :frame.shape[2]] = \
+                frame[:fh, :fw].to(torch.float32)
+        return [inputs[0].with_(tensors=(canvas.to(base.dtype),))]
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +320,155 @@ class TensorFilter(Element):
         if not isinstance(outs, (tuple, list)):
             outs = (outs,)
         return [buf.with_(tensors=tuple(outs))]
+
+
+@register_element("tensor_decoder")
+class TensorDecoder(Element):
+    """NN output -> media.  Modes: direct_video (tensor -> uint8 frame),
+    bounding_boxes (outline of the best-scoring box on an RGBA canvas of
+    ``option4=W:H``), classification (argmax)."""
+
+    def __init__(self, name=None, mode="direct_video", **props):
+        super().__init__(name=name, **props)
+        self.mode = mode
+        self.opts = {k: v for k, v in props.items() if k.startswith("option")}
+
+    def negotiate(self, in_caps):
+        if self.mode in ("direct_video", "bounding_boxes"):
+            return [Caps(media="video/x-raw")]
+        return [Caps(media="other/tensors")]
+
+    def apply(self, params, inputs, ctx=None):
+        buf = inputs[0]
+        if self.mode == "direct_video":
+            return [buf.with_(tensors=(buf.tensors[0].to(torch.uint8),))]
+        if self.mode == "classification":
+            logits = buf.tensors[0]
+            return [buf.with_(tensors=(
+                torch.argmax(logits, dim=-1).to(torch.int32),))]
+        if self.mode == "bounding_boxes":
+            w, h = (int(v) for v in self.opts.get("option4", "64:48")
+                    .split(":"))
+            boxes, scores = buf.tensors[0], buf.tensors[1]
+            box = torch.clamp(boxes[torch.argmax(scores)], 0.0, 1.0)
+            x0, y0, x1, y1 = box[0] * w, box[1] * h, box[2] * w, box[3] * h
+            dev = boxes.device
+            yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+            xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+            on_edge = (
+                (((yy - y0).abs() < 1) | ((yy - y1).abs() < 1))
+                & (xx >= x0) & (xx <= x1)
+            ) | (
+                (((xx - x0).abs() < 1) | ((xx - x1).abs() < 1))
+                & (yy >= y0) & (yy <= y1)
+            )
+            canvas = (on_edge.to(torch.uint8) * 255)[..., None]
+            return [buf.with_(tensors=(
+                canvas.expand(h, w, 4).contiguous(),))]   # RGBA overlay
+        raise ValueError(f"unknown decoder mode {self.mode!r}")
+
+
+@register_element("tensor_mux")
+class TensorMux(Element):
+    """Merge N streams into one multi-tensor buffer with the earliest pts
+    (paper §4.2.3: muxing is where cross-device sync matters) and the
+    inputs' meta merged in pad order."""
+
+    n_sink_pads = None
+
+    def negotiate(self, in_caps):
+        specs = tuple(t for c in in_caps for t in c.tensors)
+        return [Caps(media="other/tensors", tensors=specs)]
+
+    def apply(self, params, inputs, ctx=None):
+        tensors = tuple(t for b in inputs for t in b.tensors)
+        pts = inputs[0].pts
+        for b in inputs[1:]:
+            pts = min(pts, b.pts)
+        meta = {}
+        for b in inputs:
+            meta.update(b.meta)
+        return [StreamBuffer(tensors=tensors, pts=pts, meta=meta)]
+
+
+@register_element("tensor_demux")
+class TensorDemux(Element):
+    """Split a multi-tensor buffer into per-tensor streams (dmux.src_N)."""
+
+    n_src_pads = None
+
+    def negotiate(self, in_caps):
+        return [Caps(media="other/tensors", tensors=(t,))
+                for t in in_caps[0].tensors]
+
+    def apply(self, params, inputs, ctx=None):
+        buf = inputs[0]
+        return [buf.with_(tensors=(t,)) for t in buf.tensors]
+
+
+@register_element("tee")
+class Tee(Element):
+    """Fan one stream out to N branches."""
+
+    n_src_pads = None
+
+    def negotiate(self, in_caps):
+        return [in_caps[0]]  # grown per request pad by Pipeline.realize
+
+    def apply(self, params, inputs, ctx=None):
+        return [inputs[0]] * max(1, len(self.out_caps))
+
+
+@register_element("queue")
+class Queue(Element):
+    """``leaky=2`` drops old buffers when full (paper §5.1).  In a
+    synchronous pipeline step a queue is the identity; leaky and
+    backpressure semantics live on the pub/sub channels."""
+
+    def __init__(self, name=None, leaky=0, **props):
+        super().__init__(name=name, **props)
+        self.leaky = int(leaky)
+        self.max_size = int(props.get("max_size_buffers",
+                                      props.get("max-size-buffers", 2)))
+
+    def apply(self, params, inputs, ctx=None):
+        return list(inputs)
+
+
+@register_element("queue2")
+class Queue2(Queue):
+    """The paper's latency-injection queue when testing timestamp sync."""
+
+
+#: tensor_if operators: the control tensor's max against the threshold
+_IF_OPS = {"GE": torch.ge, "GT": torch.gt, "LE": torch.le, "LT": torch.lt,
+           "EQ": torch.eq}
+
+
+@register_element("tensor_if")
+class TensorIf(Element):
+    """Conditional gate (Fig. 5's DETECT path): compares the max of the
+    first tensor (as float32) against ``threshold`` with ``operator``.
+    Data still flows: a closed gate zeroes every tensor; the gate flag is
+    appended as an int32 0-d tensor, and ``meta["gate_open"]`` marks the
+    buffer as gated."""
+
+    n_sink_pads = 1
+
+    def __init__(self, name=None, compared_value="A1", operator="GE",
+                 threshold=0.5, **props):
+        super().__init__(name=name, **props)
+        self.threshold = float(threshold)
+        self.operator = operator
+
+    def apply(self, params, inputs, ctx=None):
+        buf = inputs[0]
+        score = buf.tensors[0].to(torch.float32).max()
+        ok = _IF_OPS[self.operator](score, self.threshold)
+        gated = tuple(torch.where(ok, t, torch.zeros_like(t))
+                      for t in buf.tensors)
+        return [buf.with_(tensors=gated + (ok.to(torch.int32),),
+                          meta={**buf.meta, "gate_open": None})]
 
 
 # ---------------------------------------------------------------------------

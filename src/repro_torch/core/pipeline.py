@@ -3,8 +3,9 @@
 so the paper's Listing 1/2 pipelines can be written as strings.
 
 Port of ``src/repro/core/pipeline.py``: parsing, caps negotiation
-(``realize``), ``init``/``init_state`` and ``step``.  Live reconfiguration
-(``reconfig()``, ROADMAP M7) and bursts (``step_n``, ROADMAP M1) wait.
+(``realize``), ``init``/``init_state``, ``step`` and the bursts
+``step_n``/``compiled_step_n``.  Live reconfiguration (``reconfig()``,
+ROADMAP M7) waits.
 
 Grammar subset (sufficient for the paper's examples)::
 
@@ -244,6 +245,25 @@ class Pipeline:
         if not self._realized:
             self.realize()
         return self.plan.run(params, state, inputs)
+
+    def step_n(self, params: dict, state: dict,
+               inputs: Optional[Dict[str, StreamBuffer]] = None,
+               n: Optional[int] = None
+               ) -> Tuple[Dict[str, StreamBuffer], dict]:
+        """N-frame burst (``ExecutionPlan.step_n``): ``inputs`` holds
+        *stacked* per-source frames, or pass ``n`` for self-driven
+        pipelines.  Frame ``i`` of the stacked outputs is bitwise what the
+        ``i``-th sequential :meth:`step` returns."""
+        if not self._realized:
+            self.realize()
+        return self.plan.step_n(params, state, inputs, n=n)
+
+    def compiled_step_n(self, hoist_io: bool = False, mesh=None):
+        """The cached burst callable (see :meth:`step_n`); ``hoist_io``
+        injects the host sources' frames and captures the host sinks'."""
+        if not self._realized:
+            self.realize()
+        return self.plan.compiled_step_n(hoist_io=hoist_io, mesh=mesh)
 
     def describe(self) -> str:
         if not self._realized:

@@ -10,12 +10,17 @@ links or rebuilds dicts.  What the serve path needs:
   can drive a server pipeline directly.
 * ``run_deferred`` and :class:`PendingQuery` — a client frame paused at its
   ``tensor_query_client`` until the scheduler has the answer.
+* ``step_n`` — an N-frame pub/sub burst over stacked frames: the JAX
+  package's ``lax.scan`` becomes a loop of hoisted ``run`` calls over the
+  unstacked frames, threading state (``hoist_io`` injects the mqttsrc
+  frames the scheduler pulled and captures the mqttsink frames it replays).
 * ``serve_batch`` / ``serve_batch_wire`` — N query requests through the
   hoisted schedule; the wire variant decodes the stacked requests, runs
   the DAG once per frame and re-encodes the stacked answers (the fused
   wire path, DESIGN.md §5).
-* ``compiled_serve_tick(state)`` / ``compiled_serve_batch(codec=)`` — the
-  callables the batchers call, cached in a process-wide registry keyed by
+* ``compiled_step_n(hoist_io=)``, ``compiled_serve_tick(state)`` and
+  ``compiled_serve_batch(codec=)`` — the callables the scheduler and the
+  batchers call, cached in a process-wide registry keyed by
   the plan's topology fingerprint (plus the state's :func:`structure_key`,
   or the codec).
 
@@ -115,8 +120,24 @@ class ExecutionPlan:
                               is_host_sink=getattr(elem, "is_host_sink",
                                                    False)))
         self.ops = ops
+        self.host_sources = [op.elem for op in ops
+                             if getattr(op.elem, "is_host_source", False)]
+        self.host_sinks = [op.elem for op in ops if op.is_host_sink]
         impure = [op.elem for op in ops
                   if getattr(op.elem, "host_impure", False)]
+        #: no host-impure elements at all
+        self.pure = not impure
+        #: every impure element is a hoistable source or terminal sink, so
+        #: bursts can inject the sources' frames and capture the sinks'
+        self.burstable = all(
+            getattr(e, "is_host_source", False) or
+            getattr(e, "is_host_sink", False) for e in impure)
+        #: every graph source is host-driven, so a burst replays only
+        #: queued frames; a self-driven source (testsrc camera) would be
+        #: fast-forwarded by a burst, so such pipelines keep the tick cadence
+        self.all_sources_host_driven = bool(self.host_sources) and all(
+            getattr(op.elem, "is_host_source", False)
+            for op in ops if not op.in_slots)
         self.query_sources = [op.elem for op in ops if op.is_query_src]
         self.query_sinks = [op.elem for op in ops if op.is_query_sink]
         #: pipeline contains tensor_query_client elements (run deferred)
@@ -215,6 +236,26 @@ class ExecutionPlan:
             return outputs, ctx.next_state
         return PendingQuery(self, params, inputs, ctx, vals, outputs, *res)
 
+    # -- bursts ----------------------------------------------------------------
+    def step_n(self, params: dict, state: dict,
+               inputs: Optional[Dict[str, StreamBuffer]] = None,
+               n: Optional[int] = None, hoist_io: bool = False
+               ) -> Tuple[Dict[str, StreamBuffer], dict]:
+        """An N-frame burst.  ``inputs`` maps source names to *stacked*
+        buffers (leading frame axis, :func:`stack_buffers`); self-driven
+        pipelines pass ``n`` instead.  Runs the frames in order, threading
+        state, and returns (stacked outputs, final state): frame ``i`` of
+        the outputs is bitwise the ``i``-th sequential :meth:`run`."""
+        if inputs is None and n is None:
+            raise ValueError("step_n needs stacked `inputs` or a length `n`")
+        frames = (unstack_buffers(inputs, n) if inputs is not None
+                  else [None] * n)
+        outs = []
+        for frame in frames:
+            o, state = self.run(params, state, frame, hoist_io=hoist_io)
+            outs.append(o)
+        return stack_buffers(outs), state
+
     # -- batched serving -------------------------------------------------------
     def serve_batch(self, params: dict, state: dict, frames: Tuple
                     ) -> Tuple[Tuple, dict]:
@@ -276,6 +317,22 @@ class ExecutionPlan:
         else:
             _EXEC_CACHE.move_to_end(self.fingerprint)
         return ent
+
+    def compiled_step_n(self, hoist_io: bool = False, mesh=None) -> Callable:
+        """:meth:`step_n` ``(params, state, inputs=None, n=None) ->
+        (stacked outputs, final state)``, cached under ``("step_n",
+        hoist_io)``."""
+        if mesh is not None:
+            raise NotImplementedError("mesh-sharded bursts (mesh=): "
+                                      "ROADMAP M11")
+        fns = self._cache()["fns"]
+        key = ("step_n", hoist_io)
+        if key not in fns:
+            def step_n(params, st, inputs=None, n=None, _self=self,
+                       _hoist=hoist_io):
+                return _self.step_n(params, st, inputs, n=n, hoist_io=_hoist)
+            fns[key] = step_n
+        return fns[key]
 
     def compiled_serve_tick(self, state: dict) -> Callable:
         """Stateful decode tick ``(params, state, inputs) -> (outputs,

@@ -1,3 +1,3 @@
-from .scheduler import Device, Runtime
+from .scheduler import DEFAULT_BURST, Device, Runtime
 
-__all__ = ["Device", "Runtime"]
+__all__ = ["DEFAULT_BURST", "Device", "Runtime"]

@@ -4,6 +4,17 @@ Port of the serving core of ``src/repro/runtime/scheduler.py``.  Each
 Device owns a clock and a set of pipelines; the Runtime drives everything
 with a global tick (60 Hz frame cadence, as in the paper's evaluation):
 
+* a pipeline runs only when its inputs are ready (an ``mqttsrc`` with
+  nothing queued is not ready, like a GStreamer source blocking on no
+  data); ``mqttsink`` publishes into its Channel, which broadcasts to every
+  subscriber's bounded leaky queue;
+* burst draining (``burst=8``): a subscriber pipeline whose sources all
+  have frames queued (a slow consumer that fell behind, or a late joiner
+  replaying retained history) drains up to ``burst`` of them in one tick.
+  The host pulls them (one stacked codec decode per run of same-structure
+  frames), stacks them, runs the plan's ``step_n`` in hoisted-I/O mode
+  and replays the captured ``mqttsink`` frames through the real
+  ``apply``, in order — bitwise the per-frame steps;
 * client pipelines containing a ``tensor_query_client`` run *deferred*: the
   plan pauses at the client, the tick gathers every paused request into a
   round, encodes it per codec group and ships each request to the endpoint
@@ -14,7 +25,12 @@ with a global tick (60 Hz frame cadence, as in the paper's evaluation):
   gather-stack-flush — and resumes each paused frame with its answer,
   routed back by ``client_id`` and decoded per (codec, structure) group;
   streams still mid-generation re-enter the drain next tick;
-* pipelines without query clients step once per tick.
+* pipelines without query clients step once per tick (or burst).
+
+``query_batch=0`` turns batching off: client pipelines step like any other
+and their ``tensor_query_client.apply`` is the synchronous round trip — it
+sends, the server's batcher ``flush`` serves inline (one interpreted
+server step per request), and it receives.
 
 Fused wire path (default on, ``fused_wire=True``, DESIGN.md §5): a round's
 requests encode in one stacked launch per codec group, a stateless server
@@ -25,9 +41,9 @@ same answers bitwise.
 
 Every pipeline's tensors live on one device: the GPU unless the caller
 passes ``device="cpu"``.  Leases and failover, parking deadlines, live
-reconfiguration, pub/sub bursts, mesh placement, tenant QoS, the lossy
-network and autoscaling wait for their ROADMAP items (M6, M7, M3, M11, M9,
-M10) and raise ``NotImplementedError`` where asked for.
+reconfiguration, mesh placement, tenant QoS, the lossy network and
+autoscaling wait for their ROADMAP items (M6, M7, M11, M9, M10) and raise
+``NotImplementedError`` where asked for.
 """
 from __future__ import annotations
 
@@ -40,15 +56,18 @@ from ..core.admission import merge_tenant_stats
 from ..core.batching import (BatchingPolicy, QueryBatcher,
                              StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
 from ..core.broker import Broker, BrokerError
-from ..core.buffers import StreamBuffer, structure_key
+from ..core.buffers import (StreamBuffer, stack_buffers, structure_key,
+                             unstack_buffers)
 from ..core.pipeline import Pipeline
 from ..core.plan import PendingQuery
+from ..core.pubsub import MqttSink, MqttSrc
 from ..core.query import TensorQueryClient, TensorQueryServerSrc
 from ..core.sync import PipelineClock, SimClock
 from ..core import compression as comp
 from ..device import DeviceLike, make_generator, resolve_device
 
 TICK_NS = 16_666_667  # 60 Hz
+DEFAULT_BURST = 8
 
 
 @dataclass
@@ -59,10 +78,22 @@ class _PipeRun:
     device: torch.device
     frames: int = 0
     skipped: int = 0
+    bursts: int = 0              # multi-frame drains executed
+    burst_frames: int = 0        # frames delivered via bursts
     last_outputs: Dict[str, StreamBuffer] = field(default_factory=dict)
     sink_log: Dict[str, list] = field(default_factory=dict)
     #: a retired run is skipped by the scheduler (it starts no new frames)
     retired: bool = False
+    #: drops of elements a reconfiguration removed (0 until ROADMAP M7)
+    carried_drops: int = 0
+
+    @property
+    def host_srcs(self) -> List[MqttSrc]:
+        return self.pipe.plan.host_sources
+
+    @property
+    def host_sinks(self) -> List[MqttSink]:
+        return self.pipe.plan.host_sinks
 
 
 def _is_server(run: _PipeRun) -> bool:
@@ -92,6 +123,10 @@ class Device:
         Device's, else the GPU)."""
         dev = resolve_device(device if device is not None else self.device)
         pipe.realize()
+        # the pipeline clock stamps and rebases pub/sub pts (§4.2.3)
+        for e in pipe.elements.values():
+            if isinstance(e, (MqttSink, MqttSrc)) and e.sync_clock is None:
+                e.sync_clock = self.pipeline_clock
         g = generator if generator is not None else make_generator(0, dev)
         run = _PipeRun(pipe=pipe, params=pipe.init(g, dev),
                        state=pipe.init_state(dev), device=dev)
@@ -101,7 +136,8 @@ class Device:
 
 class Runtime:
     def __init__(self, broker: Optional[Broker] = None,
-                 tick_ns: int = TICK_NS, query_batch=DEFAULT_QUERY_BATCH,
+                 tick_ns: int = TICK_NS, burst: int = DEFAULT_BURST,
+                 query_batch=DEFAULT_QUERY_BATCH,
                  device: DeviceLike = None, qos=None, mesh=None,
                  delivery=None, fused_wire: bool = True):
         for value, what in ((qos, "tenant QoS (qos=): ROADMAP M9"),
@@ -115,10 +151,10 @@ class Runtime:
         self.broker = broker or Broker()
         self.devices: List[Device] = []
         self.tick_ns = tick_ns
+        #: most frames a subscriber pipeline drains in one tick
+        self.burst = max(1, int(burst))
+        #: query micro-batching policy (0 = synchronous round trips)
         self.batching = BatchingPolicy.of(query_batch)
-        if not self.batching.enabled:
-            raise NotImplementedError("query_batch=0 (synchronous round "
-                                      "trips inside the client): ROADMAP M3")
         #: fused batched wire path (module docstring)
         self.fused_wire = bool(fused_wire)
         #: endpoint_id -> batcher for every runtime-wired serversrc
@@ -145,7 +181,8 @@ class Runtime:
 
     def _wire(self, run: _PipeRun):
         for e in run.pipe.elements.values():
-            if isinstance(e, TensorQueryClient) and e.broker is None:
+            if isinstance(e, (MqttSink, MqttSrc, TensorQueryClient)) and \
+                    e.broker is None:
                 e.connect(self.broker)
             if isinstance(e, TensorQueryServerSrc) and e.registration is None:
                 if run.pipe.plan.stream_serving:
@@ -160,8 +197,8 @@ class Runtime:
                         fused=self.fused_wire, clock=lambda: self.ticks)
                 self._batchers[e.endpoint.endpoint_id] = batcher
                 e.connect(self.broker, inline_runner=batcher.flush)
-        # renegotiate with the broker wiring in place; the plan keeps its
-        # fingerprint, so cached callables are reused
+        # renegotiate with the broker wiring in place (mqttsink registers);
+        # the plan keeps its fingerprint, so cached callables are reused
         run.pipe._realized = False
         run.pipe.realize()
 
@@ -188,6 +225,12 @@ class Runtime:
                         reg.load = float(len(e.endpoint.requests)) + \
                             float(len(b.admission) if b else 0)
         self.broker.tick()
+
+    def _ready(self, run: _PipeRun) -> bool:
+        """Every subscriber source has a frame (servers never get here:
+        their batchers drive them)."""
+        return all(e.queued() > 0 for e in run.pipe.elements.values()
+                   if isinstance(e, MqttSrc))
 
     def _finish_frame(self, run: _PipeRun, outputs: Dict[str, StreamBuffer]):
         run.frames += 1
@@ -344,6 +387,68 @@ class Runtime:
             return [comp.decode(raw, qc.codec) for qc, raw in pairs]
         return self._codec_round(pairs, comp.decode_batch)
 
+    # -- burst draining -----------------------------------------------------------
+    def _burst_size(self, run: _PipeRun) -> int:
+        """Frames to drain this tick: at most ``burst`` and at most the
+        shortest queue of the pipeline's subscriber sources."""
+        plan = run.pipe.plan
+        if self.burst <= 1 or not plan.burstable:
+            return 1
+        if not plan.all_sources_host_driven:
+            # a self-driven source (live camera) would be fast-forwarded
+            return 1
+        return max(1, min([self.burst] +
+                          [s.queued() for s in run.host_srcs]))
+
+    def _deliver_frame(self, run: _PipeRun,
+                       frame_outs: Dict[str, StreamBuffer]):
+        """Route one frame of a burst: captured mqttsink frames replay
+        through the element's real apply (encode, channel push, broker
+        accounting); app-sink frames land in the log.  The bookkeeping of
+        ``_run_once``: ``last_outputs`` replaced, the frame counted."""
+        app_outs = {}
+        for name, buf in frame_outs.items():
+            elem = run.pipe.elements[name]
+            if isinstance(elem, MqttSink):
+                elem.apply(run.params.get(name, {}), [buf])
+            else:
+                app_outs[name] = buf
+                run.sink_log.setdefault(name, []).append(buf)
+        run.last_outputs = app_outs
+        run.frames += 1
+
+    def _run_burst(self, run: _PipeRun, n: int):
+        """Drain ``n`` queued frames through one ``step_n`` call."""
+        pulls = {s.name: s.pull_burst(n) for s in run.host_srcs}
+        if any(len(v) != n for v in pulls.values()):
+            # a channel raced below n: replay what was pulled per frame
+            return self._replay_frames(run, pulls)
+        try:
+            stacked = {k: stack_buffers(v) for k, v in pulls.items()}
+        except ValueError:
+            # frames of differing structure cannot stack: per frame
+            return self._replay_frames(run, pulls)
+        step_n = run.pipe.compiled_step_n(hoist_io=True)
+        outs, run.state = step_n(run.params, run.state, stacked)
+        for frame_outs in unstack_buffers(outs, n):
+            self._deliver_frame(run, frame_outs)
+        run.bursts += 1
+        run.burst_frames += n
+
+    def _replay_frames(self, run: _PipeRun, pulls: Dict[str, list]):
+        """Per-frame steps for frames already pulled off the channels.
+        Every source needs a frame each step, so only the shortest pull
+        runs; surplus frames go back to the front of their sources."""
+        n = min(len(v) for v in pulls.values()) if pulls else 0
+        for name, frames in pulls.items():
+            if len(frames) > n:
+                run.pipe.elements[name].unread(frames[n:])
+        for i in range(n):
+            inputs = {k: v[i] for k, v in pulls.items()}
+            outputs, run.state = run.pipe.plan.run(
+                run.params, run.state, inputs, hoist_io=True)
+            self._deliver_frame(run, outputs)
+
     def tick(self):
         self.ticks += 1
         self._ntp_ref.advance(self.tick_ns)
@@ -365,10 +470,18 @@ class Runtime:
                 if id(run) in busy:
                     run.skipped += 1  # a frame is still in flight
                     continue
-                if run.pipe.plan.has_query_clients:
+                if not self._ready(run):
+                    run.skipped += 1
+                    continue
+                if run.pipe.plan.has_query_clients and \
+                        self.batching.enabled:
                     paused = self._begin_deferred(run)
                     if paused is not None:
                         fresh.append(paused)
+                    continue
+                n = self._burst_size(run)
+                if n > 1:
+                    self._run_burst(run, n)
                 else:
                     self._run_once(run)
         pending.extend(self._dispatch_round(fresh))
@@ -384,11 +497,22 @@ class Runtime:
         out = {}
         for dev in self.devices:
             for i, run in enumerate(dev.runs):
+                drops = run.carried_drops
+                for e in run.pipe.elements.values():
+                    if isinstance(e, MqttSrc):
+                        drops += e.drops   # across every publisher bound
+                    elif isinstance(e, MqttSink):
+                        drops += e.channel.drops
                 out[f"{dev.name}/p{i}"] = {"frames": run.frames,
-                                           "skipped": run.skipped}
+                                           "skipped": run.skipped,
+                                           "bursts": run.bursts,
+                                           "burst_frames": run.burst_frames,
+                                           "drops": drops}
         out["broker"] = {"relay_msgs": self.broker.relay_msgs,
                          "relay_bytes": self.broker.relay_bytes,
-                         "lease_expiries": self.broker.expiries}
+                         "lease_expiries": self.broker.expiries,
+                         "suspicions": self.broker.suspicions,
+                         "heals": self.broker.heals}
         out["failover"] = {"parked_total": self.parked_total,
                            "parked_now": len(self._parked),
                            "inflight_now": len(self._inflight)}
