@@ -68,7 +68,24 @@ Phases, one result line each (any failure exits non-zero):
    decode, wire bytes per frame, and the K1–K4 launch counts (encode once
    per frame, decode once per burst or single step), with the peak
    memory; 7c, phase 6a at ``query_batch=0`` == its fused batch-8
-   answers, bitwise.  With ``--profile``, one burst tick is profiled.
+   answers, bitwise.  With ``--profile``, one burst tick is profiled;
+8. the rGLRU state family — recurrentgemma-9b at full width (38 layers:
+   26 RG-LRU, 12 windowed attention with 2048-row ring caches; bf16,
+   seeded random weights) behind ``serve_pipeline(slots=8,
+   max_seq=4096)``, 8 staggered clients, 12 streams of 128–3000-token
+   prompts (three longer than the window, two decoding across position
+   2048); checks every answer, token conservation, the scan kernel's
+   launches (one per recurrent layer per prefill) and that no flash
+   kernel runs, continuous == sequential decode bitwise on 4 streams
+   (8b), and an fp32 recurrentgemma-smoke server on the card against the
+   port's CPU path (8c); prints prefill ms per request, decode ms per
+   tick, tokens/s and the peak memory.  With ``--profile``, one 2048-token
+   prefill and one decode tick are profiled.
+
+Phase 3d holds the RG-LRU scan kernel (a new kernel; the JAX package
+scans with ``jax.lax.associative_scan``) against its plain step-by-step
+loop on ragged smoke shapes and at f32 [1, 3000, 4096] within atol = rtol
+= 1e-5, and times it beside its byte bound.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -603,6 +620,68 @@ def phase_codec_kernels(seed):
     return table
 
 
+SCAN_TOL = 1e-5     # atol and rtol of the scan kernel against its plain loop
+F32_FLOPS = 67e12   # H100 SXM f32 peak outside the tensor cores
+
+
+def phase_scan_kernel(seed):
+    """3d: the RG-LRU scan kernel against its plain version on the card:
+    ragged smoke shapes (S of 1, 7 and 64; widths that are not a multiple
+    of the 32-wide block) and the full-width prefill shape f32
+    [1, 3000, 4096]; timed with CUDA events, warm L2, beside its byte
+    bound and the plain step-by-step loop.  No single PyTorch call
+    computes a linear recurrence, so it has no library time."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def inputs(b, s, w):
+        a = torch.rand((b, s, w), generator=g, device=dev) * 0.5 + 0.5
+        bx = torch.randn((b, s, w), generator=g, device=dev)
+        return a, bx
+
+    def excess(h, r):
+        return ((h - r).abs() - SCAN_TOL - SCAN_TOL * r.abs()).max().item()
+
+    worst_err, worst_excess, n = 0.0, float("-inf"), 0
+    for b, s, w in [(1, 1, 100), (2, 7, 4096), (3, 64, 257), (1, 64, 33),
+                    (4, 7, 31)]:
+        a, bx = inputs(b, s, w)
+        h = rs.rglru_scan(a, bx)
+        r = rs.rglru_scan_plain(a, bx)
+        torch.cuda.synchronize()
+        e = excess(h, r)
+        check(e <= 0, f"scan [{b},{s},{w}]: error beyond atol=rtol="
+                      f"{SCAN_TOL} by {e}")
+        worst_err = max(worst_err, (h - r).abs().max().item())
+        worst_excess = max(worst_excess, e)
+        n += 1
+    b, s, w = 1, 3000, 4096
+    a, bx = inputs(b, s, w)
+    h = rs.rglru_scan(a, bx)
+    r = rs.rglru_scan_plain(a, bx)
+    torch.cuda.synchronize()
+    e = excess(h, r)
+    check(e <= 0, f"scan [1,3000,4096]: error beyond tolerance by {e}")
+    err = (h - r).abs().max().item()
+    kern = cuda_ms(lambda: rs.rglru_scan(a, bx))
+    plain = cuda_ms(lambda: rs.rglru_scan_plain(a, bx), iters=3, warmup=1)
+    nbytes = 3 * b * s * w * 4          # a, bx read once; h written once
+    flops = 2 * b * s * w
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    row = dict(shape=[b, s, w], max_abs_err=err, bitwise=bool(err == 0.0),
+               ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+               flops / F32_FLOPS else "operations",
+               smoke_max_abs_err=worst_err)
+    print(f"phase 3d scan kernel: {n} smoke shapes pass (atol=rtol="
+          f"{SCAN_TOL}, max abs err {worst_err:.3e}); f32 [1, 3000, 4096]: "
+          f"max abs err {err:.3e}, kernel {kern:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound:.5f} ms (bytes, {nbytes} B)")
+    return row
+
+
 def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
     """Drive one serve pipeline plus staggered clients until every client
     has its answers.  ``clients`` is a list of (join_tick, prompts, gens)."""
@@ -965,17 +1044,21 @@ def _client_frames(codec, i, ticks, device):
     return frames
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (flash_attn, quant8, rglru_scan,
+                                     sparse_dec, sparse_enc)
+    return (flash_attn, quant8, sparse_enc, sparse_dec, rglru_scan)
+
+
 def _launch_counts():
-    from repro_torch.kernels import flash_attn, quant8, sparse_dec, sparse_enc
     counts = {}
-    for mod in (flash_attn, quant8, sparse_enc, sparse_dec):
+    for mod in _kernel_modules():
         counts.update(mod.LAUNCHES)
     return counts
 
 
 def _reset_launches():
-    from repro_torch.kernels import flash_attn, quant8, sparse_dec, sparse_enc
-    for mod in (flash_attn, quant8, sparse_enc, sparse_dec):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
@@ -1524,6 +1607,169 @@ def phase_pubsub(seed, fused_6a, profile=False):
             "7c": _phase_query_batch_zero(seed, fused_6a)}
 
 
+RG_MAX_SEQ, RG_SLOTS = 4096, 8
+#: phase 8's 12 streams as (client, prompt length, tokens generated):
+#: clients 0-3 send two requests, 4-7 one; three prompts are longer than
+#: the 2048-position window (the prefill's ring roll), two decode across
+#: position 2048 (the ring's wrap), the longest prompt is 3000 tokens
+RG_STREAMS = [(0, 2030, 40), (0, 512, 24), (1, 3000, 24), (1, 128, 16),
+              (2, 2500, 32), (2, 1024, 20), (3, 2040, 30), (3, 300, 16),
+              (4, 2200, 20), (5, 768, 48), (6, 1500, 28), (7, 256, 36)]
+#: streams replayed through sequential_decode: both that cross the
+#: window, the longest prompt, and one more prompt past the window
+RG_REPLAYED = (0, 2, 4, 6)
+
+
+def _rglru_profile(elem, params, cfg, seed):
+    """--profile: one 2048-token prefill and one decode tick with every
+    slot active at position 2100 (past the ring's wrap)."""
+    import torch
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.models import transformer
+    prompt = np.random.default_rng(seed + 8).integers(0, cfg.vocab, 2048)
+    res = {"prefill L=2048": _profile(lambda: elem.host_prefill(params,
+                                                                prompt))}
+    _, c1 = elem.host_prefill(params, prompt)
+    cache = transformer.cache_init(cfg, RG_SLOTS, RG_MAX_SEQ)
+    for d, s in zip(tree_flatten(cache["layers"])[0],
+                    tree_flatten(c1["layers"])[0]):
+        d.copy_(s.expand_as(d))
+    token = torch.zeros(RG_SLOTS, dtype=torch.int32, device="cuda")
+    active = torch.ones(RG_SLOTS, dtype=torch.bool, device="cuda")
+
+    def tick():
+        cache["pos"].fill_(2100)
+        transformer.serve_decode_step(params, cfg, cache, token, active)
+    res["decode tick S=8"] = _profile(tick)
+    out = {}
+    for name, (wall, busy, rows) in res.items():
+        top = ", ".join(f"{k[:40]} {ms_:.2f} ms x{n}" for k, ms_, n in
+                        rows[:6])
+        print(f"phase 8 profile {name}: host wall {wall:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall:.0f}%); top: {top}")
+        out[name] = {"wall_ms": wall, "device_ms": busy,
+                     "top": [list(r) for r in rows[:15]]}
+    return out
+
+
+def phase_rglru_serve(seed, profile=False):
+    """8: recurrentgemma-9b at full width (38 layers: 26 RG-LRU, 12
+    windowed attention; bf16, seeded random weights) behind
+    ``serve_pipeline(slots=8, max_seq=4096)``, 8 staggered clients, 12
+    streams (RG_STREAMS).  Checks every answer, token conservation, the
+    scan kernel's launches (one per recurrent layer per prefill, and no
+    flash kernel: windowed layers take plain attention), continuous ==
+    sequential decode bitwise on RG_REPLAYED (each in its serve slot);
+    8c: an fp32 recurrentgemma-smoke server on the card == the port's CPU
+    path, its ring wrapped and a prompt longer than its window."""
+    import torch
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models import transformer
+
+    cfg = recurrentgemma_9b.config()
+    ms.register_serve_model("recurrentgemma-9b", lambda: cfg)
+    n_rec = sum(cfg.kind(i) == "R" for i in range(cfg.n_layers))
+    rng = np.random.default_rng(seed + 8)
+    streams = [(c, rng.integers(0, cfg.vocab, n).tolist(), gen)
+               for c, n, gen in RG_STREAMS]
+    clients = [(2 * c, [p for cc, p, _ in streams if cc == c],
+                [g for cc, _, g in streams if cc == c]) for c in range(8)]
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    rt, srv, runs, wall = _serve(None, "recurrentgemma-9b", RG_SLOTS,
+                                 RG_MAX_SEQ, clients, seed, max_ticks=600)
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    answers = _check_answers(runs, clients, cfg.vocab, RG_SLOTS)
+    qb = rt.stats()["query_batching"]
+    check(qb["tokens_generated"] == qb["tokens_delivered"] +
+          qb["tokens_dropped"] + qb["tokens_in_flight"],
+          f"8: token conservation broken: {qb}")
+    check(qb["tokens_delivered"] == sum(g for _, _, g in streams),
+          f"8: {qb['tokens_delivered']} tokens delivered")
+    check(launches["rglru_scan"] == n_rec * qb["prefills"],
+          f"8: scan launches {launches['rglru_scan']} != {n_rec} x "
+          f"{qb['prefills']} prefills")
+    check(launches["flash_attention"] == launches["flash_decode"] == 0,
+          f"8: windowed layers reached a flash kernel: {launches}")
+    check(qb["batched_frames"] > qb["decode_ticks"],
+          "8: the decode batch was never wider than one stream")
+    serve = dict(ticks=rt.ticks, wall_s=wall, prefills=qb["prefills"],
+                 decode_ticks=qb["decode_ticks"],
+                 tokens=qb["tokens_generated"],
+                 prefill_ms_per_request=1e3 * qb["prefill_seconds"] /
+                 qb["prefills"],
+                 decode_ms_per_tick=1e3 * qb["decode_seconds"] /
+                 qb["decode_ticks"],
+                 mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
+                 tokens_per_s=qb["tokens_generated"] / wall,
+                 peak_gib=peak_gib, base_gib=base_gib,
+                 launches={"rglru_scan": launches["rglru_scan"]},
+                 scan_launches_per_prefill=launches["rglru_scan"] /
+                 qb["prefills"])
+    print(f"phase 8a serve recurrentgemma-9b bf16 {cfg.n_layers} layers "
+          f"({n_rec} R, {cfg.n_layers - n_rec} L, window {cfg.window}) "
+          f"slots {RG_SLOTS} max_seq {RG_MAX_SEQ}: {len(answers)} answers "
+          f"in {rt.ticks} ticks, {wall:.2f} s; prefill "
+          f"{serve['prefill_ms_per_request']:.2f} ms/request, decode "
+          f"{serve['decode_ms_per_tick']:.2f} ms/tick (mean "
+          f"{serve['mean_active_slots']:.2f} active slots), "
+          f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
+          f"{peak_gib - base_gib:.2f} GiB over the {base_gib:.2f} GiB the "
+          f"earlier phases hold; scan launches "
+          f"{launches['rglru_scan']} ({serve['scan_launches_per_prefill']:g}"
+          f" per prefill)")
+
+    elem = srv.pipe.elements["lm"]
+    params = srv.params["lm"]
+    by_stream = {}
+    for prompt, gen, got, slot in answers:
+        by_stream[(len(prompt), gen)] = (prompt, gen, got, slot)
+    replayed = []
+    for i in RG_REPLAYED:
+        _, n, gen = RG_STREAMS[i]
+        prompt, gen, got, slot = by_stream[(n, gen)]
+        ref = ms.sequential_decode(params, elem.cfg, prompt, gen, RG_MAX_SEQ,
+                                   slots=RG_SLOTS, slot=slot)
+        check(got == ref, f"8b: continuous != sequential for a {n}-token "
+                          f"prompt in slot {slot}: {got} vs {ref}")
+        replayed.append(n)
+    print(f"phase 8b continuous == sequential decode: {len(replayed)} "
+          f"streams bitwise (prompts {replayed}; two decode across "
+          f"position {cfg.window}), each replayed in its serve slot")
+    serve["profile"] = _rglru_profile(elem, params, elem.cfg, seed) \
+        if profile else None
+    del rt, srv, runs, elem, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c: a small fp32 server on the card against the port's CPU path,
+    # max_seq above the window of 32: the ring wraps in decode, and two
+    # prompts are longer than the window
+    small = [(0, [list(range(3, 51))], [10]), (1, [[5, 6]], [40]),
+             (2, [list(range(60, 101))], [12]), (3, [[7, 8, 9]], [20])]
+    rt2, srv2, runs2, _ = _serve(None, "recurrentgemma-smoke", 4, 64, small,
+                                 seed, max_ticks=80)
+    got = _check_answers(runs2, small, 512, 4)
+    scfg = srv2.pipe.elements["lm"].cfg
+    cpu_params = transformer.params_from_numpy(
+        _to_numpy(srv2.params["lm"]), scfg, "cpu")
+    for prompt, gen, toks, slot in got:
+        ref = ms.sequential_decode(cpu_params, scfg, prompt, gen, 64,
+                                   slots=4, slot=slot, device="cpu")
+        check(toks == ref, f"8c: fp32 card answer {toks} != CPU {ref}")
+    print("phase 8c fp32 recurrentgemma-smoke server on the card == the "
+          f"port's CPU path: {len(got)} streams (window {scfg.window}, "
+          f"max_seq 64)")
+    return serve
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -1537,8 +1783,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width prefill, one decode "
-                         "tick, 8 offload ticks per codec and one pub/sub "
-                         "burst tick")
+                         "tick, 8 offload ticks per codec, one pub/sub "
+                         "burst tick, and one recurrentgemma-9b prefill "
+                         "and decode tick")
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
@@ -1549,11 +1796,13 @@ def main(argv=None):
     build_s, ptxas = phase_build()
     table = phase_kernels(args.seed)
     codec_table = phase_codec_kernels(args.seed)
+    scan = phase_scan_kernel(args.seed)
     serve, srv = phase_serve(args.seed)
     profile = phase_profile(srv, args.seed) if args.profile else None
     offload, fused_6a = phase_offload(args.seed, profile=args.profile)
     pubsub = phase_pubsub(args.seed, fused_6a, profile=args.profile)
-    del fused_6a
+    del fused_6a, srv               # phase 8 needs the card's memory
+    rglru = phase_rglru_serve(args.seed, profile=args.profile)
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -1573,11 +1822,15 @@ def main(argv=None):
          "src/repro/kernels/flash_attn.py:110",
          table["K6 S=8 max_seq=1024"], serve["launches"]),
     ]
+    rows.append(("rglru_scan", "rglru_scan.cu",
+                 "src/repro/models/rglru.py:85", scan, rglru["launches"]))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
                 **{k: row[k] for k in timed}}
                for name, src, where, row, launches in rows]
+    kernels[6]["note"] = ("new kernel, not a TPU port: takes the place of "
+                          "jax.lax.associative_scan")
     # K3: the cold-L2 time, one stacked encode, and the passes it absorbed
     for k in ("cold_ms", "stacked_ms", "removed_glue_ms"):
         kernels[2][k] = codec_table["sparse_enc"][k]
@@ -1596,7 +1849,9 @@ def main(argv=None):
                                    "kernels": table,
                                    "codec_kernels": codec_table,
                                    "serve": serve, "profile": profile,
-                                   "offload": offload, "pubsub": pubsub},
+                                   "offload": offload, "pubsub": pubsub,
+                                   "scan_kernel": scan,
+                                   "rglru_serve": rglru},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,11 @@ from typing import Dict
 
 from ..models.config import ModelConfig
 
-from . import stablelm_1_6b
+from . import recurrentgemma_9b, stablelm_1_6b
 
 _MODULES = {
     "stablelm-1.6b": stablelm_1_6b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -287,7 +287,11 @@ class QueryBatcher:
     def _count(self, n: int):
         self.batched_frames += n
         if n > 1:
+            # a batch of n frames is one burst of the server run, as the
+            # JAX package books it
             self.batches += 1
+            self.run.bursts += 1
+            self.run.burst_frames += n
 
     def _route(self, frame_outs: Dict[str, StreamBuffer], routing: Dict):
         """Deliver one frame's captured outputs: serversink answers replay
@@ -311,8 +315,10 @@ class QueryBatcher:
         return {"flushes": self.flushes, "batches": self.batches,
                 "batched_frames": self.batched_frames,
                 "sequential_frames": self.sequential_frames,
+                "sharded_batches": 0, "sharded_frames": 0,   # ROADMAP M11
                 "fused_batches": self.fused_batches,
                 "fused_frames": self.fused_frames,
+                "flush_orphans": 0,     # a dead endpoint raises (M6)
                 "admitted_requests": sum(t["admitted"] for t in adm.values()),
                 "served_requests": sum(t["served"] for t in adm.values()),
                 "shed_requests": sum(t["shed"] for t in adm.values()),

@@ -35,7 +35,7 @@ from ..kernels import ops as kops
 from ..kernels.ref import SPARSE_B
 from .buffers import (Quant8Payload, SparsePayload, StreamBuffer,
                       stack_buffers, unstack_buffers)
-from .formats import TORCH_DTYPES, dtype_name
+from .formats import TORCH_DTYPES, dtype_name, saturating_cast
 
 __all__ = ["encode", "decode", "encode_stacked", "decode_stacked",
            "encode_batch", "decode_batch", "wire_nbytes", "CODECS",
@@ -95,7 +95,8 @@ def _quant8_enc(x: torch.Tensor) -> Quant8Payload:
 def _quant8_dec(enc: Quant8Payload) -> torch.Tensor:
     x = kops.dequantize8(enc.q, enc.scale)
     m, n = enc.view2d
-    return x[:m, :n].to(TORCH_DTYPES[enc.dtype]).reshape(enc.shape)
+    return saturating_cast(x[:m, :n], TORCH_DTYPES[enc.dtype]).reshape(
+        enc.shape)
 
 
 def _sparse_cap(size: int, density: float) -> int:
@@ -145,7 +146,7 @@ def _quant8_dec_stacked(enc: Quant8Payload) -> torch.Tensor:
     b = enc.q.shape[0]
     x = kops.dequantize8_stacked(enc.q, enc.scale)
     m, n = enc.view2d
-    return x[:, :m, :n].to(TORCH_DTYPES[enc.dtype]).reshape(
+    return saturating_cast(x[:, :m, :n], TORCH_DTYPES[enc.dtype]).reshape(
         (b,) + tuple(enc.shape))
 
 

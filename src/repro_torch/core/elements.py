@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from .buffers import SparsePayload, StreamBuffer
 from .element import Element, PipelineContext, register_element
-from .formats import TORCH_DTYPES, Caps, TensorFormat, TensorSpec
+from .formats import (TORCH_DTYPES, Caps, TensorFormat, TensorSpec,
+                      saturating_cast)
 
 
 @register_element("appsrc")
@@ -132,15 +133,26 @@ class VideoScale(Element):
         nchw = x.to(torch.float32).permute(2, 0, 1)[None]
         y = F.interpolate(nchw, size=self.target, mode="bilinear",
                           antialias=True, align_corners=False)
-        y = y[0].permute(1, 2, 0).to(x.dtype).contiguous()
+        y = saturating_cast(y[0].permute(1, 2, 0), x.dtype).contiguous()
         return [buf.with_(tensors=(y,))]
+
+
+def _update_start(start: int, size: int, n: int) -> int:
+    """Where ``jax.lax.dynamic_update_slice`` writes ``n`` elements into an
+    axis of ``size`` when asked to start at ``start``."""
+    if start < 0:
+        start += size
+    return min(max(start, 0), size - n)
 
 
 @register_element("compositor")
 class Compositor(Element):
     """Overlay N video frames by zorder, each at its pad's xpos/ypos
     (``mix.sink_0::xpos=...`` in Listing 2) and clipped to the first
-    frame's canvas."""
+    frame's canvas.  Each write starts where ``jax.lax.dynamic_update_slice``
+    starts it in the JAX package: a negative offset counts from the
+    canvas's far edge (``allow_negative_indices``), and the start is then
+    clamped so that the frame lies inside the canvas."""
 
     n_sink_pads = None  # request pads
 
@@ -169,9 +181,12 @@ class Compositor(Element):
             fw = min(frame.shape[1], w - xpos)
             if fh <= 0 or fw <= 0:
                 continue
-            canvas[ypos:ypos + fh, xpos:xpos + fw, :frame.shape[2]] = \
+            y0 = _update_start(ypos, h, fh)
+            x0 = _update_start(xpos, w, fw)
+            canvas[y0:y0 + fh, x0:x0 + fw, :frame.shape[2]] = \
                 frame[:fh, :fw].to(torch.float32)
-        return [inputs[0].with_(tensors=(canvas.to(base.dtype),))]
+        return [inputs[0].with_(tensors=(saturating_cast(canvas,
+                                                         base.dtype),))]
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +236,7 @@ class TensorTransform(Element):
         for op in self.ops:
             kind, _, arg = op.partition(":")
             if kind == "typecast":
-                x = x.to(TORCH_DTYPES[arg])
+                x = saturating_cast(x, TORCH_DTYPES[arg])
             elif kind == "add":
                 x = x + float(arg)
             elif kind == "sub":
@@ -341,7 +356,8 @@ class TensorDecoder(Element):
     def apply(self, params, inputs, ctx=None):
         buf = inputs[0]
         if self.mode == "direct_video":
-            return [buf.with_(tensors=(buf.tensors[0].to(torch.uint8),))]
+            return [buf.with_(tensors=(saturating_cast(buf.tensors[0],
+                                                       torch.uint8),))]
         if self.mode == "classification":
             logits = buf.tensors[0]
             return [buf.with_(tensors=(

@@ -19,7 +19,7 @@ import torch
 __all__ = [
     "TensorFormat", "TensorSpec", "Caps", "CapsError",
     "DTYPE_TAGS", "TORCH_DTYPES", "dtype_to_tag", "tag_to_dtype",
-    "dtype_name",
+    "dtype_name", "saturating_cast",
 ]
 
 
@@ -64,6 +64,30 @@ def dtype_to_tag(dtype) -> int:
 
 def tag_to_dtype(tag: int) -> torch.dtype:
     return TORCH_DTYPES[DTYPE_TAGS[int(tag)]]
+
+
+def saturating_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)`` with XLA's float -> integer semantics, as the JAX
+    package's ``astype`` gives them: truncation toward zero, values beyond
+    the target's range saturate to its min or max, NaN becomes 0.  torch's
+    own cast wraps instead.  Other casts are plain ``to``.
+
+    Up to 32-bit targets the clamp runs in float64, which holds every
+    limit exactly (float32 rounds 2**31 - 1 up to 2**31, and a clamp there
+    would overflow again).  A 64-bit target, whose limits float64 cannot
+    hold either, is masked after the cast: the comparison runs in ``x``'s
+    type, where the limit rounds up to the first value really out of
+    range."""
+    if not x.is_floating_point() or dtype.is_floating_point or \
+            dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    if info.bits <= 32:
+        return x.double().clamp(info.min, info.max).nan_to_num(0.0).to(dtype)
+    out = x.to(dtype)
+    out.masked_fill_(x >= info.max, info.max)
+    out.masked_fill_(x <= info.min, info.min)
+    return out.masked_fill_(torch.isnan(x), 0)
 
 
 class CapsError(ValueError):

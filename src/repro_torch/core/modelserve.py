@@ -16,11 +16,15 @@ Differences from the JAX package, same results:
   so every GEMM has the same shape and continuous == sequential bitwise.
 * The slot cache is updated IN PLACE on the device: an admitted stream's
   prefilled cache (kept on the device since its prefill) is copied into its
-  slot rows with ``index_copy_``, and each decode step writes every slot's
-  new K/V row at that slot's own position.  JAX assembles admit bundles on
+  slot rows with ``index_copy_``, leaf by leaf (every layer's cache has the
+  same keys in the same order wherever it is made: ``{"k", "v"}`` for an
+  attention layer, ``{"h", "conv"}`` for a recurrent one), and each decode
+  step writes every slot's new K/V row at that slot's own position and
+  advances every slot's recurrent state.  JAX assembles admit bundles on
   the host and selects ``where(mask, new, old)`` over the whole cache.
-  Rows of inactive slots may be written with values nobody reads: a slot's
-  rows are replaced wholesale when a stream is admitted into it.
+  Inactive slots may be written or advanced with values nobody reads: a
+  slot's rows and state are replaced wholesale, every leaf, when a stream
+  is admitted into it.
 """
 from __future__ import annotations
 

@@ -32,6 +32,7 @@ SOURCES: Dict[str, str] = {
     "quant8": "quant8.cu",
     "sparse_enc": "sparse_enc.cu",
     "sparse_dec": "sparse_dec.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,6 +7,9 @@
   contract as the ``*_xla`` functions of ``quant8.py``, ``sparse_enc.py``
   and ``sparse_dec.py``, bitwise; the kernel wrappers run them for CPU
   tensors, and ``chip_smoke.py`` holds the CUDA kernels to them.
+* The plain version of the RG-LRU scan kernel (``rglru_scan_plain``), a
+  step-by-step loop; the kernel is new in the port (the JAX package runs
+  ``jax.lax.associative_scan``).
 * Full-softmax attention (``attn_ref``, ``attn_decode_ref``): they
   materialize the whole score tensor in f32 — the thing the flash kernels
   exist to avoid — and serve as the oracles the flash kernels and their
@@ -149,3 +152,15 @@ def attn_decode_ref(q, k, v, pos, *, kv_groups: int = 1):
     s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hk,hkd->hd", p, v.float()).to(q.dtype)
+
+
+def rglru_scan_plain(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + bx_t over axis 1, h_{-1} = 0: a, bx f32
+    [B, S, w] -> h f32 [B, S, w].  One multiply then one add per step, in
+    sequence order: the kernel's arithmetic, and the decode step's."""
+    h = torch.empty_like(bx)
+    state = torch.zeros_like(bx[:, 0])
+    for t in range(bx.shape[1]):
+        state = a[:, t] * state + bx[:, t]
+        h[:, t] = state
+    return h

@@ -52,8 +52,16 @@ def _stablelm_smoke() -> ModelConfig:
     return stablelm_1_6b.config().smoke()
 
 
+def _recurrentgemma_smoke() -> ModelConfig:
+    """rGLRU hybrid (R, R, L pattern): recurrent state and windowed
+    attention ring caches as plan state."""
+    from ..configs import recurrentgemma_9b
+    return recurrentgemma_9b.config().smoke()
+
+
 register_serve_model("stablelm-smoke-flash", _stablelm_smoke_flash)
 register_serve_model("stablelm-smoke", _stablelm_smoke)
+register_serve_model("recurrentgemma-smoke", _recurrentgemma_smoke)
 
 
 def serve_pipeline(operation: str = "lm", model: str = "stablelm-smoke-flash",

@@ -1,8 +1,8 @@
 """ModelConfig — one dataclass drives every assigned architecture.
 
 A copy of ``src/repro/models/config.py`` (the port imports nothing of the
-JAX package).  The port's model code implements the dense global-attention
-path; other layer kinds and options raise ``NotImplementedError``.
+JAX package).  The port's model code implements layer kinds G, L and R;
+the others, MoE, MLA and the int8 KV cache raise ``NotImplementedError``.
 
 ``layer_pattern`` is a cycled string of per-layer mixer kinds:
   G = global attention, L = local (sliding-window) attention,

@@ -1,15 +1,22 @@
 """Shared layers of the port (plain torch on tensors): norms, partial RoPE,
-dense attention with the flash gates, float KV caches, gated MLP, embedding.
+GQA attention, global or sliding-window, with the flash gates, float KV
+caches (ring buffers for windowed layers), gated MLP, embedding.
 
-Port of ``src/repro/models/layers.py``, dense global-attention path only.
-Parameters are plain dicts of tensors keyed exactly as in the JAX package
-(``attn/wq``, ``norm1/scale``, ...).  Compute dtype follows ``cfg.dtype``;
-norms, RoPE angles and softmax run in f32.
+Port of ``src/repro/models/layers.py`` without the int8 KV cache and MLA
+(ROADMAP M12).  Parameters are plain dicts of tensors keyed exactly as in
+the JAX package (``attn/wq``, ``norm1/scale``, ...).  Compute dtype follows
+``cfg.dtype``; norms, RoPE angles and softmax run in f32.
 
-Decode caches hold ``k``/``v`` ``[B, S_max, kv, hd]`` and are updated IN
+Decode caches hold ``k``/``v`` ``[B, S_cache, kv, hd]`` and are updated IN
 PLACE: a decode step writes each row's new key/value at that row's own
-position (``pos`` is a per-row int32 vector).  The JAX package returns a
-fresh cache instead; the values are the same.
+position (``pos`` is a per-row int32 vector).  A global layer's cache has
+``max_seq`` rows and position p sits in row p; a windowed layer's is a ring
+of ``min(window, max_seq)`` rows with position p in row ``p % size``.  The
+JAX package returns a fresh cache instead; the values are the same.
+
+The flash kernels (K5, K6) serve global layers only, as in the JAX package
+(``layers.py`` gates them on ``window is None``): windowed layers take the
+plain masked attention.
 """
 from __future__ import annotations
 
@@ -28,12 +35,10 @@ def torch_dtype(name: str) -> torch.dtype:
     return TORCH_DTYPES[name]
 
 
-def _dense_only(cfg: ModelConfig, window: Optional[int]):
-    if window is not None:
-        raise NotImplementedError("sliding-window attention: ROADMAP M5")
+def _float_cache_only(cfg: ModelConfig):
     if cfg.kv_cache_quant:
-        raise NotImplementedError("int8 KV cache (kv_cache_quant): later "
-                                  "slice of ROADMAP M4")
+        raise NotImplementedError("int8 KV cache (kv_cache_quant): ROADMAP "
+                                  "M12")
     if cfg.mla:
         raise NotImplementedError("MLA attention: ROADMAP M12")
 
@@ -46,7 +51,7 @@ def dense_init(g: torch.Generator, d_in: int, d_out: int, dtype,
                device, scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
     w = torch.randn((d_in, d_out), generator=g, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)      # in place: one f32 copy at a time
 
 
 def norm_init(d: int, cfg: ModelConfig, device) -> Dict:
@@ -82,7 +87,7 @@ def mlp_init(g, cfg: ModelConfig, device) -> Dict:
 def embed_init(g, cfg: ModelConfig, device) -> Dict:
     dt = torch_dtype(cfg.dtype)
     tok = torch.randn((cfg.vocab, cfg.d_model), generator=g, device=device)
-    p = {"tok": (tok * 0.02).to(dt)}
+    p = {"tok": tok.mul_(0.02).to(dt)}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(g, cfg.d_model, cfg.vocab, dt, device)
     return p
@@ -159,23 +164,37 @@ def _sdpa(q, k, v, mask, softcap: Optional[float], n_heads: int,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _flash_ok(cfg: ModelConfig) -> bool:
-    return cfg.use_flash_attn and not cfg.logit_softcap
+def _flash_ok(cfg: ModelConfig, window: Optional[int]) -> bool:
+    return cfg.use_flash_attn and window is None and not cfg.logit_softcap
 
 
-def attn_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor):
-    """Causal self-attention over a whole sequence -> (y [B,S,d], k, v) with
-    k/v [B,S,kv,hd] for the decode cache.  The projections are computed
-    once (the JAX ``block_prefill`` recomputes ``_qkv`` after
-    ``attn_train``; the op and its inputs are the same, so are the values).
+def causal_mask(pos_q: torch.Tensor, pos_k: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """mask[..., i, j]: may query position i attend to key position j
+    (``pos_q`` [..., Sq], ``pos_k`` [..., Sk]; the JAX ``causal_mask``)."""
+    d = pos_q[..., :, None] - pos_k[..., None, :]
+    m = d >= 0
+    if window is not None:
+        m &= d < window
+    return m
 
-    With ``use_flash_attn`` the attention is the K5 kernel
+
+def attn_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 window: Optional[int] = None):
+    """Causal self-attention over a whole sequence, within ``window``
+    positions if given -> (y [B,S,d], k, v) with k/v [B,S,kv,hd] for the
+    decode cache.  The projections are computed once (the JAX
+    ``block_prefill`` recomputes ``_qkv`` after ``attn_train``; the op and
+    its inputs are the same, so are the values).
+
+    With ``use_flash_attn`` and no window the attention is the K5 kernel
     (``flash_attention``), as ``layers.py:161`` gates the Pallas kernel."""
+    _float_cache_only(cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, cfg, x, pos[None].expand(b, s))
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    if _flash_ok(cfg):
+    if _flash_ok(cfg, window):
         # [B,S,H,hd] -> [B·H, S, hd]: a view for B == 1 (the serve path)
         q2 = q.permute(0, 2, 1, 3).reshape(b * h, s, hd)
         k2 = k.permute(0, 2, 1, 3).reshape(b * kvh, s, hd)
@@ -183,22 +202,24 @@ def attn_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor):
         o2 = flash_attention(q2, k2, v2, causal=True, kv_groups=h // kvh)
         out = o2.reshape(b, h, s, hd).permute(0, 2, 1, 3)
     else:
-        mask = (pos[:, None] >= pos[None, :])[None].expand(b, s, s)
+        mask = causal_mask(pos, pos, window)[None].expand(b, s, s)
         out = _sdpa(q, k, v, mask, cfg.logit_softcap, h, kvh)
     return out.reshape(b, s, h * hd) @ p["wo"], k, v
 
 
 def attn_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                window: Optional[int]) -> torch.Tensor:
-    _dense_only(cfg, window)
-    return attn_prefill(p, cfg, x)[0]
+    return attn_prefill(p, cfg, x, window)[0]
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                     window: Optional[int], device) -> Dict:
-    _dense_only(cfg, window)
+    """Zero K/V of ``max_seq`` rows, or a ring of ``min(window, max_seq)``
+    rows for a windowed layer."""
+    _float_cache_only(cfg)
     kv, hd, dt = cfg.n_kv_heads, cfg.resolved_head_dim, torch_dtype(cfg.dtype)
-    shape = (batch, max_seq, kv, hd)
+    size = min(window, max_seq) if window is not None else max_seq
+    shape = (batch, size, kv, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -206,30 +227,42 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
 def attn_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
                 pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     """One-token decode for B rows.  x [B,1,d]; pos int32 [B] (each row's
-    current position, on x's device); cache k/v [B,S_max,kv,hd], updated in
-    place at each row's ``pos`` (clamped to the cache like JAX's
-    ``dynamic_update_slice``).  Returns y [B,1,d].
+    current position, on x's device); cache k/v [B,S_cache,kv,hd], updated
+    in place at each row's own row of the cache: ``pos`` (clamped to the
+    cache like JAX's ``dynamic_update_slice``) for a global layer,
+    ``pos % size`` for a windowed layer's ring.  Returns y [B,1,d].
 
-    With ``use_flash_attn`` the attention is the K6 kernel
+    Ring row i holds the latest position p <= pos with p % size == i, so a
+    row's key position is ``pos - ((pos - i) % size)``, valid if it is in
+    [0, pos] and within the window: the JAX ``attn_decode``'s rule, per
+    row here where JAX vmaps a scalar ``pos``.
+
+    With ``use_flash_attn`` and no window the attention is the K6 kernel
     (``flash_decode``) reading the cache in its stored layout."""
-    _dense_only(cfg, window)
+    _float_cache_only(cfg)
     b = x.shape[0]
     q, k1, v1 = _qkv(p, cfg, x, pos[:, None])
     ck, cv = cache["k"], cache["v"]
     size = ck.shape[1]
     rows = torch.arange(b, device=x.device)
-    at = pos.long().clamp(0, size - 1)
+    p_ = pos.long()
+    at = p_ % size if window is not None else p_.clamp(0, size - 1)
     ck[rows, at] = k1[:, 0]
     cv[rows, at] = v1[:, 0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    if _flash_ok(cfg):
+    if _flash_ok(cfg, window):
         o2 = flash_decode(q.reshape(b * h, hd), ck, cv, pos,
                           kv_groups=h // kvh)
         out = o2.reshape(b, 1, h, hd)
     else:
-        idx = torch.arange(size, device=x.device)
-        mask = (idx[None, :] <= pos[:, None].long())[:, None, :]
-        out = _sdpa(q, ck, cv, mask, cfg.logit_softcap, h, kvh)
+        idx = torch.arange(size, device=x.device)[None, :]
+        p_ = p_[:, None]
+        if window is None:
+            valid = idx <= p_
+        else:
+            kpos = p_ - ((p_ - idx) % size)
+            valid = (kpos <= p_) & (kpos >= 0) & (p_ - kpos < window)
+        out = _sdpa(q, ck, cv, valid[:, None, :], cfg.logit_softcap, h, kvh)
     return out.reshape(b, 1, h * hd) @ p["wo"]
 
 

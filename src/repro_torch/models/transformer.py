@@ -1,19 +1,30 @@
 """Decoder-only LM of the port: init, the weight bridge, prefill and decode.
 
-Port of ``src/repro/models/transformer.py`` for the list layout and layer
-kind ``G`` (dense global attention).  Other kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+Port of ``src/repro/models/transformer.py`` for the list layout and the
+layer kinds ``G`` (global attention), ``L`` (sliding-window attention with
+a ring-buffer cache) and ``R`` (the RG-LRU recurrent block).  Kind ``S``
+and MoE layers raise ``NotImplementedError`` naming their ROADMAP item.
 
 The parameter tree is a plain nested dict of tensors with the JAX package's
 keys (``embed/tok``, ``embed/head``, ``layers[i]/norm1/scale``,
 ``layers[i]/attn/wq``, ``layers[i]/mlp/w_up``, ``final_norm/scale``, ...),
 so :func:`params_from_numpy` carries a JAX tree across without renaming.
 
-Caches are ``{"pos": int32 [B], "layers": [{"k", "v"}]}``: one position per
-batch row, so a slot-stacked serve cache is simply a batch-S cache and a
-request's prefill cache is a batch-1 cache (the JAX package keeps a scalar
-``pos`` per b=1 cache and vmaps it over slots).  Decode updates the cache
-IN PLACE.
+Caches are ``{"pos": int32 [B], "layers": [...]}`` with ``{"k", "v"}`` for
+an attention layer and ``{"h", "conv"}`` for a recurrent one, in that key
+order wherever a cache is made: one position per batch row, so a
+slot-stacked serve cache is simply a batch-S cache and a request's prefill
+cache is a batch-1 cache (the JAX package keeps a scalar ``pos`` per b=1
+cache and vmaps it over slots).  Decode updates the cache IN PLACE.
+
+Ring order after a prefill longer than a windowed layer's ring: position p
+sits in row ``p % size``, the row :func:`layers.attn_decode` reads it from.
+The JAX package rolls the last ``size`` keys by ``-(s % size)`` instead of
+``s % size`` (``transformer.py`` ``block_prefill``), which places them
+right only when ``2 s % size == 0``; elsewhere its next decode steps read
+and overwrite the wrong rows and leave its own teacher-forced logits.  The
+port follows the decode rule, so it matches the JAX package wherever the
+JAX package is right, and the teacher-forced model everywhere.
 """
 from __future__ import annotations
 
@@ -24,18 +35,23 @@ import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
 from . import layers as L
+from . import rglru as RG
 from .config import ModelConfig
 
 
 def _check_kind(cfg: ModelConfig, layer: int) -> str:
     kind = cfg.kind(layer)
-    if kind != "G":
+    if kind not in ("G", "L", "R"):
         raise NotImplementedError(
-            f"layer kind {kind!r}: the port runs dense global attention "
-            f"(kind 'G') only; 'L' and 'R' are ROADMAP M5, 'S' is M12")
+            f"layer kind {kind!r}: the port runs 'G', 'L' and 'R' layers; "
+            f"'S' (Mamba-2) is ROADMAP M12")
     if cfg.is_moe_layer(layer):
         raise NotImplementedError("MoE layers: ROADMAP M12")
     return kind
+
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return cfg.window if kind == "L" else None
 
 
 # ---------------------------------------------------------------------------
@@ -44,62 +60,72 @@ def _check_kind(cfg: ModelConfig, layer: int) -> str:
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict:
-    """Random weights with the JAX package's shapes, init scales and dtypes
-    (not its numbers: ``torch.Generator`` is not ``jax.random``).  Runs on
+    """Random weights with the JAX package's keys, shapes, init scales and
+    per-leaf dtypes (norms and ``rec/lam`` f32, the rest ``cfg.dtype``),
+    not its numbers: ``torch.Generator`` is not ``jax.random``.  Runs on
     the card unless ``device="cpu"``; the generator must live on the same
     device (default: seed 0 there)."""
     dev = resolve_device(device)
     g = generator if generator is not None else make_generator(0, dev)
     layers = []
     for i in range(cfg.n_layers):
-        _check_kind(cfg, i)
-        layers.append({"norm1": L.norm_init(cfg.d_model, cfg, dev),
-                       "attn": L.attn_init(g, cfg, dev),
-                       "norm2": L.norm_init(cfg.d_model, cfg, dev),
-                       "mlp": L.mlp_init(g, cfg, dev)})
+        kind = _check_kind(cfg, i)
+        blk = {"norm1": L.norm_init(cfg.d_model, cfg, dev)}
+        if kind == "R":
+            blk["rec"] = RG.rglru_init(g, cfg, dev)
+        else:
+            blk["attn"] = L.attn_init(g, cfg, dev)
+        blk["norm2"] = L.norm_init(cfg.d_model, cfg, dev)
+        blk["mlp"] = L.mlp_init(g, cfg, dev)
+        layers.append(blk)
     return {"embed": L.embed_init(g, cfg, dev), "layers": layers,
             "final_norm": L.norm_init(cfg.d_model, cfg, dev)}
 
 
-def _np_to_torch(a, dtype: torch.dtype, device) -> torch.Tensor:
+def _np_to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes: reinterpret the bits
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))   # a writable copy
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None):
     """The weight bridge: a JAX parameter tree fetched to numpy
-    (``jax.device_get``) -> the port's tree, same keys, same values.  Norm
-    parameters stay f32 and weights take ``cfg.dtype``, as in JAX."""
+    (``jax.device_get``) -> the port's tree, same keys, same values, each
+    leaf in its own dtype: JAX already keeps every leaf in the right one
+    (norms and ``rec/lam`` f32, the rest ``cfg.dtype``)."""
     dev = resolve_device(device)
-    wdt = L.torch_dtype(cfg.dtype)
 
-    def conv(node, path):
+    def conv(node):
         if isinstance(node, dict):
-            return {k: conv(v, path + (k,)) for k, v in node.items()}
+            return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [conv(v, path + (i,)) for i, v in enumerate(node)]
-        is_norm = any(isinstance(p, str) and "norm" in p for p in path)
-        return _np_to_torch(node, torch.float32 if is_norm else wdt, dev)
-    return conv(tree, ())
+            return [conv(v) for v in node]
+        return _np_to_torch(node, dev)
+    return conv(tree)
 
 
 # ---------------------------------------------------------------------------
 # caches and blocks
 # ---------------------------------------------------------------------------
 
+def layer_cache_init(cfg: ModelConfig, layer: int, batch: int, max_seq: int,
+                     device) -> Dict:
+    kind = _check_kind(cfg, layer)
+    if kind == "R":
+        return RG.rglru_cache_init(cfg, batch, device)
+    return L.attn_cache_init(cfg, batch, max_seq, _window(cfg, kind), device)
+
+
 def cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                device: DeviceLike = None) -> Dict:
     dev = resolve_device(device)
-    for i in range(cfg.n_layers):
-        _check_kind(cfg, i)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "layers": [L.attn_cache_init(cfg, batch, max_seq, None, dev)
-                       for _ in range(cfg.n_layers)]}
+            "layers": [layer_cache_init(cfg, i, batch, max_seq, dev)
+                       for i in range(cfg.n_layers)]}
 
 
 def _mlp_part(p, cfg: ModelConfig, x):
@@ -108,22 +134,38 @@ def _mlp_part(p, cfg: ModelConfig, x):
 
 def block_prefill(p, cfg: ModelConfig, kind: str, x, max_seq: int
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward of one block that also emits its decode cache
-    (``max_seq`` rows, the prompt's keys/values in the first ``S``)."""
+    """Full-sequence forward of one block that also emits its decode cache:
+    the recurrent state after the last position, or the prompt's
+    keys/values in rows ``0..S-1`` of ``max_seq`` rows; a ring shorter than
+    the prompt keeps the last ``size`` positions, position p in row
+    ``p % size`` (the module docstring says how the JAX package differs)."""
     b, s, _ = x.shape
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
-    y, k, v = L.attn_prefill(p["attn"], cfg, L.apply_norm(p["norm1"], x, cfg))
-    cache = L.attn_cache_init(cfg, b, max_seq, None, x.device)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    h = L.apply_norm(p["norm1"], x, cfg)
+    if kind == "R":
+        y, cache = RG.rglru_prefill(p["rec"], cfg, h)
+        return _mlp_part(p, cfg, x + y), cache
+    window = _window(cfg, kind)
+    y, k, v = L.attn_prefill(p["attn"], cfg, h, window)
+    cache = L.attn_cache_init(cfg, b, max_seq, window, x.device)
+    size = cache["k"].shape[1]
+    if s <= size:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    else:           # ring: position s - size + j goes to row (s + j) % size
+        cache["k"].copy_(torch.roll(k[:, -size:], s % size, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -size:], s % size, dims=1))
     return _mlp_part(p, cfg, x + y), cache
 
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos):
     h = L.apply_norm(p["norm1"], x, cfg)
-    x = x + L.attn_decode(p["attn"], cfg, h, cache, pos, None)
-    return _mlp_part(p, cfg, x)
+    if kind == "R":
+        y = RG.rglru_decode(p["rec"], cfg, h, cache)
+    else:
+        y = L.attn_decode(p["attn"], cfg, h, cache, pos, _window(cfg, kind))
+    return _mlp_part(p, cfg, x + y)
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +217,9 @@ def serve_decode_step(params, cfg: ModelConfig, cache: Dict,
                       ) -> torch.Tensor:
     """One continuous-batching decode tick over every slot of a batch-S
     cache: all S rows are computed (inactive rows on whatever their cache
-    holds, as the JAX package computes them on zero caches), only active
-    rows advance ``pos`` and take a new token.  Returns the next token
+    holds, as the JAX package computes them on zero caches; their
+    recurrent state advances too, unread), only active rows advance
+    ``pos`` and take a new token.  Returns the next token
     lane int32 [S].  The serve element and ``sequential_decode`` both run
     exactly this function at the same S, so every GEMM has one shape and a
     slot's values do not depend on the other slots."""

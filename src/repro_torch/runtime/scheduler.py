@@ -52,7 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.admission import merge_tenant_stats
+from ..core.admission import merge_tenant_stats, percentile_from_hist
 from ..core.batching import (BatchingPolicy, QueryBatcher,
                              StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
 from ..core.broker import Broker, BrokerError
@@ -164,6 +164,8 @@ class Runtime:
         #: frames whose stream is mid-generation on a live server
         self._inflight: List[Tuple[_PipeRun, PendingQuery]] = []
         self.parked_total = 0
+        #: queries shipped to another endpoint than the one they went to
+        self.redispatches = 0
         self.ticks = 0
         self._ntp_ref = SimClock()
 
@@ -273,6 +275,7 @@ class Runtime:
 
     def _after_send(self, pq: PendingQuery, ep):
         if pq.endpoint is not None and pq.endpoint is not ep:
+            self.redispatches += 1
             pq.redispatches += 1
         pq.endpoint = ep
         batcher = self._batchers.get(ep.endpoint_id)
@@ -513,10 +516,19 @@ class Runtime:
                          "lease_expiries": self.broker.expiries,
                          "suspicions": self.broker.suspicions,
                          "heals": self.broker.heals}
-        out["failover"] = {"parked_total": self.parked_total,
+        # a dead endpoint raises in the port (ROADMAP M6), so no parked
+        # frame expires and no request is orphaned: both are truly 0
+        out["failover"] = {"redispatches": self.redispatches,
+                           "parked_total": self.parked_total,
                            "parked_now": len(self._parked),
-                           "inflight_now": len(self._inflight)}
-        agg = {}
+                           "inflight_now": len(self._inflight),
+                           "parked_expired": 0,
+                           "orphaned_requests": 0}
+        # the stateless keys are always present, 0 with no server deployed
+        agg = {"flushes": 0, "batches": 0, "batched_frames": 0,
+               "sequential_frames": 0, "sharded_batches": 0,
+               "sharded_frames": 0, "fused_batches": 0, "fused_frames": 0,
+               "flush_orphans": 0}
         for b in self._batchers.values():
             for k, v in b.stats().items():
                 agg[k] = agg.get(k, 0) + v
@@ -525,6 +537,8 @@ class Runtime:
         for b in self._batchers.values():
             merge_tenant_stats(tenants, b.tenant_stats())
         for tid, t in tenants.items():
+            t["p50_ticks"] = percentile_from_hist(t["latency_hist"], 0.50)
+            t["p99_ticks"] = percentile_from_hist(t["latency_hist"], 0.99)
             assert t["admitted"] == t["served"] + t["shed"] + \
                 t["queued"] + t["in_flight"], \
                 f"tenant {tid!r} leaks requests: {t}"

@@ -43,10 +43,19 @@ CODEC_MODULES = ("kernels/ops.py", "kernels/quant8.py",
                  "kernels/sparse_enc.py", "kernels/sparse_dec.py",
                  "kernels/ref.py", "core/compression.py",
                  "core/batching.py", "core/elements.py")
+#: the rGLRU state family's modules
+RGLRU_MODULES = ("kernels/rglru_scan.py", "models/rglru.py",
+                 "configs/recurrentgemma_9b.py", "models/layers.py",
+                 "models/transformer.py", "core/formats.py")
 
 
 def test_the_scan_covers_the_codec_modules():
     for rel in CODEC_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
+def test_the_scan_covers_the_rglru_modules():
+    for rel in RGLRU_MODULES:
         assert PORT / rel in SCANNED, rel
 
 
@@ -61,7 +70,9 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.launch.model_serve, "
             "repro_torch.runtime, repro_torch.core.compression, "
-            "repro_torch.kernels.ops, repro_torch.core.elements; "
+            "repro_torch.kernels.ops, repro_torch.core.elements, "
+            "repro_torch.models.rglru, repro_torch.kernels.rglru_scan, "
+            "repro_torch.configs.recurrentgemma_9b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -139,8 +150,18 @@ def test_live_reconfiguration_waits_for_m7():
 
 
 def test_windowed_layers_wait_for_m5():
+    """M5 is ported: windowed ('L') and recurrent ('R') layers run; the
+    Mamba-2 kind 'S' still raises, naming its own item."""
     import dataclasses
+    g = torch.Generator().manual_seed(0)
+    for pattern in ("GL", "RRL"):
+        cfg = dataclasses.replace(stablelm_1_6b.config().smoke(),
+                                  layer_pattern=pattern, window=8,
+                                  lru_width=64)
+        params = tt.init_params(cfg, g, "cpu")
+        assert len(ms.sequential_decode(params, cfg, [1, 2], 3, 16, slots=2,
+                                        device="cpu")) == 3
     cfg = dataclasses.replace(stablelm_1_6b.config().smoke(),
-                              layer_pattern="GL", window=8)
-    with pytest.raises(NotImplementedError, match="M5"):
-        tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+                              layer_pattern="S")
+    with pytest.raises(NotImplementedError, match="M12"):
+        tt.init_params(cfg, g, "cpu")
