@@ -82,6 +82,28 @@ Phases, one result line each (any failure exits non-zero):
    tick, tokens/s and the peak memory.  With ``--profile``, one 2048-token
    prefill and one decode tick are profiled.
 
+9. compiled executables — the runtime's default (``jit=True``, as in the
+   JAX package) runs phases 4, 6, 7 and 8 through CUDA graphs: the decode
+   tick, the client segments and fused serve batches, and the bursts
+   (``core/graphs.py``; a binding's first call runs eagerly, its second
+   captures).  Phase 9 holds each graphed route bitwise against the same
+   scenario at ``jit=False``, with equal K1–K6 and scan launch counts: 9a,
+   phase 4's 12 stablelm-1.6b streams; 9b, recurrentgemma-9b at full width
+   with 3 streams (one decoding across position 2048, the 3000-token
+   prompt), each twin on a fresh server; 9c, phase 6's quant8 and
+   sparse:0.15 offload (its 4 checked ticks, then 48 timed ones); 9d,
+   held subscribers of stablelm-width quant8 and sparse:0.15 frames that
+   drain 8 bursts of 4 frames each through the graphed ``step_n``.  Each
+   route prints its ms per tick (decode, offload or burst tick; min /
+   median / max) for graph and eager, the graphs captured, the graph
+   memory (pool growth plus the bindings' buffers) and each twin's peak
+   over what was allocated before it.  Phases 4, 6, 7b and 8 print the
+   graphs they captured and their memory too.
+
+Phase 3b also times K5's fp32 route (the scalar ``flash_prefill.cu``) at
+f32 [32, 512, 64] beside its bound (float32 operations outside the
+tensor cores at 67 TFLOP/s, and its byte bound) and fp32 SDPA.
+
 Phase 3d holds the RG-LRU scan kernel (a new kernel; the JAX package
 scans with ``jax.lax.associative_scan``) against its plain step-by-step
 loop on ragged smoke shapes and at f32 [1, 3000, 4096] within atol = rtol
@@ -110,6 +132,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # float32 outside the tensor cores
 FP32_TOL = 2e-5
 BF16_ATOL = 1e-5
 
@@ -326,6 +349,27 @@ def phase_kernels(seed):
             ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
             flops / BF16_FLOPS else "operations")
+    # K5's fp32 route (the scalar kernel, csrc/flash_prefill.cu): bound by
+    # float32 operations outside the tensor cores
+    L = 512
+    q, k, v = (rn(32, L, 64) for _ in range(3))
+    o = fa.flash_attention(q, k, v, causal=True)
+    r = fa.flash_attention_plain(q, k, v, causal=True)
+    err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
+    check(err <= FP32_TOL, f"K5 fp32 [32,{L},64]: error {err}")
+    nbytes = 4 * q.numel() * 4
+    flops = 4 * 32 * 64 * L * (L + 1) / 2
+    table[f"K5 fp32 L={L}"] = dict(
+        max_abs_err=(o - r).abs().max().item(), excess=err,
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                          causal=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True)),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+        bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+        else "operations")
     S, H, smax = 8, 32, 1024
     q = rn(S * H, 64, dtype=torch.bfloat16)
     kc, vc = (rn(S, smax, H, 64, dtype=torch.bfloat16) for _ in range(2))
@@ -355,8 +399,10 @@ def phase_kernels(seed):
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
         else "operations", pos=pos_np.tolist())
     for name, row in table.items():
-        print(f"phase 3b {name} bf16: max abs err {row['max_abs_err']:.3e} "
-              f"(excess over 1 ulp {row['excess']:.1e}), kernel "
+        what = ("(excess over atol=rtol" if "fp32" in name
+                else "bf16 (excess over 1 ulp")
+        print(f"phase 3b {name}: max abs err {row['max_abs_err']:.3e} "
+              f"{what} {row['excess']:.1e}), kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']})")
@@ -682,9 +728,11 @@ def phase_scan_kernel(seed):
     return row
 
 
-def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
+def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks,
+           jit=True):
     """Drive one serve pipeline plus staggered clients until every client
-    has its answers.  ``clients`` is a list of (join_tick, prompts, gens)."""
+    has its answers.  ``clients`` is a list of (join_tick, prompts, gens);
+    ``jit=False`` is the eager twin of the graph route."""
     import torch
     from repro_torch.device import make_generator
     from repro_torch.launch import model_serve as ms
@@ -693,7 +741,8 @@ def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
     hub = Device("hub", device=rt_device)
     srv = hub.add_pipeline(ms.serve_pipeline(model=model, slots=slots,
                                              max_seq=max_seq),
-                           generator=make_generator(seed, rt.device))
+                           generator=make_generator(seed, rt.device),
+                           jit=jit)
     rt.add_device(hub)
     runs = [None] * len(clients)
     t0 = time.perf_counter()
@@ -704,7 +753,8 @@ def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
                 p = ";".join(",".join(str(t) for t in pr) for pr in prompts)
                 g = ";".join(str(x) for x in gens)
                 runs[i] = dev.add_pipeline(ms.client_pipeline(prompts=p,
-                                                              gens=g))
+                                                              gens=g),
+                                           jit=jit)
                 rt.add_device(dev)
         rt.tick()
         done = 0
@@ -719,6 +769,41 @@ def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return rt, srv, runs, wall
+
+
+def _graph_mark():
+    """-> (graphs captured so far, their bytes, allocated bytes), after
+    releasing what earlier runtimes' graphs and buffers still hold."""
+    import torch
+    from repro_torch.core import clear_executable_cache
+    from repro_torch.core.graphs import graph_stats
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = graph_stats()
+    return g["captured"], g["bytes"], torch.cuda.memory_allocated()
+
+
+def _graph_since(mark):
+    """What a run added since ``mark``: graphs captured, graph MiB (pool
+    growth plus the bindings' buffers) and the peak GiB over what was
+    allocated at the mark."""
+    import torch
+    from repro_torch.core.graphs import graph_stats
+    torch.cuda.synchronize()
+    g = graph_stats()
+    return dict(graphs=g["captured"] - mark[0],
+                graph_mib=(g["bytes"] - mark[1]) / 2 ** 20,
+                peak_gib_over_base=(torch.cuda.max_memory_allocated() -
+                                    mark[2]) / 2 ** 30)
+
+
+def _serve_batcher(rt):
+    from repro_torch.core.batching import StreamingQueryBatcher
+    return next(b for b in rt._batchers.values()
+                if isinstance(b, StreamingQueryBatcher))
 
 
 def _check_answers(runs, clients, vocab, slots):
@@ -760,9 +845,10 @@ def phase_serve(seed):
         clients.append((2 * i, prompts, gens))
 
     _reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    mark = _graph_mark()
     rt, srv, runs, wall = _serve(None, "stablelm-1.6b-flash", 8, 1024,
                                  clients, seed, max_ticks=400)
+    graph = _graph_since(mark)
     launches = dict(fa.LAUNCHES)
     routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
     answers = _check_answers(runs, clients, cfg.vocab, 8)
@@ -791,14 +877,19 @@ def phase_serve(seed):
                  mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
                  tokens_per_s=qb["tokens_generated"] / wall,
                  peak_gib=peak_gib, launches=launches,
-                 prefill_route_launches=routes)
+                 prefill_route_launches=routes,
+                 decode_ms=[1e3 * x for x in
+                            _serve_batcher(rt).decode_times], **graph)
     print(f"phase 4a serve stablelm-1.6b bf16 24 layers slots 8 max_seq "
-          f"1024: {len(answers)} answers in {rt.ticks} ticks, "
-          f"{wall:.2f} s; prefill {serve['prefill_ms_per_request']:.2f} "
-          f"ms/request, decode {serve['decode_ms_per_tick']:.2f} ms/tick "
-          f"(mean {serve['mean_active_slots']:.2f} active slots), "
+          f"1024 (decode tick as a CUDA graph): {len(answers)} answers in "
+          f"{rt.ticks} ticks, {wall:.2f} s; prefill "
+          f"{serve['prefill_ms_per_request']:.2f} ms/request, decode "
+          f"{serve['decode_ms_per_tick']:.2f} ms/tick (mean "
+          f"{serve['mean_active_slots']:.2f} active slots), "
           f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
-          f"launches {launches}, K5 by route {routes}")
+          f"{graph['graphs']} graphs captured holding "
+          f"{graph['graph_mib']:.1f} MiB, launches {launches}, K5 by route "
+          f"{routes}")
 
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     for prompt, gen, got, slot in answers:
@@ -824,7 +915,7 @@ def phase_serve(seed):
         check(toks == ref, f"fp32 card answer {toks} != CPU {ref}")
     print("phase 4c fp32 smoke server on the card == the port's CPU path: "
           f"{len(got)} streams")
-    return serve, srv
+    return serve, srv, dict(clients=clients, answers=answers, ticks=rt.ticks)
 
 
 def _profile(fn, warm=True):
@@ -931,10 +1022,11 @@ def _register_offload_models(seed):
 
 
 def _offload(device, model, codec, width, channels, n_clients, ticks, seed,
-             **rt_kw):
+             jit=True, **rt_kw):
     """One offload run: a tensor_filter server and ``n_clients`` clients,
-    ``ticks`` scheduler ticks.  -> (runtime, client runs, server run,
-    [(wire bytes, request buffer)] as pushed to the server, tick seconds)"""
+    ``ticks`` scheduler ticks (``jit=False``: the eager twin of the graph
+    route).  -> (runtime, client runs, server run, [(wire bytes, request
+    buffer)] as pushed to the server, tick seconds)"""
     import torch
     from repro_torch.core import parse_launch
     from repro_torch.device import make_generator
@@ -945,7 +1037,8 @@ def _offload(device, model, codec, width, channels, n_clients, ticks, seed,
         f"tensor_query_serversrc operation=act name=ssrc ! "
         f"tensor_filter model={model} ! tensor_query_serversink name=ssink")
     ps.elements["ssink"].pair_with(ps.elements["ssrc"])
-    srv = hub.add_pipeline(ps, generator=make_generator(seed, rt.device))
+    srv = hub.add_pipeline(ps, generator=make_generator(seed, rt.device),
+                           jit=jit)
     rt.add_device(hub)
     ep = ps.elements["ssrc"].endpoint
     seen = []
@@ -964,7 +1057,7 @@ def _offload(device, model, codec, width, channels, n_clients, ticks, seed,
             f"option={opt} ! tensor_query_client operation=act "
             f"codec={codec} name=qc ! appsink name=res")
         dev = Device(f"cl{i}", device=device)
-        runs.append(dev.add_pipeline(pc))
+        runs.append(dev.add_pipeline(pc, jit=jit))
         rt.add_device(dev)
     return rt, runs, srv, seen, _timed_ticks(rt, ticks)
 
@@ -1079,8 +1172,8 @@ def phase_offload(seed, profile=False):
     the checks (which see exactly ``OFFLOAD_TICKS`` ticks) each fused run
     goes on for ``OFFLOAD_TIMED_TICKS`` timed ticks; with ``profile``, then
     ``OFFLOAD_PROFILED_TICKS`` more under the profiler.  -> (rows, the
-    fused quant8 answers [client][tick], which phase 7c holds its
-    query_batch=0 run against)"""
+    fused answers [client][tick] per codec, which phase 7c (quant8) and
+    9c hold their runs against)"""
     import torch
     from repro_torch.core import compression as comp
     from repro_torch.core.buffers import tree_flatten
@@ -1095,8 +1188,10 @@ def phase_offload(seed, profile=False):
     for tag, codec in (("6a", "quant8"), ("6b", "sparse:0.15")):
         comp.reset_codec_stats()
         _reset_launches()
+        mark = _graph_mark()
         rt, runs, srv, seen, secs = _offload(None, "offload-gate", codec, L,
                                              D, C, T, seed, query_batch=8)
+        graph = _graph_since(mark)
         launches = _launch_counts()
         enc_routes = dict(ke.ENC_ROUTE_LAUNCHES)
         fused = answers[codec] = _answers(runs, T, f"{tag} fused")
@@ -1155,7 +1250,7 @@ def phase_offload(seed, profile=False):
                    raw_kib_per_request=L * D * 4 / 1024,
                    launches={k: launches[k] for k in expect_kernels[codec]},
                    codec_stats=stats, fused_frames=qb["fused_frames"],
-                   enc_routes=enc_routes)
+                   enc_routes=enc_routes, **graph)
         out[codec] = row
         print(f"phase {tag} offload {codec} f32 [1, {L}, {D}] x {C} clients "
               f"x {T} ticks: {C * T} answers; ms/tick "
@@ -1166,8 +1261,10 @@ def phase_offload(seed, profile=False):
               f"request (raw {row['raw_kib_per_request']:.0f} KiB); "
               f"launches {row['launches']}"
               f"{'' if codec == 'quant8' else f', K3 by route {enc_routes}'}"
-              f"; fused == eager == batch 1 and "
-              f"== plain chain, bitwise")
+              f"; {graph['graphs']} graphs captured (client segments and "
+              f"the fused serve batch) holding {graph['graph_mib']:.1f} "
+              f"MiB; fused == eager == batch 1 and == plain chain, "
+              f"bitwise")
 
     # a small fp32 run on the card against the port's CPU path
     for codec in ("quant8", "sparse:0.15"):
@@ -1201,7 +1298,7 @@ def phase_offload(seed, profile=False):
               f"payloads bitwise, answers within "
               f"{'one quant step' if codec == 'quant8' else 'rtol 1e-5'} "
               f"(worst excess {worst:.2e})")
-    return out, answers["quant8"]
+    return out, answers
 
 
 # ---------------------------------------------------------------------------
@@ -1474,12 +1571,11 @@ def _phase_codec_bursts(seed, profile=False):
     expect_bytes = {c: _wire_bytes(c, OFFLOAD_L, OFFLOAD_D)
                     for c in ("quant8", "sparse:0.15")}
     comp.reset_codec_stats()
-    gc.collect()            # runtimes of earlier phases hold cycles
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    mark = _graph_mark()    # runtimes of earlier phases hold cycles
+    base_gib = mark[2] / 2 ** 30
     _reset_launches()
     rt, pubs, subs, seen, secs = _codec_pubsub(codecs, 8, BURST_TICKS, seed)
+    graph = _graph_since(mark)
     launches = _launch_counts()
     torch.cuda.synchronize()
     # what the earlier phases still hold (phase 4's server) is the base
@@ -1547,7 +1643,8 @@ def _phase_codec_bursts(seed, profile=False):
                wire_bytes=expect_bytes, peak_gib_over_base=peak_gib,
                base_gib=base_gib,
                launches={k: launches[k] for k in expect},
-               stats={k: v for k, v in stats.items() if "/" in k})
+               stats={k: v for k, v in stats.items() if "/" in k},
+               graphs=graph["graphs"], graph_mib=graph["graph_mib"])
     print(f"phase 7b codec pub/sub f32 [1, {OFFLOAD_L}, {OFFLOAD_D}], 4 "
           f"quant8 + 4 sparse:0.15 publishers: each late subscriber drained "
           f"{BURST_BACKLOG} frames in 1 burst, then 1 a tick "
@@ -1557,7 +1654,9 @@ def _phase_codec_bursts(seed, profile=False):
           f"ms/tick min/median/max "
           f"{'/'.join(f'{x:.2f}' for x in row['steady_ms_min_median_max'])}"
           f"; peak {peak_gib:.2f} GiB over the {base_gib:.2f} GiB the "
-          f"earlier phases hold")
+          f"earlier phases hold; {graph['graphs']} graphs captured (each "
+          f"subscriber bursts once: a binding's first call runs eagerly; "
+          f"9d replays bursts)")
     if profile:
         rt2, _, _, _, _ = _codec_pubsub(codecs, 8, 0, seed)
         wall, busy, top = _profile(rt2.tick, warm=False)
@@ -1676,14 +1775,12 @@ def phase_rglru_serve(seed, profile=False):
     clients = [(2 * c, [p for cc, p, _ in streams if cc == c],
                 [g for cc, _, g in streams if cc == c]) for c in range(8)]
 
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base_gib = torch.cuda.memory_allocated() / 2 ** 30
-    torch.cuda.reset_peak_memory_stats()
+    mark = _graph_mark()
+    base_gib = mark[2] / 2 ** 30
     _reset_launches()
     rt, srv, runs, wall = _serve(None, "recurrentgemma-9b", RG_SLOTS,
                                  RG_MAX_SEQ, clients, seed, max_ticks=600)
+    graph = _graph_since(mark)
     launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     answers = _check_answers(runs, clients, cfg.vocab, RG_SLOTS)
@@ -1712,7 +1809,9 @@ def phase_rglru_serve(seed, profile=False):
                  peak_gib=peak_gib, base_gib=base_gib,
                  launches={"rglru_scan": launches["rglru_scan"]},
                  scan_launches_per_prefill=launches["rglru_scan"] /
-                 qb["prefills"])
+                 qb["prefills"],
+                 decode_ms=[1e3 * x for x in
+                            _serve_batcher(rt).decode_times], **graph)
     print(f"phase 8a serve recurrentgemma-9b bf16 {cfg.n_layers} layers "
           f"({n_rec} R, {cfg.n_layers - n_rec} L, window {cfg.window}) "
           f"slots {RG_SLOTS} max_seq {RG_MAX_SEQ}: {len(answers)} answers "
@@ -1722,7 +1821,8 @@ def phase_rglru_serve(seed, profile=False):
           f"{serve['mean_active_slots']:.2f} active slots), "
           f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
           f"{peak_gib - base_gib:.2f} GiB over the {base_gib:.2f} GiB the "
-          f"earlier phases hold; scan launches "
+          f"earlier phases hold; {graph['graphs']} graphs captured holding "
+          f"{graph['graph_mib']:.1f} MiB; scan launches "
           f"{launches['rglru_scan']} ({serve['scan_launches_per_prefill']:g}"
           f" per prefill)")
 
@@ -1770,6 +1870,249 @@ def phase_rglru_serve(seed, profile=False):
     return serve
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the compiled executables (CUDA graphs) against their eager twins
+# ---------------------------------------------------------------------------
+
+#: 9b's recurrentgemma-9b streams (client, prompt length, tokens): the
+#: first decodes across position 2048 (the ring's wrap), the second is the
+#: longest prompt of phase 8
+RG9_STREAMS = [(0, 2030, 40), (1, 3000, 24), (2, 512, 24)]
+#: 9d: a subscriber held 3 ticks of every 4 drains 8 bursts of 4 frames
+#: (the graph route: one eager, one captured, six replayed)
+HELD_CYCLES, HELD_TICKS = 8, 4
+
+
+def _spread(ms):
+    a = np.asarray(ms, dtype=np.float64)
+    return [float(a.min()), float(np.median(a)), float(a.max())]
+
+
+def _fmt(v):
+    return "/".join(f"{x:.2f}" for x in v)
+
+
+def _route_line(tag, what, graph_ms, eager_ms, graph, eager, launches):
+    print(f"phase {tag} {what}: graph == eager bitwise; ms min/median/max "
+          f"graph {_fmt(_spread(graph_ms))}, eager {_fmt(_spread(eager_ms))}"
+          f"; {graph['graphs']} graphs captured holding "
+          f"{graph['graph_mib']:.1f} MiB; peak over base graph "
+          f"{graph['peak_gib_over_base']:.2f} GiB, eager "
+          f"{eager['peak_gib_over_base']:.2f} GiB; launches {launches} "
+          f"(graph == eager)")
+
+
+def _route_row(graph_ms, eager_ms, graph, eager, launches, **extra):
+    return dict(graph_ms=list(graph_ms), eager_ms=list(eager_ms),
+                graph_ms_min_median_max=_spread(graph_ms),
+                eager_ms_min_median_max=_spread(eager_ms),
+                graphs=graph["graphs"], graph_mib=graph["graph_mib"],
+                graph_peak_gib_over_base=graph["peak_gib_over_base"],
+                eager_peak_gib_over_base=eager["peak_gib_over_base"],
+                launches=launches, **extra)
+
+
+def _phase_graph_serve(seed, serve4):
+    """9a: phase 4's scenario (stablelm-1.6b at full width, 12 streams) at
+    jit=False, against phase 4's run through the graphs."""
+    from repro_torch.configs import stablelm_1_6b
+    vocab = stablelm_1_6b.config().vocab
+    clients = serve4["clients"]
+    _reset_launches()
+    mark = _graph_mark()
+    rt, _, runs, _ = _serve(None, "stablelm-1.6b-flash", 8, 1024, clients,
+                            seed, max_ticks=400, jit=False)
+    eager = _graph_since(mark)
+    launches = {k: _launch_counts()[k]
+                for k in ("flash_attention", "flash_decode")}
+    answers = _check_answers(runs, clients, vocab, 8)
+    check(answers == serve4["answers"] and rt.ticks == serve4["ticks"],
+          "9a: the eager twin's answers or ticks differ from phase 4's "
+          "graph route")
+    check(launches == {k: serve4["launches"][k] for k in launches},
+          f"9a: launches eager {launches} != graph {serve4['launches']}")
+    eager_ms = [1e3 * x for x in _serve_batcher(rt).decode_times]
+    check(eager["graphs"] == 0, "9a: the eager twin captured graphs")
+    _route_line("9a", f"stablelm-1.6b decode tick, {len(answers)} streams",
+                serve4["decode_ms"], eager_ms, serve4, eager, launches)
+    return _route_row(serve4["decode_ms"], eager_ms, serve4, eager,
+                      launches, streams=len(answers))
+
+
+def _phase_graph_rglru(seed):
+    """9b: recurrentgemma-9b at full width, 3 streams (one across the
+    ring's wrap), through the graphs and at jit=False."""
+    from repro_torch.configs import recurrentgemma_9b
+    cfg = recurrentgemma_9b.config()
+    rng = np.random.default_rng(seed + 9)
+    clients = [(2 * c, [rng.integers(0, cfg.vocab, n).tolist()], [gen])
+               for c, n, gen in RG9_STREAMS]
+    res = {}
+    for jit in (True, False):
+        _reset_launches()
+        mark = _graph_mark()
+        rt, srv, runs, _ = _serve(None, "recurrentgemma-9b", RG_SLOTS,
+                                  RG_MAX_SEQ, clients, seed, max_ticks=200,
+                                  jit=jit)
+        mem = _graph_since(mark)
+        res[jit] = (_check_answers(runs, clients, cfg.vocab, RG_SLOTS),
+                    {"rglru_scan": _launch_counts()["rglru_scan"]},
+                    [1e3 * x for x in _serve_batcher(rt).decode_times], mem)
+        del rt, srv, runs
+    (ga, gl, gms, graph), (ea, el, ems, eager) = res[True], res[False]
+    check(ga == ea, "9b: graph answers != eager answers")
+    check(gl == el, f"9b: launches graph {gl} != eager {el}")
+    check(graph["graphs"] >= 1 and eager["graphs"] == 0,
+          f"9b: graphs captured {graph['graphs']} / {eager['graphs']}")
+    _route_line("9b", f"recurrentgemma-9b decode tick, {len(ga)} streams "
+                f"(prompts {[n for _, n, _ in RG9_STREAMS]})", gms, ems,
+                graph, eager, gl)
+    return _route_row(gms, ems, graph, eager, gl, streams=len(ga))
+
+
+def _phase_graph_offload(seed, offload6, answers6):
+    """9c: phase 6's offload at jit=False (interpreted client walks, the
+    eager fused serve batch) against phase 6's graphed client segments and
+    graphed fused serve batches: answers and launches over phase 6's 4
+    checked ticks, then a graph twin and the eager twin timed tick for
+    tick in turns over 48 more."""
+    import torch
+    L, D, C, T = OFFLOAD_L, OFFLOAD_D, OFFLOAD_CLIENTS, OFFLOAD_TICKS
+    kernels = {"quant8": ("quantize8", "dequantize8"),
+               "sparse:0.15": ("sparse_enc", "sparse_dec")}
+    rows = {}
+    for tag, codec in (("9c quant8", "quant8"),
+                       ("9c sparse:0.15", "sparse:0.15")):
+        _reset_launches()
+        mark = _graph_mark()
+        ert, eruns, _, _, _ = _offload(None, "offload-gate", codec, L, D, C,
+                                       T, seed, jit=False, query_batch=8)
+        eager = _graph_since(mark)
+        launches = {k: _launch_counts()[k] for k in kernels[codec]}
+        got = _answers(eruns, T, tag)
+        for i in range(C):
+            for t in range(T):
+                same_bits(got[i][t], answers6[codec][i][t],
+                          f"{tag}: eager != graph, client {i} tick {t}")
+        check(launches == offload6[codec]["launches"],
+              f"{tag}: launches eager {launches} != graph "
+              f"{offload6[codec]['launches']}")
+        check(eager["graphs"] == 0, f"{tag}: the eager twin captured")
+        grt, gruns, _, _, _ = _offload(None, "offload-gate", codec, L, D, C,
+                                       T, seed, query_batch=8)
+        for r in eruns + gruns:
+            r.sink_log.clear()
+        torch.cuda.synchronize()
+        graph_ms, eager_ms = [], []
+        for _ in range(OFFLOAD_TIMED_TICKS):
+            graph_ms += [1e3 * x for x in _timed_ticks(grt, 1)]
+            eager_ms += [1e3 * x for x in _timed_ticks(ert, 1)]
+        graph = dict(graphs=offload6[codec]["graphs"],
+                     graph_mib=offload6[codec]["graph_mib"],
+                     peak_gib_over_base=offload6[codec]["peak_gib_over_base"])
+        _route_line(tag, f"offload tick, {C} clients f32 [1, {L}, {D}], "
+                    f"{OFFLOAD_TIMED_TICKS} ticks each in turns", graph_ms,
+                    eager_ms, graph, eager, launches)
+        rows[codec] = _route_row(graph_ms, eager_ms, graph, eager, launches)
+        del ert, eruns, grt, gruns
+    return rows
+
+
+def _held_bursts(codec, jit, seed):
+    """A publisher of stablelm-width f32 frames and a subscriber (``mqttsrc
+    ! tensor_filter model=offload-gate ! mqttsink``, same codec), to be
+    held for 3 ticks of every 4 so that each of its steps drains a 4-frame
+    burst.  -> (runtime, sub run, republished payloads)"""
+    from repro_torch.core import parse_launch
+    from repro_torch.device import make_generator
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(burst=8)
+    opt = OFFLOAD_TRANSFORMS[codec].format(m=1)
+    pub = Device("pub")
+    pub.add_pipeline(parse_launch(
+        f"testsrc width={OFFLOAD_L} height=1 channels={OFFLOAD_D} ! "
+        f"tensor_converter ! tensor_transform mode=arithmetic option={opt} "
+        f"! mqttsink pub-topic=held codec={codec}"), jit=jit)
+    rt.add_device(pub)
+    sub = Device("sub")
+    sp = parse_launch(f"mqttsrc sub-topic=held codec={codec} ! "
+                      f"tensor_filter model=offload-gate ! mqttsink "
+                      f"pub-topic=held/out codec={codec} name=pub")
+    run = sub.add_pipeline(sp, generator=make_generator(seed, rt.device),
+                           jit=jit)
+    rt.add_device(sub)
+    seen, push = [], sp.elements["pub"].channel.push
+    sp.elements["pub"].channel.push = \
+        lambda buf, nbytes=None: seen.append(buf) or push(buf, nbytes)
+    return rt, run, seen
+
+
+def _phase_graph_bursts(seed):
+    """9d: 7b's codec bursts through the graphed step_n against the same at
+    jit=False: a graph twin and an eager twin, their subscribers held 3
+    ticks of every 4 and bursting 4 times each, ticked in turns."""
+    import torch
+    rows = {}
+    kernels = {"quant8": ("quantize8", "dequantize8"),
+               "sparse:0.15": ("sparse_enc", "sparse_dec")}
+    for codec in ("quant8", "sparse:0.15"):
+        mark = _graph_mark()
+        twins = {jit: _held_bursts(codec, jit, seed) for jit in (True, False)}
+        ms = {True: [], False: []}
+        launches = {True: dict.fromkeys(kernels[codec], 0),
+                    False: dict.fromkeys(kernels[codec], 0)}
+        for t in range(HELD_CYCLES * HELD_TICKS):
+            for jit, (rt, run, _) in twins.items():
+                run.retired = t % HELD_TICKS != HELD_TICKS - 1
+                _reset_launches()
+                t0 = time.perf_counter()
+                rt.tick()
+                torch.cuda.synchronize()
+                if not run.retired:
+                    ms[jit].append(1e3 * (time.perf_counter() - t0))
+                for k in kernels[codec]:
+                    launches[jit][k] += _launch_counts()[k]
+        graph = _graph_since(mark)
+        eager = dict(graphs=0, graph_mib=0.0,
+                     peak_gib_over_base=graph["peak_gib_over_base"])
+        (_, grun, gs), (_, erun, es) = twins[True], twins[False]
+        for run in (grun, erun):
+            check(run.bursts == HELD_CYCLES and
+                  run.burst_frames == HELD_CYCLES * HELD_TICKS,
+                  f"9d {codec}: {run.bursts} bursts of {run.burst_frames} "
+                  f"frames")
+        check(len(gs) == len(es) == HELD_CYCLES * HELD_TICKS,
+              f"9d {codec}: {len(gs)} / {len(es)} republished frames")
+        for k, (a, b) in enumerate(zip(gs, es)):
+            check(a.meta == b.meta and int(a.pts) == int(b.pts),
+                  f"9d {codec} frame {k}: meta/pts differ")
+            _same_tree(a.tensors, b.tensors,
+                       f"9d {codec} frame {k}: graph != eager")
+        check(launches[True] == launches[False],
+              f"9d {codec}: launches graph {launches[True]} != eager "
+              f"{launches[False]}")
+        check(graph["graphs"] >= 1, f"9d {codec}: no graph captured")
+        _route_line(f"9d {codec}", f"burst tick ({HELD_CYCLES} bursts of "
+                    f"{HELD_TICKS} f32 [1, {OFFLOAD_L}, {OFFLOAD_D}] frames"
+                    f", twins in turns; peak is both twins')", ms[True],
+                    ms[False], graph, eager, launches[True])
+        rows[codec] = _route_row(ms[True], ms[False], graph, eager,
+                                 launches[True])
+        del twins
+    return rows
+
+
+def phase_graphs(seed, serve4, offload6, answers6):
+    """9: every graphed route bitwise its eager (jit=False) twin, with the
+    same kernel launch counts, and each one's ms per tick, graphs captured
+    and graph memory."""
+    _register_offload_models(seed)
+    return {"9a": _phase_graph_serve(seed, serve4),
+            "9b": _phase_graph_rglru(seed),
+            "9c": _phase_graph_offload(seed, offload6, answers6),
+            "9d": _phase_graph_bursts(seed)}
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -1797,12 +2140,15 @@ def main(argv=None):
     table = phase_kernels(args.seed)
     codec_table = phase_codec_kernels(args.seed)
     scan = phase_scan_kernel(args.seed)
-    serve, srv = phase_serve(args.seed)
+    serve, srv, serve4 = phase_serve(args.seed)
     profile = phase_profile(srv, args.seed) if args.profile else None
-    offload, fused_6a = phase_offload(args.seed, profile=args.profile)
-    pubsub = phase_pubsub(args.seed, fused_6a, profile=args.profile)
-    del fused_6a, srv               # phase 8 needs the card's memory
+    offload, answers6 = phase_offload(args.seed, profile=args.profile)
+    pubsub = phase_pubsub(args.seed, answers6["quant8"],
+                          profile=args.profile)
+    del srv                         # phase 8 needs the card's memory
     rglru = phase_rglru_serve(args.seed, profile=args.profile)
+    graphs = phase_graphs(args.seed, {**serve4, **serve}, offload, answers6)
+    del answers6
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -1838,6 +2184,9 @@ def main(argv=None):
     # K5's two routes: the row above is the bf16 one that the serve path runs
     kernels[4]["sources"] = {"bfloat16": csrc + "flash_prefill_sm90.cu",
                              "float32": csrc + "flash_prefill.cu"}
+    kernels[4]["float32_route"] = {
+        k: table["K5 fp32 L=512"][k]
+        for k in timed + ("bytes_bound_ms",)}
     # K1–K4 also carry the pub/sub path (7b): its own launch counts
     for row in kernels[:4]:
         row["launches_phase7"] = pubsub["7b"]["launches"][row["name"]]
@@ -1851,7 +2200,8 @@ def main(argv=None):
                                    "serve": serve, "profile": profile,
                                    "offload": offload, "pubsub": pubsub,
                                    "scan_kernel": scan,
-                                   "rglru_serve": rglru},
+                                   "rglru_serve": rglru,
+                                   "graphs": graphs},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 # the query (inference offloading) protocol, timestamp synchronization and
 # the wire codecs.
 from .formats import Caps, CapsError, TensorFormat, TensorSpec
-from .buffers import (StreamBuffer, stack_buffers, structure_key,
-                      unstack_buffers)
+from .buffers import (FlexHeader, StreamBuffer, flex_unwrap, flex_wrap,
+                      stack_buffers, structure_key, unstack_buffers)
 from .element import Element, element_factory, register_element, FACTORY
 from .pipeline import Pipeline, parse_launch, parse_caps
 from .plan import (ExecutionPlan, PendingQuery, clear_executable_cache,
@@ -25,7 +25,8 @@ from . import compression
 
 __all__ = [
     "Caps", "CapsError", "TensorFormat", "TensorSpec",
-    "StreamBuffer", "stack_buffers", "structure_key", "unstack_buffers",
+    "FlexHeader", "StreamBuffer", "flex_unwrap", "flex_wrap",
+    "stack_buffers", "structure_key", "unstack_buffers",
     "Element", "element_factory", "register_element", "FACTORY",
     "Pipeline", "parse_launch", "parse_caps",
     "ExecutionPlan", "PendingQuery", "clear_executable_cache",

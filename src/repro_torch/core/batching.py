@@ -72,12 +72,17 @@ class QueryBatcher:
       ``plan.compiled_serve_batch(codec=...)`` — stacked decode, the DAG
       once per frame, stacked answer encode — and the wire answers go out
       through the serversink's ``push_wire``.  The deferred sparse
-      truncation counts sync once per flush.  ``codec=none`` groups have
-      nothing to fuse and take the eager route below.
-    * eager (``fused=False``): each request is decoded, requests group by
+      truncation counts sync once per group.  ``codec=none`` groups have
+      nothing to fuse and take the route below.
+    * ``fused=False``: each request is decoded, requests group by
       decoded structure, each group serves through
       ``plan.compiled_serve_batch()`` and every answer is encoded by the
       serversink's own ``apply``.
+
+    The cached executables are CUDA graphs on the card, one per batch size
+    (capped at ``max_batch``); a server run added with ``jit=False``
+    serves through the plan's eager ``serve_batch``/``serve_batch_wire``
+    instead.
 
     Routing meta (``client_id``, ``codec``, ...) is hoisted out before
     grouping and restored on every answer.  The mesh placement, the
@@ -234,8 +239,8 @@ class QueryBatcher:
         plan = run.pipe.plan
         src = plan.query_sources[0].name
         frames_in = tuple({src: clean} for clean, _ in group)
-        frames_out, run.state = plan.compiled_serve_batch()(
-            run.params, run.state, frames_in)
+        serve = plan.compiled_serve_batch() if run.jit else plan.serve_batch
+        frames_out, run.state = serve(run.params, run.state, frames_in)
         for (_, routing), frame in zip(group, frames_out):
             self._route(frame, routing)
             run.frames += 1
@@ -253,9 +258,15 @@ class QueryBatcher:
         n = len(pairs)
         src = plan.query_sources[0].name
         frames_in = tuple({src: clean} for clean, _ in pairs)
-        (wire_outs, app_outs, dropped), run.state = \
-            plan.compiled_serve_batch(codec=codec)(run.params, run.state,
-                                                   frames_in)
+        if run.jit:
+            serve = plan.compiled_serve_batch(codec=codec)
+        else:
+            def serve(params, state, frames):
+                return plan.serve_batch_wire(params, state, frames, codec)
+        (wire_outs, app_outs, dropped), run.state = serve(
+            run.params, run.state, frames_in)
+        # the truncation counts come back on the device; one host read per
+        # group, after the executable
         dropped = {name: d.cpu().numpy() for name, d in dropped.items()}
         base_codec = codec.partition(":")[0]
         wire_frames = {name: unstack_buffers(b, n)
@@ -337,8 +348,9 @@ class StreamingQueryBatcher(QueryBatcher):
        element's host prefill (first token + batch-1 cache, on the card),
        and queue the stream for a slot.  ``gen <= 1`` answers at once.
     2. **decode tick** — at most once per scheduler tick: free slots go to
-       waiting streams lowest-slot-first (arrival order), and ONE
-       ``compiled_serve_tick`` call decodes the whole slot table.
+       waiting streams lowest-slot-first (arrival order) and are admitted
+       into the plan state eagerly, then ONE ``compiled_serve_tick`` call
+       (a CUDA graph on the card) decodes the whole slot table.
     3. **finish** — slots whose ``finished`` lane fired deliver their
        tokens as one answer through the real serversink apply.
 
@@ -370,6 +382,8 @@ class StreamingQueryBatcher(QueryBatcher):
         self.streams_finished = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        #: host seconds of each decode tick, in order (not in stats())
+        self.decode_times: List[float] = []
 
     # -- introspection ---------------------------------------------------------
     def in_flight(self, client_id: int) -> bool:
@@ -448,8 +462,9 @@ class StreamingQueryBatcher(QueryBatcher):
         return finished
 
     def _decode_tick(self) -> int:
-        """ONE decode call over the whole slot table: waiting streams join,
-        every active slot emits a token, spent slots leave."""
+        """ONE decode call over the whole slot table: waiting streams join
+        (admitted eagerly, in place), every active slot emits a token
+        through the cached serve tick, spent slots leave."""
         run = self.run
         plan = run.pipe.plan
         elem = self._serve_elem()
@@ -466,13 +481,20 @@ class StreamingQueryBatcher(QueryBatcher):
         src = plan.query_sources[0].name
         sink = plan.query_sinks[0].name
         t0 = time.perf_counter()
-        serve = plan.compiled_serve_tick(run.state)
+        elem.admit(run.state[elem.name], elem.build_admit(admits))
+        if run.jit:
+            serve = plan.compiled_serve_tick(run.state)
+        else:
+            def serve(params, state, inputs):
+                return plan.run(params, state, inputs, hoist_io=True,
+                                hoist_queries=True)
         outputs, run.state = serve(run.params, run.state,
-                                   {src: elem.build_admit(admits)})
+                                   {src: elem.empty_admit()})
         toks, emitted, finished = outputs[sink].tensors
         lanes = torch.stack([toks, emitted.to(torch.int32),
                              finished.to(torch.int32)]).cpu().numpy()
-        self.decode_seconds += time.perf_counter() - t0
+        self.decode_times.append(time.perf_counter() - t0)
+        self.decode_seconds += self.decode_times[-1]
         toks, emitted, finished = lanes
         self.decode_ticks += 1
         run.frames += 1

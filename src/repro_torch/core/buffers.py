@@ -10,7 +10,9 @@ the same meaning.  SPARSE frames carry ``SparsePayload`` block-COO triples
 (``tensor_sparse_enc`` and the sparse wire codec); quant8 wire frames carry
 ``Quant8Payload``.  A payload's static fields (``dense_shape``; ``dtype``,
 ``shape``, ``view2d``) are part of its treedef, so two framings never
-share a structure key.
+share a structure key.  FLEXIBLE frames carry a :class:`FlexHeader` per
+tensor in ``StreamBuffer.headers``: the per-frame schema header of the
+paper's dynamic format (:func:`flex_wrap`, :func:`flex_unwrap`).
 """
 from __future__ import annotations
 
@@ -20,9 +22,23 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StreamBuffer", "Quant8Payload", "SparsePayload", "structure_key",
-           "tree_flatten", "tree_unflatten", "stack_buffers",
-           "unstack_buffers"]
+from .formats import MAX_RANK, dtype_to_tag
+
+__all__ = ["FlexHeader", "StreamBuffer", "Quant8Payload", "SparsePayload",
+           "flex_wrap", "flex_unwrap", "structure_key", "tree_flatten",
+           "tree_unflatten", "stack_buffers", "unstack_buffers"]
+
+
+@dataclass
+class FlexHeader:
+    """Per-frame dynamic-schema header: ``dims`` int32 [MAX_RANK] (the true
+    shape, padded with 1s), ``dtype_tag`` and ``valid`` (the number of
+    valid elements), both int32 0-dim; a leading frame axis when
+    stacked."""
+
+    dims: Any
+    dtype_tag: Any
+    valid: Any
 
 
 @dataclass
@@ -115,6 +131,8 @@ def tree_flatten(tree) -> Tuple[List[Any], Tuple]:
     def go(node):
         if node is None:
             return ("none",)
+        if isinstance(node, FlexHeader):
+            return ("flex", go(node.dims), go(node.dtype_tag), go(node.valid))
         if isinstance(node, Quant8Payload):
             return ("quant8", go(node.q), go(node.scale), node.dtype,
                     tuple(node.shape), tuple(node.view2d))
@@ -145,6 +163,9 @@ def tree_unflatten(treedef: Tuple, leaves) -> Any:
             return None
         if kind == "leaf":
             return next(it)
+        if kind == "flex":
+            return FlexHeader(dims=go(td[1]), dtype_tag=go(td[2]),
+                              valid=go(td[3]))
         if kind == "quant8":
             return Quant8Payload(q=go(td[1]), scale=go(td[2]), dtype=td[3],
                                  shape=td[4], view2d=td[5])
@@ -209,3 +230,38 @@ def unstack_buffers(stacked, n: Optional[int] = None) -> list:
         n = int(leaves[0].shape[0])
     return [tree_unflatten(treedef, [leaf[i] for leaf in leaves])
             for i in range(n)]
+
+
+def flex_wrap(x: torch.Tensor, capacity: int
+              ) -> Tuple[torch.Tensor, FlexHeader]:
+    """Encode ``x`` into a FLEXIBLE frame of ``capacity`` elements: a flat
+    payload zero-padded to ``capacity`` plus a header recording the true
+    dims, dtype and element count.  Shapes stay static (the capacity);
+    the contents vary per frame."""
+    flat = x.reshape(-1)
+    n = int(flat.shape[0])
+    if n > capacity:
+        raise ValueError(f"frame ({n} elems) exceeds flexible capacity "
+                         f"{capacity}")
+    payload = torch.zeros((capacity,), dtype=x.dtype, device=x.device)
+    payload[:n] = flat
+    dims = [1] * MAX_RANK
+    dims[:x.dim()] = x.shape
+    hdr = FlexHeader(
+        dims=torch.tensor(dims, dtype=torch.int32, device=x.device),
+        dtype_tag=torch.tensor(dtype_to_tag(x.dtype), dtype=torch.int32,
+                               device=x.device),
+        valid=torch.tensor(n, dtype=torch.int32, device=x.device))
+    return payload, hdr
+
+
+def flex_unwrap(payload: torch.Tensor, header: FlexHeader,
+                static_shape: Optional[Tuple[int, ...]] = None
+                ) -> torch.Tensor:
+    """Decode a FLEXIBLE frame: with ``static_shape`` (the consumer knows
+    the shape from its caps) the strongly-shaped tensor, else the padded
+    flat payload (the consumer must honour ``header.valid``)."""
+    if static_shape is not None:
+        n = int(np.prod(static_shape))
+        return payload[:n].reshape(static_shape)
+    return payload

@@ -43,7 +43,9 @@ class AppSrc(Element):
 @register_element("testsrc")
 class TestSrc(Element):
     """videotestsrc analogue: deterministic synthetic uint8 frames from the
-    frame counter kept in state (same pattern as the JAX package)."""
+    frame counter kept in state, an int32 0-dim tensor on the device as in
+    the JAX package (so a cached executable advances it on the device);
+    pts is an int64 0-dim tensor, ~60 Hz in microseconds."""
 
     n_sink_pads = 0
 
@@ -56,18 +58,19 @@ class TestSrc(Element):
                      tensors=(TensorSpec(self.shape, "uint8"),))]
 
     def init_state(self, device):
-        self._device = device
-        return {"frame": 0}
+        return {"frame": torch.zeros((), dtype=torch.int32, device=device)}
 
     def apply(self, params, inputs, ctx: PipelineContext = None):
-        i, dev = ctx.get_state(self.name)["frame"], self._device
+        i = ctx.get_state(self.name)["frame"]
+        dev = i.device
         h, w, c = self.shape
         yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None, None]
         xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :, None]
         cc = torch.arange(c, dtype=torch.int32, device=dev)[None, None, :]
         frame = ((yy * 3 + xx * 5 + cc * 17 + i * 7) % 256).to(torch.uint8)
         ctx.set_state(self.name, {"frame": i + 1})
-        return [StreamBuffer(tensors=(frame,), pts=i * (16_666_667 // 1000))]
+        return [StreamBuffer(tensors=(frame,),
+                             pts=i.to(torch.int64) * (16_666_667 // 1000))]
 
 
 @register_element("appsink")
@@ -228,9 +231,11 @@ class TensorTransform(Element):
     def _divisor(x: torch.Tensor, arg: str) -> torch.Tensor:
         # a 0-dim tensor on x's device, not a Python scalar: on the card a
         # CPU-scalar divisor becomes a multiply by its reciprocal, which
-        # the CPU and the JAX package's eager division do not do
+        # the CPU and the JAX package's eager division do not do.  Filled
+        # on the device: a host-to-device copy could not be captured in a
+        # CUDA graph
         dt = x.dtype if x.is_floating_point() else torch.float32
-        return torch.tensor(float(arg), dtype=dt, device=x.device)
+        return torch.full((), float(arg), dtype=dt, device=x.device)
 
     def _arith(self, x):
         for op in self.ops:
@@ -366,7 +371,9 @@ class TensorDecoder(Element):
             w, h = (int(v) for v in self.opts.get("option4", "64:48")
                     .split(":"))
             boxes, scores = buf.tensors[0], buf.tensors[1]
-            box = torch.clamp(boxes[torch.argmax(scores)], 0.0, 1.0)
+            # index_select: indexing by a 0-dim tensor reads it on the host
+            best = torch.index_select(boxes, 0, torch.argmax(scores)[None])
+            box = torch.clamp(best[0], 0.0, 1.0)
             x0, y0, x1, y1 = box[0] * w, box[1] * h, box[2] * w, box[3] * h
             dev = boxes.device
             yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
@@ -382,6 +389,18 @@ class TensorDecoder(Element):
             return [buf.with_(tensors=(
                 canvas.expand(h, w, 4).contiguous(),))]   # RGBA overlay
         raise ValueError(f"unknown decoder mode {self.mode!r}")
+
+
+def _earliest(a, b):
+    """min of two pts, either a number or a 0-dim tensor, without reading a
+    tensor on the host (a comparison's truth value would)."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.minimum(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.clamp(a, max=b)
+    if isinstance(b, torch.Tensor):
+        return torch.clamp(b, max=a)
+    return min(a, b)
 
 
 @register_element("tensor_mux")
@@ -400,7 +419,7 @@ class TensorMux(Element):
         tensors = tuple(t for b in inputs for t in b.tensors)
         pts = inputs[0].pts
         for b in inputs[1:]:
-            pts = min(pts, b.pts)
+            pts = _earliest(pts, b.pts)
         meta = {}
         for b in inputs:
             meta.update(b.meta)

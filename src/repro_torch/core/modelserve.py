@@ -14,14 +14,17 @@ Differences from the JAX package, same results:
   where JAX vmaps a b=1 ``lm_decode`` over slots.  ``sequential_decode``
   (launch/model_serve.py) drives the same S-wide step with one active slot,
   so every GEMM has the same shape and continuous == sequential bitwise.
-* The slot cache is updated IN PLACE on the device: an admitted stream's
+* The slot state is updated IN PLACE on the device: an admitted stream's
   prefilled cache (kept on the device since its prefill) is copied into its
   slot rows with ``index_copy_``, leaf by leaf (every layer's cache has the
   same keys in the same order wherever it is made: ``{"k", "v"}`` for an
-  attention layer, ``{"h", "conv"}`` for a recurrent one), and each decode
-  step writes every slot's new K/V row at that slot's own position and
-  advances every slot's recurrent state.  JAX assembles admit bundles on
-  the host and selects ``where(mask, new, old)`` over the whole cache.
+  attention layer, ``{"h", "conv"}`` for a recurrent one), as are its
+  token, budget and active lanes (:meth:`ModelServeElement.admit`), and
+  each decode step writes every slot's new K/V row at that slot's own
+  position and advances every slot's recurrent state.  JAX assembles
+  admit bundles on the host and selects ``where(mask, new, old)`` over the
+  whole cache.  The batcher admits before the tick, outside the cached
+  executable, so the captured tick has one shape.
   Inactive slots may be written or advanced with values nobody reads: a
   slot's rows and state are replaced wholesale, every leaf, when a stream
   is admitted into it.
@@ -119,23 +122,34 @@ class ModelServeElement(Element):
                                          device=device)}
 
     # -- the decode tick --------------------------------------------------------
+    def admit(self, st: dict, bundle: StreamBuffer):
+        """Copy the streams joining this tick into their slots, in place:
+        each one's prefilled cache into its slot rows (leaf by leaf), its
+        first token, remaining budget and active flag into the lanes.  The
+        batcher runs this eagerly before the decode tick (its size varies
+        with the joiners, and ``build_admit`` makes host-to-device copies),
+        so the tick that follows has one shape per serve configuration and
+        is what the cached executable captures."""
+        if bundle.meta.get("empty"):
+            return
+        slots, tok, rem, pos, *leaves = bundle.tensors
+        cache = st["cache"]
+        cache["pos"].index_copy_(0, slots, pos)
+        dst, _ = tree_flatten(cache["layers"])
+        for d, src in zip(dst, leaves):
+            d.index_copy_(0, slots, src)
+        st["token"].index_copy_(0, slots, tok)
+        st["remaining"].index_copy_(0, slots, rem)
+        st["active"].index_fill_(0, slots, True)
+
     def apply(self, params, inputs: List[StreamBuffer],
               ctx: PipelineContext = None) -> List[StreamBuffer]:
         from ..models import transformer
         st = ctx.get_state(self.name)
+        # 1. admit (a no-op on the batcher's path, which admitted already)
+        self.admit(st, inputs[0])
         cache, token = st["cache"], st["token"]
         remaining, active = st["remaining"], st["active"]
-        if not inputs[0].meta.get("empty"):
-            # 1. admit: copy each joining stream's prefilled cache into its
-            #    slot rows, in place (the docstring's in-place contract)
-            slots, tok, rem, pos, *leaves = inputs[0].tensors
-            cache["pos"].index_copy_(0, slots, pos)
-            dst, _ = tree_flatten(cache["layers"])
-            for d, src in zip(dst, leaves):
-                d.index_copy_(0, slots, src)
-            token = token.index_copy(0, slots, tok)
-            remaining = remaining.index_copy(0, slots, rem)
-            active = active.index_fill(0, slots, True)
         # 2. one decode step for every slot; inactive slots keep their token
         token = transformer.serve_decode_step(params, self.cfg, cache, token,
                                               active)

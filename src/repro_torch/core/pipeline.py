@@ -3,9 +3,11 @@
 so the paper's Listing 1/2 pipelines can be written as strings.
 
 Port of ``src/repro/core/pipeline.py``: parsing, caps negotiation
-(``realize``), ``init``/``init_state``, ``step`` and the bursts
-``step_n``/``compiled_step_n``.  Live reconfiguration (``reconfig()``,
-ROADMAP M7) waits.
+(``realize``), ``init``/``init_state``, ``step`` (the plan),
+``step_interpreted`` (the seed interpreter, the parity baseline), the
+bursts ``step_n`` and the cached executables ``compiled_step`` /
+``compiled_step_n``.  Live reconfiguration (``reconfig()``, ROADMAP M7)
+waits.
 
 Grammar subset (sufficient for the paper's examples)::
 
@@ -27,8 +29,8 @@ from collections import defaultdict, deque
 from typing import Dict, List, Optional, Tuple
 
 from .buffers import StreamBuffer
-from .element import Element, element_factory
-from .elements import CapsFilter, Compositor
+from .element import Element, PipelineContext, element_factory
+from .elements import AppSink, AppSrc, CapsFilter, Compositor
 from .formats import Caps, CapsError, TensorFormat, TensorSpec
 
 __all__ = ["Pipeline", "parse_launch", "parse_caps"]
@@ -246,9 +248,33 @@ class Pipeline:
             self.realize()
         return self.plan.run(params, state, inputs)
 
+    def step_interpreted(self, params: dict, state: dict,
+                         inputs: Optional[Dict[str, StreamBuffer]] = None
+                         ) -> Tuple[Dict[str, StreamBuffer], dict]:
+        """The seed per-frame interpreter (re-sorts links and rebuilds dicts
+        every step), kept as the parity baseline for the plan; semantics
+        match :meth:`step` bitwise."""
+        if not self._realized:
+            self.realize()
+        inputs = inputs or {}
+        ctx = PipelineContext(state)
+        produced: Dict[Tuple[str, int], StreamBuffer] = {}
+        outputs: Dict[str, StreamBuffer] = {}
+        for elem in self._order:
+            links = sorted(self._in_links[elem.name], key=lambda l: l.dst_pad)
+            ins = [produced[(l.src.name, l.src_pad)] for l in links]
+            if isinstance(elem, AppSrc) and elem.name in inputs:
+                ins = [inputs[elem.name]]
+            outs = elem.apply(params.get(elem.name, {}), ins, ctx)
+            for i, o in enumerate(outs):
+                produced[(elem.name, i)] = o
+            if isinstance(elem, AppSink) and outs:
+                outputs[elem.name] = outs[0]
+        return outputs, ctx.next_state
+
     def step_n(self, params: dict, state: dict,
                inputs: Optional[Dict[str, StreamBuffer]] = None,
-               n: Optional[int] = None
+               n: Optional[int] = None, hoist_queries: bool = False
                ) -> Tuple[Dict[str, StreamBuffer], dict]:
         """N-frame burst (``ExecutionPlan.step_n``): ``inputs`` holds
         *stacked* per-source frames, or pass ``n`` for self-driven
@@ -256,14 +282,27 @@ class Pipeline:
         ``i``-th sequential :meth:`step` returns."""
         if not self._realized:
             self.realize()
-        return self.plan.step_n(params, state, inputs, n=n)
+        return self.plan.step_n(params, state, inputs, n=n,
+                                hoist_queries=hoist_queries)
 
-    def compiled_step_n(self, hoist_io: bool = False, mesh=None):
-        """The cached burst callable (see :meth:`step_n`); ``hoist_io``
+    def compiled_step(self, donate: Optional[bool] = None):
+        """The cached single-frame executable, shared process-wide across
+        pipelines with the same topology fingerprint (a CUDA graph per
+        binding on the card; see ``core/graphs.py``)."""
+        if not self._realized:
+            self.realize()
+        return self.plan.compiled_step(donate=donate)
+
+    def compiled_step_n(self, hoist_io: bool = False,
+                        hoist_queries: bool = False,
+                        donate: Optional[bool] = None, mesh=None):
+        """The cached burst executable (see :meth:`step_n`); ``hoist_io``
         injects the host sources' frames and captures the host sinks'."""
         if not self._realized:
             self.realize()
-        return self.plan.compiled_step_n(hoist_io=hoist_io, mesh=mesh)
+        return self.plan.compiled_step_n(hoist_io=hoist_io,
+                                         hoist_queries=hoist_queries,
+                                         donate=donate, mesh=mesh)
 
     def describe(self) -> str:
         if not self._realized:

@@ -2,14 +2,18 @@
 
 ``ExecutionPlan`` turns a realized pipeline into a static slot-indexed
 schedule once, at ``realize()`` time, so stepping a frame never re-sorts
-links or rebuilds dicts.  What the serve path needs:
+links or rebuilds dicts.  Execution tiers, bitwise equal to the seed
+interpreter (``Pipeline.step_interpreted``):
 
 * ``run(params, state, inputs, hoist_io, hoist_queries)`` — one frame
   through the schedule.  ``hoist_queries`` injects the serversrc request and
   captures the serversink answer instead of doing channel I/O, so a batcher
   can drive a server pipeline directly.
 * ``run_deferred`` and :class:`PendingQuery` — a client frame paused at its
-  ``tensor_query_client`` until the scheduler has the answer.
+  ``tensor_query_client`` until the scheduler has the answer;
+  ``run_deferred_compiled`` runs each pure segment between pause points
+  (start → first client, client → client, client → end) as one cached
+  executable instead of an element-by-element walk.
 * ``step_n`` — an N-frame pub/sub burst over stacked frames: the JAX
   package's ``lax.scan`` becomes a loop of hoisted ``run`` calls over the
   unstacked frames, threading state (``hoist_io`` injects the mqttsrc
@@ -18,16 +22,15 @@ links or rebuilds dicts.  What the serve path needs:
   hoisted schedule; the wire variant decodes the stacked requests, runs
   the DAG once per frame and re-encodes the stacked answers (the fused
   wire path, DESIGN.md §5).
-* ``compiled_step_n(hoist_io=)``, ``compiled_serve_tick(state)`` and
-  ``compiled_serve_batch(codec=)`` — the callables the scheduler and the
-  batchers call, cached in a process-wide registry keyed by
-  the plan's topology fingerprint (plus the state's :func:`structure_key`,
-  or the codec).
-
-The registry holds plain callables (PyTorch runs eagerly); it is kept
-fingerprint-keyed and LRU-capped like the JAX package's executable cache so
-that CUDA-graph captures can take the callables' place later.  Mesh
-sharding and compiled deferred segments wait (ROADMAP M11, M1).
+* ``compiled_step``, ``compiled_step_n``, ``compiled_serve_tick``,
+  ``compiled_serve_batch`` and ``compiled_deferred_segment`` — the cached
+  executables, in a process-wide registry keyed by the plan's topology
+  fingerprint (plus the reference's keys: donation, burst hoisting, the
+  state's :func:`structure_key`, the codec, the segment).  Each entry is a
+  :class:`~.graphs.GraphedCallable`: the eager function on the CPU, CUDA
+  graphs on the card, where the JAX package jits.  Donation
+  (``donate=None``) is on when the card is the default device, as the JAX
+  package donates on gpu/tpu.  Mesh sharding waits (ROADMAP M11).
 
 Every path serves the DAG once per frame, at the frame's own shapes, so a
 model sees the same GEMM shapes whether a request was served alone, in a
@@ -38,9 +41,12 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from .buffers import (StreamBuffer, stack_buffers, structure_key,
                       unstack_buffers)
 from .element import Element, PipelineContext
+from .graphs import GraphedCallable
 
 __all__ = ["ExecutionPlan", "PendingQuery", "PlanOp",
            "clear_executable_cache", "executable_cache_info"]
@@ -68,21 +74,33 @@ class PlanOp:
         self.is_query_client = getattr(elem, "is_query_client", False)
 
 
-# Process-wide executable registry: fingerprint -> {"fns": {key: callable}}.
-# Two plans with equal fingerprints behave identically (the fingerprint
-# covers element class, static config, wiring and negotiated caps), so the
-# first plan's callables serve all of them.  LRU-capped.
+# Process-wide executable registry: fingerprint -> {"fns": {key:
+# GraphedCallable}}.  Two plans with equal fingerprints behave identically
+# (the fingerprint covers element class, static config, wiring and
+# negotiated caps), so the first plan's callables serve all of them.
+# LRU-capped; evicting a fingerprint frees its graphs.
 _EXEC_CACHE: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
 _EXEC_CACHE_MAX = 128
 
 
+def _release(ent: Dict[str, Any]):
+    for fn in ent["fns"].values():
+        fn.release()
+
+
 def clear_executable_cache():
+    for ent in _EXEC_CACHE.values():
+        _release(ent)
     _EXEC_CACHE.clear()
 
 
 def executable_cache_info() -> Dict[str, int]:
-    return {"fingerprints": len(_EXEC_CACHE),
-            "executables": sum(len(e["fns"]) for e in _EXEC_CACHE.values())}
+    """Fingerprints and cached executables, as in the JAX package, plus the
+    CUDA graphs those executables hold (0 on the CPU): a retrace on the
+    card shows as a new graph."""
+    fns = [f for e in _EXEC_CACHE.values() for f in e["fns"].values()]
+    return {"fingerprints": len(_EXEC_CACHE), "executables": len(fns),
+            "graphs": sum(f.graphs() for f in fns)}
 
 
 class ExecutionPlan:
@@ -153,6 +171,19 @@ class ExecutionPlan:
         #: decode state is plan state carried across ticks
         self.stream_serving = self.query_batchable and any(
             getattr(op.elem, "is_stream_serve", False) for op in ops)
+        #: (stage, n_stages) of a pipeline-parallel serve stage, part of
+        #: the serve tick's cache key as in the JAX package; None until
+        #: the port has stage elements (ROADMAP M8)
+        self.serve_stage = None
+        #: op indices of the query clients, in schedule order (the deferred
+        #: walk's pause points — static, because topology is static)
+        self.client_idxs = tuple(i for i, op in enumerate(ops)
+                                 if op.is_query_client)
+        #: every impure element is a query client: the segments between
+        #: pause points are pure and each runs as one cached executable
+        #: (run_deferred_compiled)
+        self.deferred_compilable = bool(self.client_idxs) and all(
+            getattr(e, "is_query_client", False) for e in impure)
         self.fingerprint = self._fingerprint(order, links)
 
     @staticmethod
@@ -239,7 +270,8 @@ class ExecutionPlan:
     # -- bursts ----------------------------------------------------------------
     def step_n(self, params: dict, state: dict,
                inputs: Optional[Dict[str, StreamBuffer]] = None,
-               n: Optional[int] = None, hoist_io: bool = False
+               n: Optional[int] = None, hoist_io: bool = False,
+               hoist_queries: bool = False
                ) -> Tuple[Dict[str, StreamBuffer], dict]:
         """An N-frame burst.  ``inputs`` maps source names to *stacked*
         buffers (leading frame axis, :func:`stack_buffers`); self-driven
@@ -252,7 +284,8 @@ class ExecutionPlan:
                   else [None] * n)
         outs = []
         for frame in frames:
-            o, state = self.run(params, state, frame, hoist_io=hoist_io)
+            o, state = self.run(params, state, frame, hoist_io=hoist_io,
+                                hoist_queries=hoist_queries)
             outs.append(o)
         return stack_buffers(outs), state
 
@@ -313,28 +346,98 @@ class ExecutionPlan:
             ent = {"fns": {}}
             _EXEC_CACHE[self.fingerprint] = ent
             while len(_EXEC_CACHE) > _EXEC_CACHE_MAX:
-                _EXEC_CACHE.popitem(last=False)
+                _release(_EXEC_CACHE.popitem(last=False)[1])
         else:
             _EXEC_CACHE.move_to_end(self.fingerprint)
         return ent
 
-    def compiled_step_n(self, hoist_io: bool = False, mesh=None) -> Callable:
+    def _entry(self, key, make_fn: Callable[[], Callable],
+               donate: bool) -> GraphedCallable:
+        fns = self._cache()["fns"]
+        if key not in fns:
+            fns[key] = GraphedCallable(make_fn(), donate)
+        return fns[key]
+
+    @staticmethod
+    def _resolve_donate(donate: Optional[bool]) -> bool:
+        """``None`` donates when the card is the default device (the JAX
+        package donates on gpu/tpu); on the CPU an entry is the eager
+        function, which donation does not change."""
+        if donate is None:
+            return torch.cuda.is_available()
+        return bool(donate)
+
+    def compiled_step(self, donate: Optional[bool] = None) -> Callable:
+        """:meth:`run` as ``(params, state, inputs=None) -> (outputs,
+        next_state)``, cached under ``("step", donate)`` and shared across
+        all plans with this fingerprint."""
+        donate = self._resolve_donate(donate)
+        return self._entry(("step", donate), lambda: self.run, donate)
+
+    def compiled_step_n(self, hoist_io: bool = False,
+                        hoist_queries: bool = False,
+                        donate: Optional[bool] = None, mesh=None
+                        ) -> Callable:
         """:meth:`step_n` ``(params, state, inputs=None, n=None) ->
         (stacked outputs, final state)``, cached under ``("step_n",
-        hoist_io)``."""
+        hoist_io, hoist_queries, donate, mesh)``; ``n`` is static, so each
+        burst length is its own binding."""
         if mesh is not None:
             raise NotImplementedError("mesh-sharded bursts (mesh=): "
                                       "ROADMAP M11")
-        fns = self._cache()["fns"]
-        key = ("step_n", hoist_io)
-        if key not in fns:
-            def step_n(params, st, inputs=None, n=None, _self=self,
-                       _hoist=hoist_io):
-                return _self.step_n(params, st, inputs, n=n, hoist_io=_hoist)
-            fns[key] = step_n
-        return fns[key]
+        donate = self._resolve_donate(donate)
 
-    def compiled_serve_tick(self, state: dict) -> Callable:
+        def make():
+            def step_n(params, state, inputs=None, n=None, _self=self,
+                       _hoist=hoist_io, _hoistq=hoist_queries):
+                return _self.step_n(params, state, inputs, n=n,
+                                    hoist_io=_hoist, hoist_queries=_hoistq)
+            return step_n
+        return self._entry(("step_n", hoist_io, hoist_queries, donate, None),
+                           make, donate)
+
+    def compiled_serve_batch(self, donate: Optional[bool] = None,
+                             mesh=None, codec: Optional[str] = None
+                             ) -> Callable:
+        """:meth:`serve_batch` ``(params, state, frames) -> (per-frame
+        outputs, final state)``, or with ``codec`` the fused
+        :meth:`serve_batch_wire` ``(params, state, wire_frames) ->
+        ((stacked wire answers, stacked app outs, dropped), final)``,
+        cached under ``("serve_batch", donate, mesh, codec)`` so the two
+        kinds, and two codecs, never share an entry.  The batch size lives
+        in the frames' structure: each size is its own binding."""
+        if mesh is not None:
+            raise NotImplementedError("mesh-sharded serving (mesh=): "
+                                      "ROADMAP M11")
+        donate = self._resolve_donate(donate)
+        if codec is None:
+            def make():
+                def serve_batch(params, state, frames, _self=self):
+                    return _self.serve_batch(params, state, frames)
+                return serve_batch
+        else:
+            def make():
+                def serve_wire(params, state, frames, _self=self,
+                               _codec=codec):
+                    return _self.serve_batch_wire(params, state, frames,
+                                                  _codec)
+                return serve_wire
+        return self._entry(("serve_batch", donate, None, codec), make, donate)
+
+    # -- stateful streaming serve ----------------------------------------------
+    def _serve_tick_fn(self, donate: bool, state_key) -> Callable:
+        """Executable behind :meth:`compiled_serve_tick`, addressable by its
+        full cache key (``serve_stage`` included, as in the JAX package)."""
+        def make():
+            def serve_tick(params, state, inputs, _self=self):
+                return _self.run(params, state, inputs, hoist_io=True,
+                                 hoist_queries=True)
+            return serve_tick
+        return self._entry(("serve_tick", donate, self.serve_stage,
+                            state_key), make, donate)
+
+    def compiled_serve_tick(self, state: dict,
+                            donate: Optional[bool] = None) -> Callable:
         """Stateful decode tick ``(params, state, inputs) -> (outputs,
         next_state)`` for a ``stream_serving`` plan: one hoisted ``run``.
         The batch lives inside the plan state (slot axis of the cache plus
@@ -342,33 +445,85 @@ class ExecutionPlan:
         the cache key carries ``structure_key(state)``, so two serve
         configurations with different slot counts or cache layouts never
         share an entry and the same structure never builds a new one."""
-        fns = self._cache()["fns"]
-        key = ("serve_tick", structure_key(state))
-        if key not in fns:
-            def serve_tick(params, st, inputs, _self=self):
-                return _self.run(params, st, inputs, hoist_io=True,
-                                 hoist_queries=True)
-            fns[key] = serve_tick
-        return fns[key]
+        return self._serve_tick_fn(self._resolve_donate(donate),
+                                   structure_key(state))
 
-    def compiled_serve_batch(self, codec: Optional[str] = None) -> Callable:
-        """:meth:`serve_batch` ``(params, state, frames) -> (per-frame
-        outputs, final state)``, or with ``codec`` the fused
-        :meth:`serve_batch_wire` ``(params, state, wire_frames) ->
-        ((stacked wire answers, stacked app outs, dropped), final)``,
-        cached under ``("serve_batch", codec)`` so the two kinds, and two
-        codecs, never share an entry."""
-        fns = self._cache()["fns"]
-        key = ("serve_batch", codec)
-        if key not in fns:
-            if codec is None:
-                def serve(params, st, frames, _self=self):
-                    return _self.serve_batch(params, st, frames)
+    # -- compiled deferred segments --------------------------------------------
+    def _next_client(self, after: int) -> Optional[int]:
+        for i in self.client_idxs:
+            if i > after:
+                return i
+        return None
+
+    def _live_slots(self, pause_idx: int) -> Tuple[int, ...]:
+        """Value slots that must survive a pause at ``pause_idx``: written
+        by an op before the pause AND read by an op after it.  Static, so
+        a segment carries exactly the live values."""
+        written = {s for op in self.ops[:pause_idx]
+                   for s in op.out_slots if s >= 0}
+        read = {s for op in self.ops[pause_idx + 1:] for s in op.in_slots}
+        return tuple(sorted(written & read))
+
+    def _deferred_segment(self, start: Optional[int]) -> Callable:
+        """One pure segment of the deferred walk: ``start=None`` runs op 0
+        → the first query client; ``start=j`` injects the answer for the
+        client at op ``j`` and runs to the next client or the end.
+        ``seg(params, state, live_vals, answer, inputs)`` returns
+        ``((request, live_vals, outputs), next_state)`` when it pauses
+        again, ``(outputs, next_state)`` when it completes (static: the
+        topology says which).
+
+        ``state`` is the frame's state so far, the previous segment's
+        ``next_state``: each element reads and writes only its own entry,
+        so the threaded state stands in for the JAX package's (state,
+        next_state) pair."""
+        def seg(params, state, live_vals, answer, inputs):
+            ctx = PipelineContext(state)
+            vals: List[Any] = [None] * self.n_slots
+            outputs: Dict[str, StreamBuffer] = {}
+            if start is None:
+                begin = 0
             else:
-                def serve(params, st, frames, _self=self, _codec=codec):
-                    return _self.serve_batch_wire(params, st, frames, _codec)
-            fns[key] = serve
-        return fns[key]
+                for s, v in zip(self._live_slots(start), live_vals):
+                    vals[s] = v
+                op = self.ops[start]
+                if op.out_slots and op.out_slots[0] >= 0:
+                    vals[op.out_slots[0]] = answer
+                if op.is_sink:
+                    outputs[op.name] = answer
+                begin = start + 1
+            res = self._exec_ops(params, ctx, vals, outputs, inputs, begin,
+                                 hoist_io=False, hoist_queries=False,
+                                 defer_queries=True)
+            if res is None:
+                return outputs, ctx.next_state
+            idx, request = res
+            live = tuple(vals[s] for s in self._live_slots(idx))
+            return (request, live, outputs), ctx.next_state
+        return seg
+
+    def compiled_deferred_segment(self, start: Optional[int]) -> Callable:
+        """:meth:`_deferred_segment` as a cached executable (failover
+        reconnects of a structurally identical client pipeline reuse its
+        segments)."""
+        donate = self._resolve_donate(None)
+        return self._entry(("defer_seg", -1 if start is None else start),
+                           lambda: self._deferred_segment(start), donate)
+
+    def run_deferred_compiled(self, params: dict, state: dict,
+                              inputs: Optional[Dict[str, StreamBuffer]] = None):
+        """Compiled counterpart of :meth:`run_deferred` for plans whose only
+        impure elements are query clients (:attr:`deferred_compilable`):
+        the walk to the first client is ONE cached executable instead of
+        an element-by-element walk, bitwise the same frame.  Returns a
+        compiled-mode :class:`PendingQuery` (its ``resume`` runs cached
+        segments too)."""
+        inputs = inputs or {}
+        fn = self.compiled_deferred_segment(None)
+        (request, live, outputs), next_state = fn(params, state, (), None,
+                                                  inputs)
+        return PendingQuery.compiled(self, params, inputs, next_state, live,
+                                     outputs, self.client_idxs[0], request)
 
 
 class PendingQuery:
@@ -378,10 +533,17 @@ class PendingQuery:
     ``resume(answer)`` continues the walk, returning ``(outputs,
     next_state)`` on completion or ``self`` again if a later client pauses
     the frame.  ``endpoint`` records where the scheduler shipped the
-    request."""
+    request.
+
+    Two modes, bitwise the same: the interpreted mode carries the live walk
+    (``ctx``/``vals``) and resumes element by element; the compiled mode
+    (:meth:`ExecutionPlan.run_deferred_compiled`) carries only the live
+    slot values and the frame's state so far, and ``resume`` runs the next
+    pure segment as one cached executable."""
 
     __slots__ = ("plan", "params", "inputs", "ctx", "vals", "outputs",
-                 "op_idx", "request", "endpoint", "redispatches")
+                 "op_idx", "request", "endpoint", "redispatches", "state",
+                 "live", "is_compiled")
 
     def __init__(self, plan: ExecutionPlan, params: dict, inputs: dict,
                  ctx: PipelineContext, vals: List[Any],
@@ -397,6 +559,20 @@ class PendingQuery:
         self.request = request
         self.endpoint = None
         self.redispatches = 0
+        # compiled-mode fields (PendingQuery.compiled)
+        self.state = None
+        self.live = ()
+        self.is_compiled = False
+
+    @classmethod
+    def compiled(cls, plan: ExecutionPlan, params: dict, inputs: dict,
+                 state: dict, live: Tuple, outputs: Dict[str, StreamBuffer],
+                 op_idx: int, request: StreamBuffer) -> "PendingQuery":
+        pq = cls(plan, params, inputs, None, [], outputs, op_idx, request)
+        pq.state = state
+        pq.live = live
+        pq.is_compiled = True
+        return pq
 
     @property
     def client(self):
@@ -405,6 +581,8 @@ class PendingQuery:
 
     def resume(self, answer: StreamBuffer):
         """Inject the answer as the paused client's output and run on."""
+        if self.is_compiled:
+            return self._resume_compiled(answer)
         op = self.plan.ops[self.op_idx]
         if op.out_slots and op.out_slots[0] >= 0:
             self.vals[op.out_slots[0]] = answer
@@ -417,5 +595,23 @@ class PendingQuery:
         if res is None:
             return self.outputs, self.ctx.next_state
         self.op_idx, self.request = res
+        self.endpoint = None
+        return self
+
+    def _resume_compiled(self, answer: StreamBuffer):
+        """One cached executable for the segment after the paused client."""
+        plan = self.plan
+        fn = plan.compiled_deferred_segment(self.op_idx)
+        nxt = plan._next_client(self.op_idx)
+        res, state = fn(self.params, self.state, self.live, answer,
+                        self.inputs)
+        if nxt is None:
+            return {**self.outputs, **res}, state
+        request, live, outputs = res
+        self.op_idx = nxt
+        self.request = request
+        self.live = live
+        self.outputs = {**self.outputs, **outputs}
+        self.state = state
         self.endpoint = None
         return self

@@ -27,6 +27,16 @@ with a global tick (60 Hz frame cadence, as in the paper's evaluation):
   streams still mid-generation re-enter the drain next tick;
 * pipelines without query clients step once per tick (or burst).
 
+Cached executables (``Device.add_pipeline(jit=True)``, the default, as in
+the JAX package): a pure pipeline steps through ``compiled_step``, bursts
+through ``compiled_step_n``, a client whose only impure elements are its
+query clients runs its deferred segments through
+``run_deferred_compiled`` (on the fused wire path), and a server's batcher
+serves through ``compiled_serve_batch`` / ``compiled_serve_tick``.  On the
+card each is a CUDA graph per binding (``core/graphs.py``); on the CPU the
+eager function.  ``jit=False`` runs that pipeline eagerly everywhere: the
+explicit eager route on the card.
+
 ``query_batch=0`` turns batching off: client pipelines step like any other
 and their ``tensor_query_client.apply`` is the synchronous round trip — it
 sends, the server's batcher ``flush`` serves inline (one interpreted
@@ -48,7 +58,7 @@ autoscaling wait for their ROADMAP items (M6, M7, M11, M9, M10) and raise
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -76,6 +86,11 @@ class _PipeRun:
     params: dict
     state: dict
     device: torch.device
+    #: one frame: ``pipe.compiled_step()`` for a pure pipeline with ``jit``,
+    #: else ``pipe.step``
+    step_fn: Callable
+    #: the run takes the cached executables (module docstring)
+    jit: bool = True
     frames: int = 0
     skipped: int = 0
     bursts: int = 0              # multi-frame drains executed
@@ -117,10 +132,11 @@ class Device:
 
     def add_pipeline(self, pipe: Pipeline,
                      generator: Optional[torch.Generator] = None,
-                     device: DeviceLike = None) -> _PipeRun:
+                     device: DeviceLike = None, jit: bool = True) -> _PipeRun:
         """Realize ``pipe`` and initialize its params (from ``generator``,
         default seed 0 on the device) and state on ``device`` (default: this
-        Device's, else the GPU)."""
+        Device's, else the GPU).  ``jit`` runs it through the cached
+        executables (CUDA graphs on the card); ``jit=False`` eagerly."""
         dev = resolve_device(device if device is not None else self.device)
         pipe.realize()
         # the pipeline clock stamps and rebases pub/sub pts (§4.2.3)
@@ -128,8 +144,12 @@ class Device:
             if isinstance(e, (MqttSink, MqttSrc)) and e.sync_clock is None:
                 e.sync_clock = self.pipeline_clock
         g = generator if generator is not None else make_generator(0, dev)
+        # pure pipelines step through the cached executable; host-impure
+        # ones run the plan (their apply does channel I/O)
+        fn = pipe.compiled_step() if (jit and pipe.plan.pure) else pipe.step
         run = _PipeRun(pipe=pipe, params=pipe.init(g, dev),
-                       state=pipe.init_state(dev), device=dev)
+                       state=pipe.init_state(dev), device=dev, step_fn=fn,
+                       jit=jit)
         self.runs.append(run)
         return run
 
@@ -242,15 +262,22 @@ class Runtime:
         return outputs
 
     def _run_once(self, run: _PipeRun):
-        outputs, run.state = run.pipe.step(run.params, run.state)
+        outputs, run.state = run.step_fn(run.params, run.state)
         return self._finish_frame(run, outputs)
 
     # -- deferred query clients -------------------------------------------------
     def _begin_deferred(self, run: _PipeRun
                         ) -> Optional[Tuple[_PipeRun, PendingQuery]]:
         """Begin a frame that pauses at its first query client; None if the
-        frame completed without pausing."""
-        res = run.pipe.plan.run_deferred(run.params, run.state)
+        frame completed without pausing.  On the fused wire path a client
+        whose only impure elements are query clients runs its segments as
+        cached executables (as the JAX package does); otherwise the walk is
+        interpreted."""
+        plan = run.pipe.plan
+        if run.jit and self.fused_wire and plan.deferred_compilable:
+            res = plan.run_deferred_compiled(run.params, run.state)
+        else:
+            res = plan.run_deferred(run.params, run.state)
         if isinstance(res, PendingQuery):
             return run, res
         outputs, run.state = res
@@ -431,8 +458,12 @@ class Runtime:
         except ValueError:
             # frames of differing structure cannot stack: per frame
             return self._replay_frames(run, pulls)
-        step_n = run.pipe.compiled_step_n(hoist_io=True)
-        outs, run.state = step_n(run.params, run.state, stacked)
+        if run.jit:
+            outs, run.state = run.pipe.compiled_step_n(hoist_io=True)(
+                run.params, run.state, stacked)
+        else:
+            outs, run.state = run.pipe.plan.step_n(
+                run.params, run.state, stacked, hoist_io=True)
         for frame_outs in unstack_buffers(outs, n):
             self._deliver_frame(run, frame_outs)
         run.bursts += 1
