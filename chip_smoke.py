@@ -12,7 +12,7 @@ Phases, one result line each (any failure exits non-zero):
    (one ``nvcc`` per source, all at once) and prints the seconds and each
    kernel's registers and spill bytes as ``ptxas`` reports them;
 3. kernels vs plain — K5 (flash prefill: bf16 on the tensor-core kernel,
-   fp32 on the scalar one) and K6 (split-KV flash decode) against their
+   fp32 on the SIMT one) and K6 (split-KV flash decode) against their
    plain PyTorch versions.  3a, smoke shapes (ragged, unequal Sq/Sk, GQA,
    non-causal) in fp32 within atol = rtol = 2e-5 and in bf16 within one
    bf16 ulp (plus 1e-5 absolute) of the plain version computed in f32 from
@@ -100,14 +100,17 @@ Phases, one result line each (any failure exits non-zero):
    over what was allocated before it.  Phases 4, 6, 7b and 8 print the
    graphs they captured and their memory too.
 
-Phase 3b also times K5's fp32 route (the scalar ``flash_prefill.cu``) at
-f32 [32, 512, 64] beside its bound (float32 operations outside the
-tensor cores at 67 TFLOP/s, and its byte bound) and fp32 SDPA.
+Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
+f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
+8 kv heads (GQA, 4 groups), beside its bound (float32 operations outside
+the tensor cores at 67 TFLOP/s, and its byte bound) and fp32 SDPA, naming
+the kernel SDPA's backend ran (from the profiler).
 
 Phase 3d holds the RG-LRU scan kernel (a new kernel; the JAX package
 scans with ``jax.lax.associative_scan``) against its plain step-by-step
-loop on ragged smoke shapes and at f32 [1, 3000, 4096] within atol = rtol
-= 1e-5, and times it beside its byte bound.
+loop, bitwise, on ragged smoke shapes, at the edges of its ring stages,
+for a row alone and in a batch, and at f32 [1, 3000, 4096]; it times the
+kernel beside its byte bound and prints its ring as the kernel reports it.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -206,13 +209,21 @@ def _kernel_name(mangled):
         "f32" if "kernelIf" in mangled else ""
     if "sparse_enc_kernel" in mangled and "Lb1E" in mangled:
         tag += ",scalar loads"          # K3's kScalar instantiation
-    for i in range(len(mangled)):   # a length may follow a hex digit
+    if "flash_prefill_f32_kernel" in mangled:   # K5 fp32's kVec
+        tag = "cp.async" if "Lb1E" in mangled else "4-byte loads"
+    m = re.search(r"rglru_scan_kernelILb([01])E", mangled)
+    if m:                                       # S1's kVec
+        tag = f"{'16' if m.group(1) == '1' else '4'} B copies"
+    names = []   # a length may follow a hex digit of a namespace's hash,
+    for i in range(len(mangled)):   # so the shortest identifier wins
         m = re.match(r"\d+", mangled[i:])
         if m:
             name = mangled[i + m.end():i + m.end() + int(m.group())]
             if re.fullmatch(r"[A-Za-z]\w*_kernel", name):
-                return name + (f"<{tag}>" if tag else "")
-    return mangled
+                names.append(name)
+    if not names:
+        return mangled
+    return min(names, key=len) + (f"<{tag}>" if tag else "")
 
 
 def ptxas_report(log):
@@ -269,7 +280,7 @@ def phase_kernels(seed):
             return ((o - r).abs() - FP32_TOL * r.abs()).max().item(), FP32_TOL
         return bf16_excess(o, r), BF16_ATOL
 
-    # -- smoke shapes, fp32 (scalar K5) and bf16 (tensor-core K5) -------------
+    # -- smoke shapes, fp32 (SIMT K5) and bf16 (tensor-core K5) ---------------
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt).rpartition(".")[2]
@@ -321,10 +332,21 @@ def phase_kernels(seed):
         raise SmokeFailure("K5 took a misaligned bf16 view")
     except ValueError:
         pass
+    # fp32 takes any strided view: a misaligned one runs K5 fp32's 4-byte
+    # loads instead of cp.async
+    q2, k2, v2 = (rn(8, 100, 65)[:, :, 1:] for _ in range(3))
+    for causal in (True, False):
+        o = fa.flash_attention(q2, k2, v2, causal=causal)
+        r = fa.flash_attention_plain(q2, k2, v2, causal=causal)
+        err, _ = excess(o, r, torch.float32)
+        check(err <= FP32_TOL, f"K5 fp32 misaligned view causal={causal}: "
+                               f"error {err}")
+        worst["float32"] = max(worst["float32"], err)
     print(f"phase 3a kernels smoke shapes: fp32 pass (atol=rtol={FP32_TOL}, "
           f"worst excess {worst['float32']:.2e}); bf16 pass (1 ulp + "
           f"{BF16_ATOL}, worst excess {worst['bfloat16']:.2e}), strided "
-          f"serve view included; a misaligned bf16 view raises")
+          f"serve view included; a misaligned bf16 view raises, a misaligned "
+          f"fp32 view passes")
 
     # -- bf16 at the full-width shapes ----------------------------------------
     table = {}
@@ -349,27 +371,35 @@ def phase_kernels(seed):
             ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
             flops / BF16_FLOPS else "operations")
-    # K5's fp32 route (the scalar kernel, csrc/flash_prefill.cu): bound by
-    # float32 operations outside the tensor cores
-    L = 512
-    q, k, v = (rn(32, L, 64) for _ in range(3))
-    o = fa.flash_attention(q, k, v, causal=True)
-    r = fa.flash_attention_plain(q, k, v, causal=True)
-    err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
-    check(err <= FP32_TOL, f"K5 fp32 [32,{L},64]: error {err}")
-    nbytes = 4 * q.numel() * 4
-    flops = 4 * 32 * 64 * L * (L + 1) / 2
-    table[f"K5 fp32 L={L}"] = dict(
-        max_abs_err=(o - r).abs().max().item(), excess=err,
-        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                          causal=True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True)),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-        bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-        else "operations")
+    # K5's fp32 route (csrc/flash_prefill.cu, register-tiled f32 FMAs on the
+    # CUDA cores): bound by float32 operations outside the tensor cores;
+    # fp32 SDPA beside it, with the kernel its backend ran
+    for L, grp in ((128, 1), (512, 1), (1024, 1), (512, 4)):
+        q, k, v = rn(32, L, 64), rn(32 // grp, L, 64), rn(32 // grp, L, 64)
+        o = fa.flash_attention(q, k, v, causal=True, kv_groups=grp)
+        r = fa.flash_attention_plain(q, k, v, causal=True, kv_groups=grp)
+        err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
+        check(err <= FP32_TOL, f"K5 fp32 [32,{L},64] g{grp}: error {err}")
+
+        def sdpa(q=q, k=k, v=v, grp=grp):
+            return F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True,
+                **({"enable_gqa": True} if grp > 1 else {}))
+        _, _, prof = _profile(sdpa)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 4
+        flops = 4 * 32 * 64 * L * (L + 1) / 2
+        table[f"K5 fp32 L={L}" + (f" gqa{grp}" if grp > 1 else "")] = dict(
+            max_abs_err=(o - r).abs().max().item(), excess=err,
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                  kv_groups=grp)),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, kv_groups=grp)),
+            library_ms=cuda_ms(sdpa),
+            library_kernel=prof[0][0] if prof else "not traced",
+            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations")
     S, H, smax = 8, 32, 1024
     q = rn(S * H, 64, dtype=torch.bfloat16)
     kc, vc = (rn(S, smax, H, 64, dtype=torch.bfloat16) for _ in range(2))
@@ -405,7 +435,9 @@ def phase_kernels(seed):
               f"{what} {row['excess']:.1e}), kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']})")
+              f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} of it)"
+              + (f"; sdpa ran {row['library_kernel'][:90]}"
+                 if "library_kernel" in row else ""))
     return table
 
 
@@ -666,17 +698,19 @@ def phase_codec_kernels(seed):
     return table
 
 
-SCAN_TOL = 1e-5     # atol and rtol of the scan kernel against its plain loop
 F32_FLOPS = 67e12   # H100 SXM f32 peak outside the tensor cores
 
 
 def phase_scan_kernel(seed):
-    """3d: the RG-LRU scan kernel against its plain version on the card:
-    ragged smoke shapes (S of 1, 7 and 64; widths that are not a multiple
-    of the 32-wide block) and the full-width prefill shape f32
-    [1, 3000, 4096]; timed with CUDA events, warm L2, beside its byte
-    bound and the plain step-by-step loop.  No single PyTorch call
-    computes a linear recurrence, so it has no library time."""
+    """3d: the RG-LRU scan kernel against its plain version on the card,
+    bitwise: ragged smoke shapes (S of 1, 7 and 64; S at one ring stage
+    - 1, one stage and one stage + 1; widths that are not a multiple of
+    the block or of 4 floats; B = 1 against a batch of 3) and the
+    full-width prefill shape f32 [1, 3000, 4096]; timed with CUDA events,
+    warm L2, beside its byte bound and the plain step-by-step loop, with
+    the ring's stages and bytes in flight as the compiled kernel reports
+    them.  No single PyTorch call computes a linear recurrence, so it has
+    no library time."""
     import torch
     from repro_torch.kernels import rglru_scan as rs
     dev = torch.device("cuda")
@@ -687,43 +721,41 @@ def phase_scan_kernel(seed):
         bx = torch.randn((b, s, w), generator=g, device=dev)
         return a, bx
 
-    def excess(h, r):
-        return ((h - r).abs() - SCAN_TOL - SCAN_TOL * r.abs()).max().item()
-
-    worst_err, worst_excess, n = 0.0, float("-inf"), 0
+    ring = rs.ring()
+    edges = [(1, ring["positions"] + d, w) for d in (-1, 0, 1)
+             for w in (33, 257)]
+    n = 0
     for b, s, w in [(1, 1, 100), (2, 7, 4096), (3, 64, 257), (1, 64, 33),
-                    (4, 7, 31)]:
+                    (4, 7, 31)] + edges:
         a, bx = inputs(b, s, w)
         h = rs.rglru_scan(a, bx)
-        r = rs.rglru_scan_plain(a, bx)
-        torch.cuda.synchronize()
-        e = excess(h, r)
-        check(e <= 0, f"scan [{b},{s},{w}]: error beyond atol=rtol="
-                      f"{SCAN_TOL} by {e}")
-        worst_err = max(worst_err, (h - r).abs().max().item())
-        worst_excess = max(worst_excess, e)
+        same_bits(h, rs.rglru_scan_plain(a, bx), f"scan [{b},{s},{w}]")
         n += 1
+    a, bx = inputs(3, 700, 4096)
+    same_bits(rs.rglru_scan(a[1:2].contiguous(), bx[1:2].contiguous()),
+              rs.rglru_scan(a, bx)[1:2], "scan row at B = 1 vs in B = 3")
     b, s, w = 1, 3000, 4096
     a, bx = inputs(b, s, w)
     h = rs.rglru_scan(a, bx)
     r = rs.rglru_scan_plain(a, bx)
-    torch.cuda.synchronize()
-    e = excess(h, r)
-    check(e <= 0, f"scan [1,3000,4096]: error beyond tolerance by {e}")
-    err = (h - r).abs().max().item()
+    same_bits(h, r, "scan [1,3000,4096]")
     kern = cuda_ms(lambda: rs.rglru_scan(a, bx))
     plain = cuda_ms(lambda: rs.rglru_scan_plain(a, bx), iters=3, warmup=1)
     nbytes = 3 * b * s * w * 4          # a, bx read once; h written once
     flops = 2 * b * s * w
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    row = dict(shape=[b, s, w], max_abs_err=err, bitwise=bool(err == 0.0),
+    in_flight = (ring["stages"] - 1) * ring["stage_bytes"]
+    row = dict(shape=[b, s, w], max_abs_err=0.0, bitwise=True,
                ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound,
                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
                flops / F32_FLOPS else "operations",
-               smoke_max_abs_err=worst_err)
-    print(f"phase 3d scan kernel: {n} smoke shapes pass (atol=rtol="
-          f"{SCAN_TOL}, max abs err {worst_err:.3e}); f32 [1, 3000, 4096]: "
-          f"max abs err {err:.3e}, kernel {kern:.4f} ms, plain "
+               stages=ring["stages"], bytes_in_flight_per_block=in_flight)
+    print(f"phase 3d scan kernel: {n} smoke shapes and a row at B = 1 vs "
+          f"in a batch of 3 bitwise the plain loop; f32 [1, 3000, 4096]: "
+          f"bitwise, kernel {kern:.4f} ms ({bound / kern:.0%} of the byte "
+          f"bound); {ring['channels']} channels a block, ring of "
+          f"{ring['stages']} stages of {ring['stage_bytes']} B, "
+          f"{in_flight} B in flight a block; plain "
           f"{plain:.4f} ms, bound {bound:.5f} ms (bytes, {nbytes} B)")
     return row
 
@@ -1744,9 +1776,14 @@ def _rglru_profile(elem, params, cfg, seed):
     for name, (wall, busy, rows) in res.items():
         top = ", ".join(f"{k[:40]} {ms_:.2f} ms x{n}" for k, ms_, n in
                         rows[:6])
+        scan = [r for r in rows if "rglru_scan_kernel" in r[0]]
+        scan_ms = sum(r[1] for r in scan)
+        scan_n = sum(r[2] for r in scan)
         print(f"phase 8 profile {name}: host wall {wall:.2f} ms, device "
-              f"busy {busy:.2f} ms ({100 * busy / wall:.0f}%); top: {top}")
+              f"busy {busy:.2f} ms ({100 * busy / wall:.0f}%); scan kernel "
+              f"{scan_ms:.3f} ms x{scan_n}; top: {top}")
         out[name] = {"wall_ms": wall, "device_ms": busy,
+                     "scan_ms": scan_ms, "scan_launches": scan_n,
                      "top": [list(r) for r in rows[:15]]}
     return out
 

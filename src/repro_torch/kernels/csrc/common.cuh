@@ -32,6 +32,50 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Asynchronous global -> shared copies (cp.async, sm_80+), in commit groups.
+// ``cp_async16`` copies 16 bytes, or writes 16 zero bytes when ``full`` is
+// false (src-size 0: nothing is read, so ``src`` need only be a valid
+// address); both addresses 16-byte aligned.  ``cp_async4`` copies 4 bytes.
+// A thread sees its own copies after ``cp_async_wait<N>`` (at most N of its
+// groups still pending); other threads' copies after a barrier as well.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Opt ``Kernel`` into ``bytes`` of dynamic shared memory, once per device (a
+// host call outside any stream, so none is made during a graph capture after
+// the kernel's first launch).  One flag set per kernel instantiation.
+template <auto Kernel>
+inline cudaError_t allow_smem(int bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 // Block-wide max / sum over NT threads (NT a multiple of 32).  ``red`` is a
 // shared scratch of NT/32 floats; the trailing barrier makes it reusable by
 // the next reduction.  The summation order is fixed, so results are

@@ -12,8 +12,9 @@ dispatches on the tensors' device:
 
 K5 has two routes on the card (:func:`prefill_route`): bfloat16 runs the
 tensor-core kernel ``flash_prefill_sm90.cu`` (wgmma + TMA), float32 the
-scalar kernel ``flash_prefill.cu``.  K6 is split-KV in ``flash_decode.cu``
-(a partial pass and a combine pass) for both dtypes.
+register-tiled SIMT kernel ``flash_prefill.cu`` (IEEE f32 FMAs on the CUDA
+cores; its route keeps the name ``"scalar"``).  K6 is split-KV in
+``flash_decode.cu`` (a partial pass and a combine pass) for both dtypes.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels;
@@ -72,8 +73,9 @@ def reset_launches():
 
 def prefill_route(dtype) -> str:
     """K5's kernel on the card for ``dtype``: ``"sm90"`` (bfloat16, tensor
-    cores) or ``"scalar"`` (float32: tensor cores would mean TF32, outside
-    the fp32 tolerance).  Raises for a dtype no kernel takes."""
+    cores) or ``"scalar"`` (float32: f32 FMAs on the CUDA cores, register
+    tiled; tensor cores would mean TF32, outside the fp32 tolerance).
+    Raises for a dtype no kernel takes."""
     return "sm90" if dtype_code("flash_attention", dtype) == \
         DTYPE_CODE["bfloat16"] else "scalar"
 

@@ -7,6 +7,11 @@ prefill; it is a new kernel, not a port of a TPU kernel.  A CPU tensor runs
 the plain version (``ref.rglru_scan_plain``), a CUDA tensor runs
 ``csrc/rglru_scan.cu`` or raises.  ``LAUNCHES`` counts kernel launches only.
 
+The kernel keeps one sequential chain per (row, channel) and streams a and
+bx through a ring of shared-memory stages filled by ``cp.async``: a block
+is one warp over 32 channels.  ``ring()`` reads the ring's geometry from
+the compiled kernel.  A row's bits do not depend on B or on the grid.
+
 The two orders of summation differ: the kernel and the plain version step
 in sequence order (bitwise equal to each other), ``associative_scan``
 combines in a tree, so the two agree within f32 rounding (the CPU tests
@@ -22,16 +27,31 @@ import torch
 from .build import entry, raise_on, route
 from .ref import rglru_scan_plain
 
-__all__ = ["rglru_scan", "rglru_scan_plain", "LAUNCHES", "reset_launches"]
+__all__ = ["rglru_scan", "rglru_scan_plain", "LAUNCHES", "reset_launches",
+           "ring", "STAGE_POSITIONS"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
+
+#: positions of one ring stage, which the card tests put S around (they
+#: hold it to ``ring()["positions"]``, the compiled kernel's own figure)
+STAGE_POSITIONS = 64
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def reset_launches():
     LAUNCHES["rglru_scan"] = 0
+
+
+def ring() -> Dict[str, int]:
+    """The kernel's ring as compiled: ``stages``, ``stage_bytes`` (a and bx
+    of one stage), ``positions`` a stage and ``channels`` a block.  Builds
+    the kernel library on first use; launches nothing."""
+    out = (ctypes.c_int * 4)()
+    raise_on(entry("rglru_scan", "repro_rglru_scan_ring",
+                   [ctypes.c_void_p])(ctypes.addressof(out)), "rglru_scan")
+    return dict(zip(("stages", "stage_bytes", "positions", "channels"), out))
 
 
 def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ piece runs in both packages in fp32:
   atol 1e-5, the two association orders' f32 rounding over |h| <= ~10;
 * on the card (``cuda`` marker): the CUDA kernel against the plain
   version, bitwise (both multiply then add in sequence order), ragged
-  widths included; a CUDA tensor never takes the plain version.
+  widths included and S at one ring stage - 1, one stage and one stage + 1;
+  a row alone and in a batch of 3 bitwise equal; a CUDA tensor never takes
+  the plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -175,15 +177,27 @@ def test_scan_wrapper_checks_its_inputs():
         scan_mod.rglru_scan(a.to("meta"), a.to("meta"))
 
 
+#: S at one ring stage - 1, one stage and one stage + 1, at widths that are
+#: not a multiple of the block (or of 4 floats)
+_STAGE_EDGES = [(1, scan_mod.STAGE_POSITIONS + d, w) for d in (-1, 0, 1)
+                for w in (31, 33, 257)]
+
+
+def _scan_inputs(rng, b, s, w, dev):
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32),
+                        device=dev)
+    bx = torch.as_tensor(rng.standard_normal((b, s, w)).astype(np.float32),
+                         device=dev)
+    return a, bx
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,w", [(1, 1, 100), (2, 7, 4096), (3, 64, 257),
-                                   (1, 3000, 4096), (2, 33, 31)])
+                                   (1, 3000, 4096), (2, 33, 31)]
+                         + _STAGE_EDGES)
 def test_scan_kernel_matches_plain_on_card(cuda, b, s, w):
     rng = np.random.default_rng(b * s + w)
-    a = torch.as_tensor(rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32),
-                        device=cuda)
-    bx = torch.as_tensor(rng.standard_normal((b, s, w)).astype(np.float32),
-                         device=cuda)
+    a, bx = _scan_inputs(rng, b, s, w, cuda)
     before = scan_mod.LAUNCHES["rglru_scan"]
     h = scan_mod.rglru_scan(a, bx)
     torch.cuda.synchronize()
@@ -192,3 +206,28 @@ def test_scan_kernel_matches_plain_on_card(cuda, b, s, w):
     assert torch.equal(h, ref)
     with pytest.raises(ValueError):
         scan_mod.rglru_scan(a[:, :, ::2], bx[:, :, ::2])   # strided
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,w", [(1, 4096), (700, 4096), (129, 257),
+                                 (65, 33)])
+def test_scan_rows_are_batch_invariant_on_card(cuda, s, w):
+    """A row's h is bitwise the same alone (B = 1) and as row 1 of a batch
+    of 3: the two launches differ in their grids, and the ragged widths put
+    the row's last channels in a part-filled block."""
+    rng = np.random.default_rng(s + w)
+    a, bx = _scan_inputs(rng, 3, s, w, cuda)
+    batch = scan_mod.rglru_scan(a, bx)
+    alone = scan_mod.rglru_scan(a[1:2].contiguous(), bx[1:2].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(batch[1:2], alone)
+    assert torch.equal(alone, scan_mod.rglru_scan_plain(a[1:2], bx[1:2]))
+
+
+@pytest.mark.cuda
+def test_scan_ring_geometry_on_card(cuda):
+    """The stage length the edge cases above put S around is the compiled
+    kernel's own."""
+    ring = scan_mod.ring()
+    assert ring["positions"] == scan_mod.STAGE_POSITIONS
+    assert ring["stage_bytes"] == 2 * 4 * ring["channels"] * ring["positions"]
