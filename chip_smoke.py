@@ -100,6 +100,31 @@ Phases, one result line each (any failure exits non-zero):
    over what was allocated before it.  Phases 4, 6, 7b and 8 print the
    graphs they captured and their memory too.
 
+10. failover and live reconfiguration — 10a, two stablelm-1.6b replicas
+   (bf16, 24 layers, 8 slots, ``max_seq=1024``, weights from one seed)
+   and 12 clients; the first replica dies before tick 6 with every
+   stream mid-generation, the survivor regenerates them by prefill replay:
+   every answer full length and bitwise a fault-free twin fleet's,
+   re-dispatches, declared drops, token conservation, one unplanned
+   reconfiguration, K5/K6 launches; prints the ticks from the kill to the
+   last answer, the host ms of the recovery tick (and of its replay
+   prefills) and of the tick after it, decode ms/tick before and after,
+   graph memory and peak.  10b, phase 6a's offload with two servers (3
+   ``codec=none`` clients, then 5 quant8 ones), the first killed on its
+   3rd answer of tick 3, so the quant8 group is popped and unserved:
+   every answer bitwise the fault-free twin's, the orphans counted, K1/K2
+   launches.  10c, one stablelm-1.6b server with 6 streams
+   mid-generation; ``lm`` is swapped for a model_serve of the same config
+   with a second seed's weights: the commit lands at its tick boundary
+   unblocked, every stream replays, every answer is bitwise
+   ``sequential_decode`` on the new weights; prints host ms of the commit
+   tick and the two after against the steady median, and the graphs
+   captured.  10d, fp32 stablelm-smoke: park-deadline error frames with
+   no survivor; graph memory over 4 kill/revive and 4 swap cycles (the
+   last at most the first plus one binding); through a kill, the graph
+   route == ``jit=False`` (answers and stats) and the card == the port's
+   CPU path (answers).
+
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
 f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
 8 kv heads (GQA, 4 groups), beside its bound (float32 operations outside
@@ -2150,6 +2175,583 @@ def phase_graphs(seed, serve4, offload6, answers6):
             "9d": _phase_graph_bursts(seed)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: failover and live reconfiguration
+# ---------------------------------------------------------------------------
+
+#: 10a: the tick before which the first replica dies (every stream is
+#: mid-generation then: the shortest generates 16 tokens)
+FO_KILL_TICK = 6
+#: 10c: streams in flight at the swap, and the tick after which the swap
+#: is requested (warm_ticks=1: it commits at the top of tick + 2)
+SWAP_STREAMS, SWAP_REQUEST_TICK = 6, 5
+#: 10d: the small fp32 server's slots and cache length
+SMALL_SLOTS, SMALL_MAX_SEQ = 4, 32
+
+
+def _kill(rt, dev, ssrc):
+    """An announced server death: the device stops, its endpoint stops
+    serving and the broker marks the registration down (the shape of
+    ``kill_server(crash=True)`` in the tests' chaos harness)."""
+    dev.alive = False
+    ssrc.endpoint.alive = False
+    rt.broker.mark_down(ssrc.registration)
+
+
+def _revive(rt, dev, ssrc):
+    dev.alive = True
+    ssrc.endpoint.alive = True
+    rt.broker.revive(ssrc.registration)
+
+
+def _arm_mid_flush_kill(rt, dev, ssrc, ssink, after):
+    """Kill the server the instant the ``after``-th answer of a flush
+    leaves its serversink (eager ``apply`` or fused ``push_wire``): the
+    requests the flush already popped are in the batcher's hands, and must
+    reach the orphan ledger.  -> (list that receives the tick it fired,
+    disarm())"""
+    fired, seen = [], [0]
+    orig_apply, orig_push = ssink.apply, ssink.push_wire
+
+    def disarm():
+        ssink.__dict__.pop("apply", None)
+        ssink.__dict__.pop("push_wire", None)
+
+    def fire():
+        seen[0] += 1
+        if seen[0] == after:
+            disarm()
+            _kill(rt, dev, ssrc)
+            fired.append(rt.ticks)
+
+    def apply(params, inputs, ctx=None):
+        out = orig_apply(params, inputs, ctx)
+        fire()
+        return out
+
+    def push_wire(payload, nbytes, client_id):
+        out = orig_push(payload, nbytes, client_id)
+        fire()
+        return out
+    ssink.apply, ssink.push_wire = apply, push_wire
+    return fired, disarm
+
+
+def _stream_fleet(model, slots, max_seq, clients, seed, n_hubs=2, jit=True,
+                  device=None, params=None, **rt_kw):
+    """``n_hubs`` replicas of one serve pipeline, each with weights from the
+    same seeded generator (or ``params``), and one client per entry of
+    ``clients`` ``(prompts, gens)``.  -> (runtime, [(device, run,
+    serversrc)], client runs)"""
+    from repro_torch.device import make_generator
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(device=device, **rt_kw)
+    hubs = []
+    for h in range(n_hubs):
+        dev = Device(f"hub{'AB'[h]}", device=device)
+        srv = dev.add_pipeline(ms.serve_pipeline(model=model, slots=slots,
+                                                 max_seq=max_seq),
+                               generator=make_generator(seed, rt.device),
+                               jit=jit)
+        if params is not None:
+            srv.params["lm"] = params
+        rt.add_device(dev)
+        hubs.append((dev, srv, srv.pipe.elements["ssrc"]))
+    runs = []
+    for i, (prompts, gens) in enumerate(clients):
+        dev = Device(f"tv{i}", device=device)
+        p = ";".join(",".join(str(t) for t in pr) for pr in prompts)
+        runs.append(dev.add_pipeline(ms.client_pipeline(
+            prompts=p, gens=";".join(str(g) for g in gens)), jit=jit))
+        rt.add_device(dev)
+    return rt, hubs, runs
+
+
+def _drive(rt, runs, clients, max_ticks, before_tick=None):
+    """Tick until every client has its answers, retiring each client once
+    it has them.  ``before_tick(t)`` runs before tick ``t``.  -> (host ms of
+    each tick, the card synchronized at its end; {client: tick of its last
+    answer})"""
+    import torch
+    tick_ms, done_at = [], {}
+    while rt.ticks < max_ticks and len(done_at) < len(runs):
+        if before_tick is not None:
+            before_tick(rt.ticks + 1)
+        t0 = time.perf_counter()
+        rt.tick()
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        for i, run in enumerate(runs):
+            if i not in done_at and \
+                    len(run.sink_log.get("res", [])) >= len(clients[i][0]):
+                done_at[i] = rt.ticks
+                run.retired = True
+    return tick_ms, done_at
+
+
+def _tokens(runs):
+    return [[np.asarray(b.tensor).tolist() for b in r.sink_log.get("res", [])]
+            for r in runs]
+
+
+def _batcher_of(rt, run):
+    return next(b for b in rt._batchers.values() if b.run is run)
+
+
+def _conserved(qb, what):
+    check(qb["tokens_generated"] == qb["tokens_delivered"] +
+          qb["tokens_dropped"] + qb["tokens_in_flight"],
+          f"{what}: token conservation broken: {qb}")
+
+
+def _full_width_clients(seed, n, gen_range):
+    from repro_torch.configs import stablelm_1_6b
+    vocab = stablelm_1_6b.config().vocab
+    rng = np.random.default_rng(seed)
+    return [([rng.integers(0, vocab, int(rng.integers(128, 513))).tolist()],
+             [int(rng.integers(*gen_range))]) for _ in range(n)]
+
+
+def _phase_failover_full(seed):
+    """10a: two stablelm-1.6b replicas; the first dies before tick
+    ``FO_KILL_TICK`` with every stream mid-generation, and the survivor
+    regenerates them by prefill replay, bitwise the fault-free twin."""
+    from repro_torch.configs import stablelm_1_6b
+    n_layers = stablelm_1_6b.config().n_layers
+    clients = _full_width_clients(seed + 10, 12, (16, 65))
+    _graph_mark()                    # release what earlier phases hold
+    rt0, _, runs0 = _stream_fleet("stablelm-1.6b-flash", 8, 1024, clients,
+                                  seed)
+    _drive(rt0, runs0, clients, max_ticks=400)
+    twin = _tokens(runs0)
+    del rt0, runs0
+    _reset_launches()
+    mark = _graph_mark()
+    rt, hubs, runs = _stream_fleet("stablelm-1.6b-flash", 8, 1024, clients,
+                                   seed)
+    (devA, srvA, ssrcA), (_, srvB, _) = hubs
+    held, mid = [], {}
+
+    def before(t):
+        if t == FO_KILL_TICK:
+            bA = _batcher_of(rt, srvA)
+            held.append(bA.active_streams())
+            mid["remaining"] = [len(r.sink_log.get("res", []))
+                                for r in runs]
+            mid["prefill_s"] = _batcher_of(rt, srvB).prefill_seconds
+            _kill(rt, devA, ssrcA)
+    tick_ms, done_at = _drive(rt, runs, clients, max_ticks=400,
+                              before_tick=before)
+    mem = _graph_since(mark)
+    launches = {k: _launch_counts()[k]
+                for k in ("flash_attention", "flash_decode")}
+    got = _tokens(runs)
+    check(held and held[0] == len(clients) and
+          mid["remaining"] == [0] * len(clients),
+          f"10a: the first replica held {held} streams at the kill, "
+          f"answers so far {mid.get('remaining')}")
+    for i, (a, b) in enumerate(zip(twin, got)):
+        check(len(b) == 1 and len(b[0]) == clients[i][1][0],
+              f"10a: client {i} answer lengths {[len(x) for x in b]}")
+        check(a == b, f"10a: client {i}'s answer != the fault-free twin's")
+    st = rt.stats()
+    fo, qb, rc = st["failover"], st["query_batching"], st["reconfig"]
+    check(fo["redispatches"] >= held[0],
+          f"10a: {fo['redispatches']} re-dispatches < {held[0]} streams")
+    _conserved(qb, "10a")
+    check(qb["tokens_dropped"] > 0, "10a: no token was declared dropped")
+    check(rc["unplanned"] == 1, f"10a: reconfig stats {rc}")
+    check(launches["flash_attention"] == n_layers * qb["prefills"] and
+          launches["flash_decode"] == n_layers * qb["decode_ticks"],
+          f"10a: launches {launches} for {qb['prefills']} prefills and "
+          f"{qb['decode_ticks']} decode ticks")
+    bA, bB = _batcher_of(rt, srvA), _batcher_of(rt, srvB)
+    k = FO_KILL_TICK - 1
+    row = dict(
+        streams=len(clients), streams_held=held[0],
+        recovery_ticks=max(done_at.values()) - FO_KILL_TICK,
+        recovery_tick_ms=tick_ms[k], after_recovery_tick_ms=tick_ms[k + 1],
+        recovery_prefill_ms=1e3 * (bB.prefill_seconds - mid["prefill_s"]),
+        steady_tick_ms_median_before=float(np.median(tick_ms[1:k])),
+        decode_ms_median_before=float(np.median(bA.decode_times)) * 1e3,
+        decode_ms_median_after=float(np.median(bB.decode_times)) * 1e3,
+        prefills=qb["prefills"], tokens_dropped=qb["tokens_dropped"],
+        redispatches=fo["redispatches"], ticks=rt.ticks,
+        launches=launches, **mem)
+    print(f"phase 10a failover stablelm-1.6b bf16 24 layers, 2 replicas x "
+          f"8 slots: hubA killed before tick {FO_KILL_TICK} holding "
+          f"{held[0]} streams mid-generation; all {len(clients)} answers "
+          f"full length and bitwise the fault-free twin; last replayed "
+          f"answer {row['recovery_ticks']} ticks after the kill; recovery "
+          f"tick {row['recovery_tick_ms']:.1f} ms host "
+          f"({row['recovery_prefill_ms']:.1f} ms of replay prefills, "
+          f"steady tick median "
+          f"{row['steady_tick_ms_median_before']:.1f}, the tick after "
+          f"{row['after_recovery_tick_ms']:.1f}); decode ms/tick "
+          f"median before {row['decode_ms_median_before']:.2f}, after "
+          f"{row['decode_ms_median_after']:.2f}; {qb['tokens_dropped']} "
+          f"tokens declared dropped, {fo['redispatches']} re-dispatches; "
+          f"launches {launches}; {mem['graphs']} graphs captured holding "
+          f"{mem['graph_mib']:.1f} MiB; peak {mem['peak_gib_over_base']:.2f}"
+          f" GiB over the base")
+    del rt, hubs, runs
+    return row
+
+
+def _phase_failover_offload(seed):
+    """10b: phase 6a's offload, two servers, the first killed mid-flush: 3
+    ``codec=none`` clients then 5 quant8 ones, so the kill on the 3rd
+    answer leaves the quant8 group popped and unserved."""
+    from repro_torch.core import parse_launch
+    from repro_torch.device import make_generator
+    from repro_torch.runtime import Device, Runtime
+    L, D, T, kill_tick = OFFLOAD_L, OFFLOAD_D, OFFLOAD_TICKS, 3
+    codecs = ["none"] * 3 + ["quant8"] * 5
+    opt = OFFLOAD_TRANSFORMS["quant8"]
+
+    def fleet():
+        rt = Runtime(query_batch=8)
+        hubs = []
+        for name in ("hubA", "hubB"):
+            dev = Device(name)
+            ps = parse_launch(
+                "tensor_query_serversrc operation=act name=ssrc ! "
+                "tensor_filter model=offload-gate ! "
+                "tensor_query_serversink name=ssink")
+            ps.elements["ssink"].pair_with(ps.elements["ssrc"])
+            srv = dev.add_pipeline(
+                ps, generator=make_generator(seed, rt.device))
+            rt.add_device(dev)
+            hubs.append((dev, srv, ps))
+        runs = []
+        for i, codec in enumerate(codecs):
+            dev = Device(f"cl{i}")
+            runs.append(dev.add_pipeline(parse_launch(
+                f"testsrc width={L} height=1 channels={D} ! "
+                f"tensor_converter ! tensor_transform mode=arithmetic "
+                f"option={opt.format(m=1 + i / 8)} ! tensor_query_client "
+                f"operation=act codec={codec} name=qc ! appsink name=res")))
+            rt.add_device(dev)
+        return rt, hubs, runs
+    def answers(runs, what):
+        out = []
+        for i, run in enumerate(runs):
+            bufs = run.sink_log.get("res", [])
+            check(len(bufs) == T, f"{what}: client {i} has {len(bufs)} "
+                                  f"answers after {T} ticks")
+            out.append([b.tensor for b in bufs])
+        return out
+    _register_offload_models(seed)
+    rt0, _, runs0 = fleet()
+    _timed_ticks(rt0, T)
+    twin = answers(runs0, "10b twin")
+    del rt0, runs0
+    _reset_launches()
+    mark = _graph_mark()
+    rt, hubs, runs = fleet()
+    (devA, srvA, psA), (_, srvB, _) = hubs
+    fired, disarm = [], None
+    tick_ms = []
+    for t in range(1, T + 1):
+        if t == kill_tick:
+            fired, disarm = _arm_mid_flush_kill(
+                rt, devA, psA.elements["ssrc"], psA.elements["ssink"], 3)
+        tick_ms += [1e3 * x for x in _timed_ticks(rt, 1)]
+        if t == kill_tick:
+            disarm()
+    mem = _graph_since(mark)
+    launches = {k: _launch_counts()[k] for k in ("quantize8", "dequantize8")}
+    check(fired == [kill_tick], f"10b: the mid-flush kill fired at {fired}")
+    got = answers(runs, "10b")
+    for i in range(len(codecs)):
+        for t in range(T):
+            same_bits(got[i][t], twin[i][t],
+                      f"10b: client {i} tick {t}: answer != fault-free twin")
+    st = rt.stats()
+    fo, qb = st["failover"], st["query_batching"]
+    check(qb["flush_orphans"] >= 1 and fo["orphaned_requests"] >= 1,
+          f"10b: flush_orphans {qb['flush_orphans']}, orphaned_requests "
+          f"{fo['orphaned_requests']}")
+    check(fo["redispatches"] >= len(codecs),
+          f"10b: {fo['redispatches']} re-dispatches")
+    check(launches["quantize8"] > 0 and launches["dequantize8"] > 0,
+          f"10b: K1/K2 launches {launches}")
+    check(srvA.frames == (kill_tick - 1) * len(codecs) + 3,
+          f"10b: hubA served {srvA.frames} frames")
+    row = dict(flush_orphans=qb["flush_orphans"],
+               orphaned_requests=fo["orphaned_requests"],
+               redispatches=fo["redispatches"], tick_ms=tick_ms,
+               kill_tick_ms=tick_ms[kill_tick - 1], launches=launches,
+               **mem)
+    print(f"phase 10b offload f32 [1, {L}, {D}] x {len(codecs)} clients (3 "
+          f"codec=none, 5 quant8), hubA killed on its 3rd answer of tick "
+          f"{kill_tick}: {len(codecs) * T} answers bitwise the fault-free "
+          f"twin; flush_orphans {qb['flush_orphans']}, orphaned_requests "
+          f"{fo['orphaned_requests']}, re-dispatches {fo['redispatches']};"
+          f" tick ms {_fmt(tick_ms)} (kill tick {row['kill_tick_ms']:.2f});"
+          f" K1/K2 launches {launches}")
+    del rt, hubs, runs
+    return row
+
+
+def _phase_hot_swap(seed):
+    """10c: one stablelm-1.6b server with ``SWAP_STREAMS`` streams
+    mid-generation; ``lm`` is swapped for a model_serve of the same config
+    with weights from a second seed."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.core.element import element_factory
+    from repro_torch.core.graphs import graph_stats
+    from repro_torch.core.plan import executable_cache_info
+    from repro_torch.device import make_generator
+    from repro_torch.launch import model_serve as ms
+    cfg = stablelm_1_6b.config()
+    clients = _full_width_clients(seed + 11, SWAP_STREAMS, (16, 25))
+    _reset_launches()
+    mark = _graph_mark()
+    rt, ((_, srv, _),), runs = _stream_fleet("stablelm-1.6b-flash", 8, 1024,
+                                             clients, seed, n_hubs=1)
+    b = _batcher_of(rt, srv)
+    box, at = {}, {}
+
+    def before(t):
+        if t == SWAP_REQUEST_TICK + 1:
+            box["rc"] = rt.reconfigure(srv, srv.pipe.reconfig().swap(
+                "lm", element_factory("model_serve",
+                                      model="stablelm-1.6b-flash",
+                                      slots="8", max_seq="1024")),
+                warm_ticks=1, rng=make_generator(seed + 1, rt.device))
+            box["status"] = box["rc"].status
+        if t == SWAP_REQUEST_TICK + 2:
+            at["in_flight"] = b.active_streams()
+            at["graphs_before"] = executable_cache_info()["graphs"]
+        if t in (SWAP_REQUEST_TICK + 2, SWAP_REQUEST_TICK + 3,
+                 SWAP_REQUEST_TICK + 5):
+            at[t] = graph_stats()["captured"]
+    old = srv.params["lm"]
+    tick_ms, done_at = _drive(rt, runs, clients, max_ticks=200,
+                              before_tick=before)
+    mem = _graph_since(mark)
+    launches = {k: _launch_counts()[k]
+                for k in ("flash_attention", "flash_decode")}
+    rc = box["rc"]
+    commit = SWAP_REQUEST_TICK + 2
+    check(box["status"] == "warming" and rc.status == "committed" and
+          rc.committed_tick == commit,
+          f"10c: status {box['status']} -> {rc.status} at tick "
+          f"{rc.committed_tick}, expected a commit at tick {commit}")
+    check(at["in_flight"] == SWAP_STREAMS,
+          f"10c: {at['in_flight']} streams in flight at the commit")
+    st = rt.stats()
+    qb = st["query_batching"]
+    check(qb["replays"] == at["in_flight"],
+          f"10c: {qb['replays']} replays for {at['in_flight']} streams")
+    check(st["reconfig"]["planned"] == 1, f"10c: {st['reconfig']}")
+    _conserved(qb, "10c")
+    check(launches["flash_attention"] == cfg.n_layers * qb["prefills"] and
+          launches["flash_decode"] == cfg.n_layers * qb["decode_ticks"],
+          f"10c: launches {launches} for {qb['prefills']} prefills and "
+          f"{qb['decode_ticks']} decode ticks")
+    new = srv.params["lm"]
+    check(new is not old, "10c: the swap kept the old params")
+    del old
+    # a capture enters torch.cuda.graph, which collects garbage first: the
+    # cost of one collection of this heap, for scale
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = 1e3 * (time.perf_counter() - t0)
+    ecfg = srv.pipe.elements["lm"].cfg
+    for i, run in enumerate(runs):
+        bufs = run.sink_log.get("res", [])
+        check(len(bufs) == 1, f"10c: client {i} has {len(bufs)} answers")
+        ref = ms.sequential_decode(new, ecfg, clients[i][0][0],
+                                   clients[i][1][0], 1024, slots=8,
+                                   slot=bufs[0].meta["slot"])
+        check(np.asarray(bufs[0].tensor).tolist() == ref,
+              f"10c: client {i}'s answer != a fresh build on the new "
+              f"weights")
+    steady = tick_ms[1:SWAP_REQUEST_TICK]
+    row = dict(streams=SWAP_STREAMS, commit_tick=commit,
+               steady_tick_ms_median=float(np.median(steady)),
+               commit_tick_ms=tick_ms[commit - 1],
+               after_commit_tick_ms=tick_ms[commit:commit + 2],
+               captures_at_commit=at[commit + 1] - at[commit],
+               captures_two_after=at[commit + 3] - at[commit + 1],
+               graphs_live_before_commit=at["graphs_before"],
+               graphs_live_after=executable_cache_info()["graphs"],
+               replays=qb["replays"], prefills=qb["prefills"],
+               gc_collect_ms=gc_ms, launches=launches, **mem)
+    print(f"phase 10c hot swap of stablelm-1.6b (second seed's weights) "
+          f"with {SWAP_STREAMS} streams mid-generation: committed at tick "
+          f"{commit} (not blocked), {qb['replays']} replays, every answer "
+          f"bitwise sequential_decode on the new weights; host ms steady "
+          f"tick median {row['steady_tick_ms_median']:.1f}, commit tick "
+          f"{row['commit_tick_ms']:.1f}, next two "
+          f"{_fmt(row['after_commit_tick_ms'])}; graphs captured at the "
+          f"commit tick {row['captures_at_commit']}, in the two after "
+          f"{row['captures_two_after']}; live graphs before/after "
+          f"{row['graphs_live_before_commit']}/{row['graphs_live_after']}; "
+          f"one gc.collect() {gc_ms:.1f} ms; "
+          f"launches {row['launches']}; peak "
+          f"{mem['peak_gib_over_base']:.2f} GiB over the base")
+    del rt, runs, srv, new
+    return row
+
+
+def _binding_bytes():
+    """The largest graph binding alive in the executable cache."""
+    from repro_torch.core.plan import _EXEC_CACHE
+    return max([b.nbytes for e in _EXEC_CACHE.values()
+                for f in e["fns"].values() for b in f._bindings.values()],
+               default=0)
+
+
+SMALL_CLIENTS = [([[i + 1, i + 2, i + 3]], [6]) for i in range(3)]
+
+
+def _small_kill(seed, jit, device=None, params=None, ticks=16):
+    """The stateful chaos scenario at the fp32 smoke size: two replicas,
+    3 clients, the first replica killed before tick 4."""
+    rt, hubs, runs = _stream_fleet("stablelm-smoke-flash", SMALL_SLOTS,
+                                   SMALL_MAX_SEQ, SMALL_CLIENTS, seed,
+                                   jit=jit, device=device, params=params)
+    (devA, _, ssrcA), _ = hubs
+    for t in range(1, ticks + 1):
+        if t == 4:
+            _kill(rt, devA, ssrcA)
+        rt.tick()
+    return rt, hubs, runs
+
+
+def _comparable_stats(rt):
+    st = rt.stats()
+    drop = ("prefill_seconds", "decode_seconds")
+    return {k: {kk: vv for kk, vv in st[k].items() if kk not in drop}
+            for k in ("failover", "reconfig", "query_batching")}
+
+
+def _phase_failover_small(seed):
+    """10d: the fp32 smoke size: park-deadline expiry with no survivor;
+    graph memory over four kill/revive and four swap cycles; the card
+    against the port's CPU path and the graph route against jit=False,
+    each through a kill."""
+    from repro_torch.core.element import element_factory
+    from repro_torch.core.graphs import graph_stats
+    from repro_torch.device import make_generator
+    from repro_torch.models import transformer
+    row = {}
+    # park-deadline expiry, no survivor
+    rt, ((dev, _, ssrc),), runs = _stream_fleet(
+        "stablelm-smoke-flash", SMALL_SLOTS, SMALL_MAX_SEQ,
+        [([[1, 2]], [6]), ([[2, 3]], [6])], seed, n_hubs=1,
+        park_deadline_ticks=3)
+    for t in range(1, 11):
+        if t == 3:
+            _kill(rt, dev, ssrc)
+        rt.tick()
+    fo = rt.stats()["failover"]
+    check(fo["parked_expired"] >= 2, f"10d: park expiries {fo}")
+    keys = {"error", "operation", "parked_ticks", "redispatches", "tick"}
+    for i, run in enumerate(runs):
+        errs = run.sink_log.get("qc.error", [])
+        check(errs and all(set(e.meta) == keys and e.tensors == () and
+                           e.meta["error"] == "park-deadline" and
+                           e.meta["operation"] == "lm" and
+                           e.meta["parked_ticks"] == 3 for e in errs),
+              f"10d: client {i}'s error frames "
+              f"{[e.meta for e in errs]}")
+    row["parked_expired"] = fo["parked_expired"]
+    del rt, runs
+    # graph memory over kill/revive cycles, then swap cycles
+    mark = _graph_mark()
+    clients = [([[i + 1, i + 2]], [5]) for i in range(2)]
+    rt, hubs, runs = _stream_fleet("stablelm-smoke-flash", SMALL_SLOTS,
+                                   SMALL_MAX_SEQ, clients, seed)
+    (devA, srvA, ssrcA), _ = hubs
+    for run in runs:                 # the clients keep asking
+        run.sink_log.clear()
+    rt.run(3)
+    import torch
+    mib = {"kill_revive": [], "swap": []}
+    reserved = {"kill_revive": [], "swap": []}
+    for c in range(4):
+        t = rt.ticks
+        for k in range(5):
+            if rt.ticks + 1 == t + 1:
+                _kill(rt, devA, ssrcA)
+            if rt.ticks + 1 == t + 3:
+                _revive(rt, devA, ssrcA)
+            rt.tick()
+        mib["kill_revive"].append((graph_stats()["bytes"] - mark[1]) / 2**20)
+        reserved["kill_revive"].append(torch.cuda.memory_reserved() / 2**20)
+    held = []
+    for c in range(4):
+        held.append(srvA.params)
+        rc = rt.reconfigure(srvA, srvA.pipe.reconfig().swap(
+            "lm", element_factory("model_serve",
+                                  model="stablelm-smoke-flash",
+                                  slots=str(SMALL_SLOTS),
+                                  max_seq=str(SMALL_MAX_SEQ))),
+            warm_ticks=1, rng=make_generator(seed + 20 + c, rt.device))
+        rt.run(4)
+        check(rc.status == "committed", f"10d: swap cycle {c}: {rc.status}")
+        mib["swap"].append((graph_stats()["bytes"] - mark[1]) / 2**20)
+        reserved["swap"].append(torch.cuda.memory_reserved() / 2**20)
+    one = _binding_bytes() / 2**20
+    for kind, v in mib.items():
+        check(v[-1] <= v[0] + one, f"10d: graph MiB over {kind} cycles {v}"
+              f" (one binding {one:.2f} MiB)")
+    _conserved(rt.stats()["query_batching"], "10d cycles")
+    row.update(graph_mib=mib, binding_mib=one, reserved_mib=reserved)
+    del rt, hubs, runs, held
+    # the card against the port's CPU path, and graph == jit=False
+    grt, ghubs, gruns = _small_kill(seed, jit=True)
+    ert, _, eruns = _small_kill(seed, jit=False)
+    params = transformer.params_from_numpy(
+        _to_numpy(ghubs[0][1].params["lm"]),
+        ghubs[0][1].pipe.elements["lm"].cfg, "cpu")
+    crt, _, cruns = _small_kill(seed, jit=True, device="cpu", params=params)
+    got, eager, cpu = _tokens(gruns), _tokens(eruns), _tokens(cruns)
+    check(got == eager and _comparable_stats(grt) == _comparable_stats(ert),
+          "10d: graph route != jit=False through a kill")
+    check(got == cpu, "10d: card != the port's CPU path through a kill")
+    check(all(len(a) >= 2 for a in got) and
+          grt.stats()["failover"]["redispatches"] >= 3,
+          f"10d: answers {got}")
+    print(f"phase 10d fp32 stablelm-smoke: {row['parked_expired']} parked "
+          f"requests expired into error frames with the reference's meta; "
+          f"graph MiB after each of 4 kill/revive cycles "
+          f"{_fmt(mib['kill_revive'])} and 4 swap cycles "
+          f"{_fmt(mib['swap'])} (one binding {one:.2f} MiB; reserved MiB "
+          f"{_fmt(reserved['kill_revive'])} and {_fmt(reserved['swap'])}, "
+          f"the retired params kept alive); through a "
+          f"kill, graph == jit=False (answers and stats) and card == CPU "
+          f"({sum(len(a) for a in got)} answers)")
+    return row
+
+
+def phase_failover(seed):
+    """10: failover and live reconfiguration on the card."""
+    import dataclasses as dc
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.launch import model_serve as ms
+    cfg = dc.replace(stablelm_1_6b.config(), use_flash_attn=True)
+    ms.register_serve_model("stablelm-1.6b-flash", lambda: cfg)
+    counts = {}
+    rows = {}
+    for tag, fn in (("10a", _phase_failover_full),
+                    ("10b", _phase_failover_offload),
+                    ("10c", _phase_hot_swap),
+                    ("10d", _phase_failover_small)):
+        rows[tag] = fn(seed)
+        if "launches" in rows[tag]:
+            for k, v in rows[tag]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    rows["launches"] = counts
+    return rows
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -2186,6 +2788,7 @@ def main(argv=None):
     rglru = phase_rglru_serve(args.seed, profile=args.profile)
     graphs = phase_graphs(args.seed, {**serve4, **serve}, offload, answers6)
     del answers6
+    failover = phase_failover(args.seed)
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -2227,6 +2830,9 @@ def main(argv=None):
     # K1–K4 also carry the pub/sub path (7b): its own launch counts
     for row in kernels[:4]:
         row["launches_phase7"] = pubsub["7b"]["launches"][row["name"]]
+    # K1/K2 (10b) and K5/K6 (10a, 10c) carry failover and the hot swap
+    for row in kernels[:2] + kernels[4:6]:
+        row["launches_phase10"] = failover["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2238,7 +2844,8 @@ def main(argv=None):
                                    "offload": offload, "pubsub": pubsub,
                                    "scan_kernel": scan,
                                    "rglru_serve": rglru,
-                                   "graphs": graphs},
+                                   "graphs": graphs,
+                                   "failover": failover},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

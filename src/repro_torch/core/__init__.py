@@ -1,7 +1,7 @@
 # Stream-pipeline infrastructure of the port (mirrors src/repro/core):
 # pipe-and-filter pipelines over tensor streams, the control-plane broker,
-# the query (inference offloading) protocol, timestamp synchronization and
-# the wire codecs.
+# the query (inference offloading) protocol, live reconfiguration,
+# timestamp synchronization and the wire codecs.
 from .formats import Caps, CapsError, TensorFormat, TensorSpec
 from .buffers import (FlexHeader, StreamBuffer, flex_unwrap, flex_wrap,
                       stack_buffers, structure_key, unstack_buffers)
@@ -20,6 +20,8 @@ from .query import (QueryServerEndpoint, QueryTransport, TensorQueryClient,
                     TensorQueryServerSink, TensorQueryServerSrc)
 from .modelserve import (ModelServeElement, TokenPromptSrc, SERVE_MODELS,
                          register_serve_model)
+from .reconfig import (ReconfigError, ReconfigManager, ReconfigPlan,
+                       Reconfiguration)
 from .sync import PipelineClock, SimClock, ntp_offset
 from . import compression
 
@@ -41,6 +43,7 @@ __all__ = [
     "TensorQueryServerSink", "TensorQueryServerSrc",
     "ModelServeElement", "TokenPromptSrc", "SERVE_MODELS",
     "register_serve_model",
+    "ReconfigError", "ReconfigManager", "ReconfigPlan", "Reconfiguration",
     "PipelineClock", "SimClock", "ntp_offset",
     "compression",
 ]

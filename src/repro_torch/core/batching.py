@@ -5,8 +5,12 @@
 codec-fused wire path (DESIGN.md §5).  :class:`StreamingQueryBatcher` runs
 the continuous-batching lifecycle of a ``stream_serving`` server (DESIGN.md
 §7): prefill on arrival, decode ticks in a slot of the plan-state batch,
-one answer when the generation budget is spent.  The stage batchers and the
-delivery guard wait (ROADMAP M8, M10).
+one answer when the generation budget is spent.  A dead endpoint never
+serves: its admitted requests close as ``server-died`` sheds on the orphan
+ledger and re-dispatch from the scheduler's PendingQuery records, and a
+streaming server's live streams become declared drops that regenerate by
+prefill replay (DESIGN.md §3, §7).  The stage batchers and the delivery
+guard wait (ROADMAP M8, M10).
 
 Requests drain through one :class:`~.admission.AdmissionQueue`; the port
 runs it at ``qos=None`` — global arrival order, plus the per-tenant ledger.
@@ -85,14 +89,17 @@ class QueryBatcher:
     instead.
 
     Routing meta (``client_id``, ``codec``, ...) is hoisted out before
-    grouping and restored on every answer.  The mesh placement, the
-    delivery guard and failover of the JAX package wait (ROADMAP M11, M10,
-    M6)."""
+    grouping and restored on every answer.  Liveness is re-checked before
+    every group: a death that lands mid-flush leaves the groups still in
+    the batcher's hands to the orphan ledger (``on_orphans``), never to
+    the dead server.  The mesh placement and the delivery guard of the JAX
+    package wait (ROADMAP M11, M10)."""
 
     def __init__(self, endpoint: QueryServerEndpoint, run: Any,
                  policy: BatchingPolicy,
                  inline_step: Optional[Callable[[], Any]] = None,
-                 fused: bool = True, *,
+                 fused: bool = True,
+                 on_orphans: Optional[Callable[[int], None]] = None, *,
                  clock: Optional[Callable[[], int]] = None):
         self.endpoint = endpoint
         self.run = run
@@ -100,6 +107,10 @@ class QueryBatcher:
         self.inline_step = inline_step
         #: codec-fused serving; False = decode, serve, encode per request
         self.fused = fused
+        #: called with the number of admitted requests a dying endpoint
+        #: abandons (the runtime's orphan ledger; the paused frames
+        #: re-dispatch from their PendingQuery records)
+        self.on_orphans = on_orphans
         self.admission = AdmissionQueue(qos=None, clock=clock)
         self.flushes = 0
         self.batches = 0
@@ -107,6 +118,7 @@ class QueryBatcher:
         self.sequential_frames = 0
         self.fused_batches = 0
         self.fused_frames = 0
+        self.orphaned = 0
 
     def in_flight(self, client_id: int) -> bool:
         """Whether ``client_id`` has work the scheduler must keep waiting on."""
@@ -124,16 +136,18 @@ class QueryBatcher:
             self.pending() >= max(1, self.policy.max_batch)
 
     def flush(self) -> int:
-        """Serve every pending request; returns the number served."""
+        """Serve every pending request; returns the number served.  A dead
+        endpoint serves nothing: what admission holds sheds onto the orphan
+        ledger (:meth:`_shed_dead`)."""
         if not self.endpoint.alive:
-            raise NotImplementedError("re-dispatch after an endpoint death "
-                                      "(failover): ROADMAP M6")
+            self._shed_dead()
+            return 0
         adm = self.admission
         served = 0
         # query_batch=0 serves each request through one interpreted step
         batchable = self.policy.enabled and \
             self.run.pipe.plan.query_batchable
-        while True:
+        while self.endpoint.alive:
             self._ingest()
             if not len(adm):
                 break
@@ -144,24 +158,66 @@ class QueryBatcher:
                 continue
             recs = adm.take(self.policy.max_batch)
             raws = [r.raw for r in recs]
-            if self.fused:
-                for pairs, codec in self._group_wire(raws):
-                    if codec.partition(":")[0] == "none":
-                        self._serve_batched(pairs)    # nothing to fuse
-                    else:
-                        self._serve_batched_wire(pairs, codec)
-            else:
-                for group in self._group(raws):
-                    self._serve_batched(group)
-            for rec in recs:
-                adm.mark_served(rec)
-            served += len(recs)
+            groups = self._group_wire(raws) if self.fused else \
+                [(g, None) for g in self._group(raws)]
+            idx = 0
+            for pairs, codec in groups:
+                if not self.endpoint.alive:
+                    # died mid-flush: the rest was popped, never served
+                    self._shed_flush_remainder(recs[idx:])
+                    break
+                if codec is None or codec.partition(":")[0] == "none":
+                    self._serve_batched(pairs)    # eager, or nothing to fuse
+                else:
+                    self._serve_batched_wire(pairs, codec)
+                for rec in recs[idx:idx + len(pairs)]:
+                    adm.mark_served(rec)
+                idx += len(pairs)
+                served += len(pairs)
         if served:
             self.flushes += 1
         return served
 
     def _ingest(self):
         self.admission.ingest_channel(self.endpoint.requests)
+
+    # -- a dead endpoint -------------------------------------------------------
+    def _forget_delivery(self, rec):
+        """Evict a shed request's delivery id from the dedup window, so its
+        re-dispatch is not deduplicated away.  A no-op until the delivery
+        layer (ROADMAP M10): the port's requests carry no delivery id."""
+
+    def _orphan(self, n: int):
+        """Account requests a dying endpoint admitted but never served."""
+        if n <= 0:
+            return
+        self.orphaned += n
+        if self.on_orphans is not None:
+            self.on_orphans(n)
+
+    def _shed_flush_remainder(self, recs):
+        """Close the popped-but-unserved tail of a dying flush: shed on the
+        tenant ledger (``server-died``, no client notice: the scheduler
+        re-dispatches these and the client gets a real answer elsewhere)
+        and booked on the orphan ledger."""
+        for rec in recs:
+            self.admission.mark_shed(rec, "server-died", notify=False)
+            self._forget_delivery(rec)
+        self._orphan(len(recs))
+
+    def _shed_dead(self) -> int:
+        """The endpoint is dead: everything still queued in admission sheds
+        (``server-died``) onto the orphan ledger."""
+        n = self.admission.shed_queued("server-died",
+                                       on_shed=self._forget_delivery)
+        self._orphan(n)
+        return n
+
+    def on_reconfig(self):
+        """The served pipeline was hot-swapped under this batcher.  The
+        stateless batcher keeps nothing of the old epoch (its plan and
+        params are always read through ``run``); the JAX package drops its
+        mesh placements here (ROADMAP M11)."""
 
     # -- gather & grouping -----------------------------------------------------
     def _decode(self, raw: StreamBuffer) -> Tuple[StreamBuffer, Dict]:
@@ -329,7 +385,7 @@ class QueryBatcher:
                 "sharded_batches": 0, "sharded_frames": 0,   # ROADMAP M11
                 "fused_batches": self.fused_batches,
                 "fused_frames": self.fused_frames,
-                "flush_orphans": 0,     # a dead endpoint raises (M6)
+                "flush_orphans": self.orphaned,
                 "admitted_requests": sum(t["admitted"] for t in adm.values()),
                 "served_requests": sum(t["served"] for t in adm.values()),
                 "shed_requests": sum(t["shed"] for t in adm.values()),
@@ -355,8 +411,17 @@ class StreamingQueryBatcher(QueryBatcher):
        tokens as one answer through the real serversink apply.
 
     Conservation: ``tokens_generated == tokens_delivered + tokens_dropped
-    + tokens_in_flight``.  ``prefill_seconds`` / ``decode_seconds`` are host
-    clock sums around the prefills and decode ticks; both end in a host
+    + tokens_in_flight``.  A dead endpoint aborts every live stream into
+    ``tokens_dropped`` (:meth:`_abort_streams`); their PendingQuery records
+    re-dispatch and regenerate by PREFILL REPLAY on a survivor, bitwise
+    under greedy decode.  A committed hot swap replays its in-flight
+    streams on the new epoch (:meth:`on_reconfig`, counted in
+    ``replays``).  Slots the batcher forgot (a revived server's table)
+    keep decoding with no record listening until their budget drains;
+    an admit into such a slot overwrites every leaf of it.
+
+    ``prefill_seconds`` / ``decode_seconds`` are host clock sums around
+    the prefills (replays included) and decode ticks; both end in a host
     read of the result, so they include the device time."""
 
     def __init__(self, *args, tick_source: Optional[Callable[[], int]] = None,
@@ -369,11 +434,13 @@ class StreamingQueryBatcher(QueryBatcher):
         self.tick_source = tick_source
         self._slots: Dict[int, Dict] = {}       # slot -> stream record
         self._waiting: List[Dict] = []          # FIFO, no free slot yet
+        self._replay: List[Dict] = []           # re-prefill on the next admit
         #: client_id -> FIFO of live stream records (a client may pipeline
         #: a second request while its first stream is in flight)
         self._by_client: Dict[int, List[Dict]] = {}
         self._last_decode_tick: Optional[int] = None
         self.prefills = 0
+        self.replays = 0
         self.decode_ticks = 0
         self.tokens_generated = 0
         self.tokens_delivered = 0
@@ -393,6 +460,9 @@ class StreamingQueryBatcher(QueryBatcher):
     def inflight_tokens(self) -> int:
         return sum(len(rec["tokens"]) for recs in self._by_client.values()
                    for rec in recs)
+
+    def active_streams(self) -> int:
+        return sum(len(recs) for recs in self._by_client.values())
 
     def _track(self, rec: Dict):
         self._by_client.setdefault(rec["routing"]["client_id"],
@@ -420,8 +490,8 @@ class StreamingQueryBatcher(QueryBatcher):
     # -- lifecycle -------------------------------------------------------------
     def flush(self) -> int:
         if not self.endpoint.alive:
-            raise NotImplementedError("stream recovery after an endpoint "
-                                      "death (prefill replay): ROADMAP M6")
+            self._abort_streams()
+            return 0
         served = self._admit()
         tick = self.tick_source()
         if tick != self._last_decode_tick and (self._slots or self._waiting):
@@ -435,8 +505,27 @@ class StreamingQueryBatcher(QueryBatcher):
         finished = 0
         elem = self._serve_elem()
         params = self.run.params.get(elem.name, {})
+        if self._replay:
+            # streams a committed hot swap orphaned re-prefill on the NEW
+            # epoch's params (greedy decode: the regeneration is bitwise
+            # what a fresh build answers)
+            replays, self._replay = self._replay, []
+            for rec in replays:
+                t0 = time.perf_counter()
+                tok, cache = elem.host_prefill(params, rec["prompt"])
+                self.prefill_seconds += time.perf_counter() - t0
+                self.prefills += 1
+                self.tokens_generated += 1
+                rec["tokens"] = [tok]
+                rec["remaining"] = max(0, rec["gen"] - 1)
+                rec["cache"] = cache
+                if rec["remaining"] <= 0:
+                    self._finish(rec)
+                    finished += 1
+                else:
+                    self._waiting.append(rec)
         adm = self.admission
-        while True:
+        while self.endpoint.alive:
             self._ingest()
             recs = adm.take(1)
             if not recs:
@@ -450,7 +539,8 @@ class StreamingQueryBatcher(QueryBatcher):
             self.prefills += 1
             self.streams_started += 1
             self.tokens_generated += 1
-            rec = {"routing": routing, "tokens": [tok], "gen": gen,
+            rec = {"routing": routing, "tokens": [tok],
+                   "prompt": clean.tensors[0], "gen": gen,
                    "remaining": max(0, gen - 1), "cache": cache,
                    "adm": arec}
             self._track(rec)
@@ -528,8 +618,53 @@ class StreamingQueryBatcher(QueryBatcher):
         sink.apply(self.run.params.get(sink.name, {}), [answer])
         self.tokens_delivered += len(rec["tokens"])
         self.streams_finished += 1
-        self.admission.mark_served(rec.pop("adm"))
+        arec = rec.pop("adm", None)
+        if arec is not None:
+            self.admission.mark_served(arec)
         self._untrack(rec)
+
+    def on_reconfig(self):
+        """The serve topology was hot-swapped under live streams.  The
+        batcher cannot tell which epoch a slot's cache belongs to, so every
+        in-flight stream REPLAYS: its partial tokens become declared drops
+        and it re-prefills on the new epoch at the next flush.  Slots of
+        carried plan state that are still active self-clear (their
+        ``remaining`` lane drains with no record listening)."""
+        super().on_reconfig()
+        recs = [self._slots[s] for s in sorted(self._slots)] + self._waiting
+        self._slots.clear()
+        self._waiting = []
+        for rec in recs:
+            self.tokens_dropped += len(rec["tokens"])
+            self.replays += 1
+            rec["tokens"] = []
+            rec["cache"] = None
+            rec.pop("slot", None)
+        self._replay.extend(recs)
+
+    def _abort_streams(self):
+        """The endpoint died: every live stream's partial tokens are
+        DECLARED drops and its admission closes as a ``server-died`` shed
+        on the orphan ledger; the PendingQuery records re-dispatch with
+        prefill replay on a survivor, so the client loses no token."""
+        self._shed_dead()
+        if not self._by_client:
+            return
+        total = 0
+        for recs in self._by_client.values():
+            for rec in recs:
+                self.tokens_dropped += len(rec["tokens"])
+                arec = rec.pop("adm", None)
+                if arec is not None:
+                    self.admission.mark_shed(arec, "server-died",
+                                             notify=False)
+                    self._forget_delivery(arec)
+                total += 1
+        self._orphan(total)
+        self._slots.clear()
+        self._waiting.clear()
+        self._replay.clear()
+        self._by_client.clear()
 
     def stats(self) -> Dict[str, int]:
         base = super().stats()
@@ -542,6 +677,7 @@ class StreamingQueryBatcher(QueryBatcher):
             "tokens_in_flight": self.inflight_tokens(),
             "streams_started": self.streams_started,
             "streams_finished": self.streams_finished,
+            "replays": self.replays,
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
         })

@@ -280,9 +280,11 @@ class CudaGraph:
 
 class _Binding:
     __slots__ = ("calls", "graph", "args", "state", "result", "launches",
-                 "nbytes")
+                 "nbytes", "ptrs")
 
-    def __init__(self):
+    def __init__(self, ptrs: frozenset):
+        #: addresses the binding is keyed on (params; state when donated)
+        self.ptrs = ptrs
         self.calls = 0
         self.graph = None       # a captured graph backend
         self.args = None        # static arg leaves
@@ -319,6 +321,15 @@ class GraphedCallable:
             self._free(b)
         self._bindings.clear()
 
+    def release_on(self, ptrs) -> int:
+        """Free the bindings keyed on any of the tensor addresses ``ptrs``
+        (params or donated state a reconfiguration retired: no call can
+        reach such a binding again).  Returns how many were freed."""
+        gone = [k for k, b in self._bindings.items() if b.ptrs & ptrs]
+        for k in gone:
+            self._free(self._bindings.pop(k))
+        return len(gone)
+
     @staticmethod
     def _free(b: _Binding):
         if b.graph is not None:
@@ -337,7 +348,9 @@ class GraphedCallable:
         key = _key(fp, fs, fa, static, self.donate, dev)
         b = self._bindings.get(key)
         if b is None:
-            b = self._bindings[key] = _Binding()
+            b = self._bindings[key] = _Binding(frozenset(
+                l.data_ptr() for l in fp[0] + (fs[0] if self.donate else [])
+                if _is_tensor(l)))
             while len(self._bindings) > MAX_BINDINGS:
                 self._free(self._bindings.popitem(last=False)[1])
         else:

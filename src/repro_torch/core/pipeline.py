@@ -5,9 +5,9 @@ so the paper's Listing 1/2 pipelines can be written as strings.
 Port of ``src/repro/core/pipeline.py``: parsing, caps negotiation
 (``realize``), ``init``/``init_state``, ``step`` (the plan),
 ``step_interpreted`` (the seed interpreter, the parity baseline), the
-bursts ``step_n`` and the cached executables ``compiled_step`` /
-``compiled_step_n``.  Live reconfiguration (``reconfig()``, ROADMAP M7)
-waits.
+bursts ``step_n``, the cached executables ``compiled_step`` /
+``compiled_step_n``, and ``reconfig()``, the edit script of a live
+reconfiguration (``core/reconfig.py``).
 
 Grammar subset (sufficient for the paper's examples)::
 
@@ -212,8 +212,12 @@ class Pipeline:
         return self
 
     def reconfig(self):
-        raise NotImplementedError("live topology edits (ReconfigPlan): "
-                                  "ROADMAP M7")
+        """Start a topology edit script against this pipeline (DESIGN.md
+        §6): a :class:`~.reconfig.ReconfigPlan` of swap/relink/add/link/
+        remove edits, for ``Runtime.reconfigure`` to prepare, warm and
+        commit while the stream runs."""
+        from .reconfig import ReconfigPlan
+        return ReconfigPlan(self)
 
     # -- params / state --------------------------------------------------------
     def init(self, generator, device) -> Dict[str, dict]:

@@ -44,12 +44,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .buffers import (StreamBuffer, stack_buffers, structure_key,
-                      unstack_buffers)
+                      tree_flatten, unstack_buffers)
 from .element import Element, PipelineContext
 from .graphs import GraphedCallable
 
 __all__ = ["ExecutionPlan", "PendingQuery", "PlanOp",
-           "clear_executable_cache", "executable_cache_info"]
+           "clear_executable_cache", "executable_cache_info",
+           "release_bindings", "tensor_ptrs"]
 
 
 class PlanOp:
@@ -92,6 +93,22 @@ def clear_executable_cache():
     for ent in _EXEC_CACHE.values():
         _release(ent)
     _EXEC_CACHE.clear()
+
+
+def tensor_ptrs(*trees) -> set:
+    """Addresses of the tensors in ``trees``."""
+    return {l.data_ptr() for t in trees for l in tree_flatten(t)[0]
+            if isinstance(l, torch.Tensor) and l.data_ptr()}
+
+
+def release_bindings(ptrs: set) -> int:
+    """Free every cached binding keyed on one of the tensor addresses
+    ``ptrs`` (a reconfiguration's retired params and state), with its
+    graph.  Returns how many were freed."""
+    if not ptrs:
+        return 0
+    return sum(fn.release_on(ptrs) for ent in _EXEC_CACHE.values()
+               for fn in ent["fns"].values())
 
 
 def executable_cache_info() -> Dict[str, int]:

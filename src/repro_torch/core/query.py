@@ -219,7 +219,7 @@ class TensorQueryServerSink(Element):
         if client_id is None:
             raise BrokerError(f"{self.name}: answer buffer lost its client_id tag")
         payload, nbytes = comp.encode(buf, buf.meta.get("codec", "none"))
-        self.push_wire(payload, nbytes, client_id)
+        self._ship(payload, nbytes, client_id)
         return []
 
     def push_wire(self, payload: StreamBuffer, nbytes: int, client_id: int):
@@ -227,6 +227,11 @@ class TensorQueryServerSink(Element):
         a whole batch in one launch; the batcher routes the wire frames with
         meta restored).  Same channel push and byte accounting as
         :meth:`apply`."""
+        self._ship(payload, nbytes, client_id)
+
+    def _ship(self, payload: StreamBuffer, nbytes: int, client_id: int):
+        """One answer push; a full client channel books the displaced
+        answer on the sink."""
         if not self.serversrc.endpoint.client_channel(client_id).push(
                 payload, nbytes):
             self.answer_drops += 1

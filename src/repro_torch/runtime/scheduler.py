@@ -49,10 +49,22 @@ answers decode in one launch per group.  ``fused_wire=False`` encodes,
 decodes and serves each request on its own (the eager path); both give the
 same answers bitwise.
 
+Failover (DESIGN.md §3): every tick the runtime heartbeats the broker for
+each live device and advances its lease clock (``lease_ticks``), so a
+silently dead server's registration expires.  A frame whose endpoint dies
+before answering re-dispatches its retained request to the next-ranked
+survivor, or parks until a server registers; ``park_deadline_ticks``
+turns a frame parked that long into a client-visible error frame.  A
+streaming server's orphaned streams regenerate by prefill replay.
+
+Live reconfiguration (DESIGN.md §6): ``reconfigure(run, edit)`` prepares
+and warms a topology edit off the serving path and commits it at a tick
+boundary (``core/reconfig.py``).  Broker liveness events route through the
+same manager: a server's death or revival is an unplanned reconfiguration.
+
 Every pipeline's tensors live on one device: the GPU unless the caller
-passes ``device="cpu"``.  Leases and failover, parking deadlines, live
-reconfiguration, mesh placement, tenant QoS, the lossy network and
-autoscaling wait for their ROADMAP items (M6, M7, M11, M9, M10) and raise
+passes ``device="cpu"``.  Mesh placement, tenant QoS, the lossy network
+and autoscaling wait for their ROADMAP items (M11, M9, M10) and raise
 ``NotImplementedError`` where asked for.
 """
 from __future__ import annotations
@@ -62,16 +74,20 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.admission import merge_tenant_stats, percentile_from_hist
+from ..core.admission import (DEFAULT_TENANT, merge_tenant_stats,
+                              percentile_from_hist)
 from ..core.batching import (BatchingPolicy, QueryBatcher,
                              StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
 from ..core.broker import Broker, BrokerError
 from ..core.buffers import (StreamBuffer, stack_buffers, structure_key,
                              unstack_buffers)
+from ..core.element import Element
 from ..core.pipeline import Pipeline
 from ..core.plan import PendingQuery
 from ..core.pubsub import MqttSink, MqttSrc
-from ..core.query import TensorQueryClient, TensorQueryServerSrc
+from ..core.query import (QueryServerEndpoint, TensorQueryClient,
+                          TensorQueryServerSrc)
+from ..core.reconfig import ReconfigManager, ReconfigPlan
 from ..core.sync import PipelineClock, SimClock
 from ..core import compression as comp
 from ..device import DeviceLike, make_generator, resolve_device
@@ -99,7 +115,8 @@ class _PipeRun:
     sink_log: Dict[str, list] = field(default_factory=dict)
     #: a retired run is skipped by the scheduler (it starts no new frames)
     retired: bool = False
-    #: drops of elements a reconfiguration removed (0 until ROADMAP M7)
+    #: drops of elements a reconfiguration removed: their backlogs leave
+    #: the topology with them, and the drop accounting keeps them
     carried_drops: int = 0
 
     @property
@@ -159,7 +176,9 @@ class Runtime:
                  tick_ns: int = TICK_NS, burst: int = DEFAULT_BURST,
                  query_batch=DEFAULT_QUERY_BATCH,
                  device: DeviceLike = None, qos=None, mesh=None,
-                 delivery=None, fused_wire: bool = True):
+                 delivery=None, fused_wire: bool = True,
+                 lease_ticks: Optional[int] = None,
+                 park_deadline_ticks: Optional[int] = None):
         for value, what in ((qos, "tenant QoS (qos=): ROADMAP M9"),
                             (mesh, "mesh placement (mesh=): ROADMAP M11"),
                             (delivery, "the delivery layer (delivery=): "
@@ -169,6 +188,8 @@ class Runtime:
         #: the torch device every deployed pipeline must live on
         self.device = resolve_device(device)
         self.broker = broker or Broker()
+        if lease_ticks is not None:
+            self.broker.default_lease_ticks = lease_ticks
         self.devices: List[Device] = []
         self.tick_ns = tick_ns
         #: most frames a subscriber pipeline drains in one tick
@@ -179,15 +200,35 @@ class Runtime:
         self.fused_wire = bool(fused_wire)
         #: endpoint_id -> batcher for every runtime-wired serversrc
         self._batchers: Dict[int, QueryBatcher] = {}
-        #: frames paused at a query client with no live server yet
-        self._parked: List[Tuple[_PipeRun, PendingQuery]] = []
+        #: frames paused at a query client with no live server, as
+        #: ``(run, pq, tick it first parked)``: re-parks keep the tick, so
+        #: ``park_deadline_ticks`` measures the total time parked
+        self._parked: List[Tuple[_PipeRun, PendingQuery, int]] = []
         #: frames whose stream is mid-generation on a live server
         self._inflight: List[Tuple[_PipeRun, PendingQuery]] = []
+        #: ticks a frame may stay parked before it expires into an error
+        #: frame (None: park until a server registers)
+        self.park_deadline_ticks = park_deadline_ticks
+        #: devices whose heartbeats are lost (a control-plane partition):
+        #: they serve, but their leases lapse into suspicion
+        self._control_blocked: set = set()
+        #: tenant sheds the runtime owns (park expiries), in the
+        #: AdmissionQueue.stats() schema so the ledgers merge
+        self._tenant_shed: Dict[str, Dict] = {}
+        #: tenant ledgers of batchers a reconfiguration retired
+        self._tenant_archive: Dict[str, Dict] = {}
+        # failover accounting (DESIGN.md §3)
         self.parked_total = 0
         #: queries shipped to another endpoint than the one they went to
         self.redispatches = 0
+        self.parked_expired = 0
+        self.orphaned_requests = 0
         self.ticks = 0
         self._ntp_ref = SimClock()
+        # every topology change, planned hot swaps and broker liveness
+        # events alike, routes through the reconfiguration manager
+        self.reconfig = ReconfigManager(self)
+        self.broker.watch(self.reconfig.on_broker_event)
 
     def add_device(self, device: Device) -> Device:
         for run in device.runs:
@@ -210,13 +251,16 @@ class Runtime:
                 if run.pipe.plan.stream_serving:
                     batcher = StreamingQueryBatcher(
                         e.endpoint, run, self.batching,
+                        on_orphans=self._count_orphans,
                         tick_source=lambda: self.ticks,
                         clock=lambda: self.ticks)
                 else:
                     batcher = QueryBatcher(
                         e.endpoint, run, self.batching,
                         inline_step=lambda r=run: self._run_once(r),
-                        fused=self.fused_wire, clock=lambda: self.ticks)
+                        fused=self.fused_wire,
+                        on_orphans=self._count_orphans,
+                        clock=lambda: self.ticks)
                 self._batchers[e.endpoint.endpoint_id] = batcher
                 e.connect(self.broker, inline_runner=batcher.flush)
         # renegotiate with the broker wiring in place (mqttsink registers);
@@ -224,23 +268,78 @@ class Runtime:
         run.pipe._realized = False
         run.pipe.realize()
 
-    def reconfigure(self, run: _PipeRun, edit, warm_ticks: int = 1):
-        raise NotImplementedError("live reconfiguration (prepare/warm/"
-                                  "commit hot swap): ROADMAP M7")
+    # -- live reconfiguration (DESIGN.md §6) --------------------------------------
+    def reconfigure(self, run: _PipeRun, edit, warm_ticks: int = 1,
+                    rng: Optional[torch.Generator] = None):
+        """Apply a topology edit to a RUNNING pipeline.  ``edit`` is a
+        :class:`~repro_torch.core.reconfig.ReconfigPlan`
+        (``run.pipe.reconfig()``) or a callable that fills a fresh one; it
+        prepares and warms at once and commits at the first tick boundary
+        after ``warm_ticks`` ticks, or rolls back.  New elements draw their
+        params from ``rng`` (default: seed 0 on the run's device).  Returns
+        the :class:`~repro_torch.core.reconfig.Reconfiguration` handle."""
+        plan = edit
+        if not isinstance(edit, ReconfigPlan):
+            plan = ReconfigPlan(run.pipe)
+            edit(plan)
+        return self.reconfig.request(run, plan, warm_ticks=warm_ticks,
+                                     rng=rng)
 
-    # -- liveness and load --------------------------------------------------------
-    def _heartbeat(self):
-        """Beat for every live device's registrations and refresh each
-        server's declared load (queued requests), which the broker's
-        ranking reads; then advance the broker's lease clock."""
+    def _device_of(self, run: _PipeRun) -> Optional[Device]:
         for dev in self.devices:
-            if not dev.alive:
+            if run in dev.runs:
+                return dev
+        return None
+
+    def _run_in_flight(self, run: _PipeRun) -> bool:
+        """Whether the run has a frame paused across ticks (parked, or a
+        stream mid-generation): a commit drains those on the old epoch
+        first.  Only client runs pause; a server hot swap commits
+        mid-decode."""
+        return any(r is run for r, _, _ in self._parked) or \
+            any(r is run for r, _ in self._inflight)
+
+    def _count_orphans(self, n: int):
+        """Orphan-ledger hook for the batchers' mid-flush deaths."""
+        self.orphaned_requests += n
+
+    def _retire_element(self, e: Element):
+        """Take an element a committed reconfiguration removed out of the
+        control plane: unregister its registration (clients re-bind, a
+        query endpoint tears down through the manager's event path), close
+        its consumer binding, drop its endpoint's batcher and keep that
+        batcher's tenant ledgers."""
+        reg = getattr(e, "registration", None)
+        if reg is not None:
+            self.broker.unregister(reg)
+            e.registration = None
+        binding = getattr(e, "binding", None)
+        if binding is not None:
+            binding.close()
+            e.binding = None
+        ep = getattr(e, "endpoint", None)
+        if isinstance(ep, QueryServerEndpoint):
+            b = self._batchers.pop(ep.endpoint_id, None)
+            if b is not None:
+                merge_tenant_stats(self._tenant_archive, b.tenant_stats())
+
+    # -- liveness: heartbeats and leases --------------------------------------------
+    def _heartbeat_and_lease(self):
+        """Beat for every live device's registrations (a suspected one that
+        beats again is healed) and refresh each server's declared load
+        (queued requests), which the broker's ranking reads; then advance
+        the broker's lease clock, expiring whoever went silent.  A device
+        in ``_control_blocked`` serves but does not beat."""
+        for dev in self.devices:
+            if not dev.alive or dev in self._control_blocked:
                 continue
             for run in dev.runs:
                 for e in run.pipe.elements.values():
                     reg = getattr(e, "registration", None)
                     if reg is None:
                         continue
+                    if not reg.alive and reg.suspected:
+                        self.broker.heal(reg)
                     self.broker.heartbeat(reg)
                     if isinstance(e, TensorQueryServerSrc):
                         b = self._batchers.get(e.endpoint.endpoint_id)
@@ -300,6 +399,12 @@ class Runtime:
                 res[i] = out
         return res
 
+    def _select_endpoint(self, qc) -> QueryServerEndpoint:
+        """Endpoint for one dispatch: the client's sticky binding (the JAX
+        package spreads over replicas here only under tenant QoS, ROADMAP
+        M9)."""
+        return qc._endpoint()
+
     def _after_send(self, pq: PendingQuery, ep):
         if pq.endpoint is not None and pq.endpoint is not ep:
             self.redispatches += 1
@@ -330,8 +435,10 @@ class Runtime:
         ready = []
         for run, pq in fresh:
             try:
-                ep = pq.client._endpoint()
+                ep = self._select_endpoint(pq.client)
             except BrokerError:
+                # pq.endpoint keeps the dead server: a later dispatch of
+                # the parked frame still counts as a re-dispatch
                 self._park(run, pq)
                 continue
             ready.append((run, pq, ep))
@@ -345,36 +452,97 @@ class Runtime:
         return out
 
     def _dispatch_query(self, pq: PendingQuery) -> bool:
-        """Ship one paused frame's request; False when no server matches."""
+        """Ship one paused frame's retained request to the best-ranked live
+        endpoint, recording where it went; False when no server matches
+        (the caller parks the frame, whose ``endpoint`` keeps the dead
+        server)."""
         try:
-            ep = pq.client.send_query(pq.request)
+            ep = self._select_endpoint(pq.client)
         except BrokerError:
             return False
+        pq.client.send_query(pq.request, ep=ep)
         self._after_send(pq, ep)
         return True
 
-    def _park(self, run: _PipeRun, pq: PendingQuery):
+    # -- parking ------------------------------------------------------------------
+    def _park(self, run: _PipeRun, pq: PendingQuery,
+              t0: Optional[int] = None):
+        """``t0`` is the tick the frame FIRST parked, kept across re-parks."""
         self.parked_total += 1
-        self._parked.append((run, pq))
+        self._parked.append((run, pq, self.ticks if t0 is None else t0))
 
     def _retry_parked(self) -> List[Tuple[_PipeRun, PendingQuery]]:
         """Give every parked frame another shot (a server may have
-        registered since)."""
+        registered or revived since); the rest stay parked."""
         parked, self._parked = self._parked, []
         pending = []
-        for run, pq in parked:
+        for run, pq, t0 in parked:
             if self._dispatch_query(pq):
                 pending.append((run, pq))
             else:
-                self._parked.append((run, pq))
+                self._park(run, pq, t0)
         return pending
+
+    def _park_limit(self, qc) -> Optional[int]:
+        """Ticks a frame of this client may stay parked: the runtime's
+        ``park_deadline_ticks`` (a tenant's own deadline joins it under
+        QoS, ROADMAP M9)."""
+        return self.park_deadline_ticks
+
+    def _expire_parked(self):
+        """A frame parked past its limit degrades explicitly: counted in
+        ``parked_expired`` and on its tenant's shed ledger, answered with
+        an error frame in its pipeline's sink log, and its pipeline is
+        free to start fresh frames next tick."""
+        if not self._parked:
+            return
+        keep = []
+        for run, pq, t0 in self._parked:
+            limit = self._park_limit(pq.client)
+            if limit is not None and self.ticks - t0 >= limit:
+                self.parked_expired += 1
+                self._account_tenant_shed(pq.client, "deadline")
+                self._expire_query(run, pq, limit)
+            else:
+                keep.append((run, pq, t0))
+        self._parked = keep
+
+    def _account_tenant_shed(self, qc, reason: str):
+        """Book a runtime-owned shed (the request never reached a server's
+        admission queue) on its tenant's ledger: one admission, one shed."""
+        tenant = getattr(qc, "tenant", None) or DEFAULT_TENANT
+        led = self._tenant_shed.setdefault(tenant, {
+            "admitted": 0, "served": 0, "shed": 0, "queued": 0,
+            "in_flight": 0, "shed_reasons": {}, "latency_hist": {}})
+        led["admitted"] += 1
+        led["shed"] += 1
+        led["shed_reasons"][reason] = led["shed_reasons"].get(reason, 0) + 1
+
+    def _expire_query(self, run: _PipeRun, pq: PendingQuery,
+                      parked_ticks: int):
+        """Answer an expired park with an error frame, logged under
+        ``<client>.error``: no tensors, meta naming the operation that
+        found no server.  The frame itself is abandoned."""
+        qc = pq.client
+        err = StreamBuffer(tensors=(), meta={
+            "error": "park-deadline",
+            "operation": qc.operation,
+            "parked_ticks": parked_ticks,
+            "redispatches": pq.redispatches,
+            "tick": self.ticks})
+        run.sink_log.setdefault(f"{qc.name}.error", []).append(err)
 
     def _drain_queries(self, pending: List[Tuple[_PipeRun, PendingQuery]]):
         """Flush every batcher, resume the paused frames that have their
         answers, and repeat for frames that pause again at a later client.
-        A stream still decoding leaves the drain and re-enters next tick;
-        a missing answer from a live endpoint with nothing in flight is a
-        serving bug and raises."""
+
+        A frame whose endpoint died before answering re-dispatches its
+        retained request to the next-ranked survivor (served in the next
+        round) or parks.  A stream still decoding on a live endpoint leaves
+        the drain and re-enters next tick; a missing answer from a live
+        endpoint with nothing in flight is a serving bug and raises.  Each
+        round every frame is answered, parked, raised on, or moved to a
+        live endpoint other than its dead one, so the drain ends."""
         pending = list(pending)
         while pending:
             for batcher in self._batchers.values():
@@ -383,17 +551,20 @@ class Runtime:
             answered = []
             for run, pq in pending:
                 qc, ep = pq.client, pq.endpoint
-                raw = qc.recv_answer_raw(ep)
+                raw = qc.recv_answer_raw(ep) if ep is not None else None
                 if raw is None:
-                    b = self._batchers.get(ep.endpoint_id)
-                    if ep.alive and b is not None and \
-                            b.in_flight(qc.client_id):
-                        self._inflight.append((run, pq))
-                        continue
-                    raise BrokerError(
-                        f"{qc.name}: no answer from {qc.operation!r}"
-                        + ("" if ep.alive else " (endpoint died; failover "
-                           "is ROADMAP M6)"))
+                    if ep is not None and ep.alive:
+                        b = self._batchers.get(ep.endpoint_id)
+                        if b is not None and b.in_flight(qc.client_id):
+                            self._inflight.append((run, pq))
+                            continue
+                        raise BrokerError(
+                            f"{qc.name}: no answer from {qc.operation!r}")
+                    if self._dispatch_query(pq):
+                        nxt.append((run, pq))
+                    else:
+                        self._park(run, pq)
+                    continue
                 answered.append((run, pq, raw))
             answers = self._decode_answers(
                 [(pq.client, raw) for _, pq, raw in answered])
@@ -488,12 +659,19 @@ class Runtime:
         self._ntp_ref.advance(self.tick_ns)
         for dev in self.devices:
             dev.clock.advance(self.tick_ns)
-        self._heartbeat()
+        self._heartbeat_and_lease()
+        # tick boundary: pending reconfigurations commit (or drain or roll
+        # back) before any frame of this tick starts
+        self.reconfig.step()
+        self._expire_parked()
+        # parked frames go first (a server may be back); then streams
+        # mid-generation re-enter the drain (a dead server's re-dispatch
+        # or park like any in-flight query)
         pending = self._retry_parked()
         inflight, self._inflight = self._inflight, []
         pending.extend(inflight)
         busy = {id(run) for run, _ in pending} | \
-            {id(run) for run, _ in self._parked}
+            {id(run) for run, _, _ in self._parked}
         fresh: List[Tuple[_PipeRun, PendingQuery]] = []
         for dev in self.devices:
             if not dev.alive:
@@ -547,14 +725,13 @@ class Runtime:
                          "lease_expiries": self.broker.expiries,
                          "suspicions": self.broker.suspicions,
                          "heals": self.broker.heals}
-        # a dead endpoint raises in the port (ROADMAP M6), so no parked
-        # frame expires and no request is orphaned: both are truly 0
         out["failover"] = {"redispatches": self.redispatches,
                            "parked_total": self.parked_total,
                            "parked_now": len(self._parked),
                            "inflight_now": len(self._inflight),
-                           "parked_expired": 0,
-                           "orphaned_requests": 0}
+                           "parked_expired": self.parked_expired,
+                           "orphaned_requests": self.orphaned_requests}
+        out["reconfig"] = self.reconfig.stats()
         # the stateless keys are always present, 0 with no server deployed
         agg = {"flushes": 0, "batches": 0, "batched_frames": 0,
                "sequential_frames": 0, "sharded_batches": 0,
@@ -567,6 +744,8 @@ class Runtime:
         tenants: Dict[str, Dict] = {}
         for b in self._batchers.values():
             merge_tenant_stats(tenants, b.tenant_stats())
+        merge_tenant_stats(tenants, self._tenant_archive)
+        merge_tenant_stats(tenants, self._tenant_shed)
         for tid, t in tenants.items():
             t["p50_ticks"] = percentile_from_hist(t["latency_hist"], 0.50)
             t["p99_ticks"] = percentile_from_hist(t["latency_hist"], 0.99)

@@ -140,13 +140,23 @@ def test_later_slices_raise_naming_their_roadmap_item(kw, item):
 
 
 def test_live_reconfiguration_waits_for_m7():
-    rt = Runtime(device="cpu")
+    """M6 and M7 are ported: ``Pipeline.reconfig`` returns an edit script,
+    ``Runtime.reconfigure`` prepares and commits it, and ``Runtime`` takes
+    ``lease_ticks`` and ``park_deadline_ticks``."""
+    from repro_torch.core.reconfig import ReconfigPlan
+    rt = Runtime(device="cpu", lease_ticks=3, park_deadline_ticks=2)
+    assert rt.broker.default_lease_ticks == 3
+    assert rt.park_deadline_ticks == 2
     pipe = ms.serve_pipeline(slots=2, max_seq=8)
-    run = Device("hub", device="cpu").add_pipeline(pipe)
-    with pytest.raises(NotImplementedError, match="M7"):
-        pipe.reconfig()
-    with pytest.raises(NotImplementedError, match="M7"):
-        rt.reconfigure(run, lambda plan: None)
+    dev = Device("hub", device="cpu")
+    run = dev.add_pipeline(pipe)
+    rt.add_device(dev)
+    assert isinstance(pipe.reconfig(), ReconfigPlan)
+    rc = rt.reconfigure(run, lambda plan: None, warm_ticks=0)
+    assert rc.status == "warming"
+    rt.run(1)
+    assert rc.status == "committed"
+    assert rt.stats()["reconfig"]["planned"] == 1
 
 
 def test_windowed_layers_wait_for_m5():

@@ -1,6 +1,6 @@
 """``Runtime.stats()`` of the port equals the JAX package's, key for key.
 
-Three scenarios run in both packages on the CPU, and their whole stats
+Four scenarios run in both packages on the CPU, and their whole stats
 dicts are compared:
 
 * a pub/sub pair (``testsrc ! ... ! mqttsink`` to ``mqttsrc ! appsink``),
@@ -9,12 +9,15 @@ dicts are compared:
 * two clients offloading with ``codec=quant8`` to one ``tensor_filter``
   server, at ``query_batch`` 8 and 0;
 * ``stablelm-smoke-flash`` serving 3 clients over 2 slots, the port on
-  the JAX package's weights (``params_from_numpy``).
+  the JAX package's weights (``params_from_numpy``);
+* the same server twice, the first killed mid-generation and revived:
+  the streams re-dispatch to the second by prefill replay, and the revived
+  server's slot table still holds the lanes of the streams it lost, which
+  decode with no record listening until new streams overwrite them or
+  their budget drains (``batched_frames`` counts them in both packages).
 
 Left out of the comparison: the port's extra ``prefill_seconds`` and
-``decode_seconds`` (host clocks), and what comes with failover and live
-reconfiguration (ROADMAP M6, M7): the streaming ledger's ``replays`` and
-``stats()["reconfig"]``.
+``decode_seconds`` (host clocks).
 """
 import jax
 import jax.numpy as jnp
@@ -39,8 +42,8 @@ torch.set_num_threads(2)
 ROWS, CHANNELS = 8, 128
 W = (0.05 * np.random.default_rng(16).standard_normal(
     (CHANNELS, CHANNELS))).astype(np.float32)
-#: keys the port does not report yet (M6, M7) or reports in addition
-NOT_COMPARED = {"reconfig", "replays", "prefill_seconds", "decode_seconds"}
+#: keys the port reports in addition (host clocks)
+NOT_COMPARED = {"prefill_seconds", "decode_seconds"}
 
 
 class Port:
@@ -148,6 +151,41 @@ def _serving(pkg, jax_params=None):
     return rt, srv
 
 
+def _kill_revive(pkg, jax_params=None):
+    """Two stablelm-smoke-flash servers of 4 slots, 3 clients; the first
+    server dies at tick 3 with its streams mid-generation and revives at
+    tick 6.  -> (runtime, first server's run, lanes it decoded with no
+    record listening)."""
+    from chaoslib import Chaos
+    rt = pkg.runtime()
+    mod = jax_ms if pkg is Jax else ms
+    hubs = []
+    for name in ("hubA", "hubB"):
+        dev = pkg.device(name)
+        run = pkg.add(dev, mod.serve_pipeline(model="stablelm-smoke-flash",
+                                              slots=4, max_seq=16))
+        if pkg is Port:
+            run.params["lm"] = jax_params
+        rt.add_device(dev)
+        hubs.append((dev, run))
+    for i in range(3):
+        dev = pkg.device(f"tv{i}")
+        pkg.add(dev, mod.client_pipeline(prompts=f"{i + 1},{i + 2};{i + 3}",
+                                         gens="5;2"))
+        rt.add_device(dev)
+    (devA, runA), _ = hubs
+    harness = Chaos(rt)
+    harness.kill_server(3, devA, runA.pipe.elements["ssrc"], crash=True)
+    harness.revive_server(6, devA, runA.pipe.elements["ssrc"])
+    stale = 0
+    for _ in range(14):
+        harness.run(1)
+        b = next(b for b in rt._batchers.values() if b.run is runA)
+        active = np.asarray(runA.state["lm"]["active"]).sum()
+        stale = max(stale, int(active) - len(b._slots))
+    return rt, runA, stale
+
+
 def _same_stats(port_rt, jax_rt):
     got, want = _comparable(port_rt.stats()), _comparable(jax_rt.stats())
     assert got == want
@@ -181,5 +219,24 @@ def test_model_serving_stats_match():
     _same_stats(rt, jrt)
     qb = rt.stats()["query_batching"]
     assert qb["streams_finished"] >= 3 and qb["decode_ticks"] > 0
+    assert qb["tokens_generated"] == qb["tokens_delivered"] + \
+        qb["tokens_dropped"] + qb["tokens_in_flight"]
+
+
+def test_kill_and_revive_stats_match():
+    """A kill mid-generation, prefill replay on the survivor, a revival
+    with stale lanes in the revived server's slot table: the whole stats
+    dicts still match, ``replays`` and ``reconfig`` included."""
+    jrt, jrun, jstale = _kill_revive(Jax)
+    tp = tt.params_from_numpy(jax.device_get(jrun.params["lm"]),
+                              jrun.pipe.elements["lm"].cfg, "cpu")
+    rt, run, stale = _kill_revive(Port, tp)
+    _same_stats(rt, jrt)
+    assert stale == jstale and stale > 0     # lanes no record listens to
+    st = rt.stats()
+    assert st["reconfig"]["unplanned"] == 2
+    assert st["failover"]["redispatches"] >= 1
+    qb = st["query_batching"]
+    assert qb["tokens_dropped"] > 0 and qb["flush_orphans"] >= 1
     assert qb["tokens_generated"] == qb["tokens_delivered"] + \
         qb["tokens_dropped"] + qb["tokens_in_flight"]
