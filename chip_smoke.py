@@ -125,6 +125,30 @@ Phases, one result line each (any failure exits non-zero):
    route == ``jit=False`` (answers and stats) and the card == the port's
    CPU path (answers).
 
+11. staged pipeline-parallel serving — 11a, phase 4's clients (the same
+   joins, prompts and generation lengths) on stablelm-1.6b split over 2
+   and then 4 ``model_serve_stage`` pipelines (12 and 6 layers a stage,
+   one Device each, every one given phase 4's seed): every answer bitwise
+   phase 4's in the same slot, and ``sequential_decode``'s on the tree the
+   stages compose to; hop ledgers balance, one decode graph a stage, the
+   hop channels' bytes equal what the hops imply at 2 B an activation;
+   prints the prefill chain's ms per request, decode ms per tick (min /
+   median / max) and each stage's hop ms, tokens/s, hop bytes a tick and
+   a prefill chain, graphs, peak and K5/K6 launches.  11b, 12 streams on
+   the 4-stage chain with a standby for stage 2, which dies before tick
+   6 with every stream mid-generation: every answer bitwise a fault-free
+   twin's, no token dropped, no stream re-prefilled, stage 2 replayed on
+   the standby from the retained activations; prints the recovery tick's
+   host ms and whether a batch-1 decode step is bitwise the hop's row (the
+   replay steps run at the serve batch in the stream's slot row, and must
+   be).  11c, stage 1 of the 2-stage chain swapped to a second seed's
+   weights with 6 streams mid-generation: the commit lands, the epoch
+   fence moves, no stream restarts, every stream's second answer (started
+   after the commit) is bitwise the composite model's, no binding on the
+   retired slice survives and the live graphs do not grow.  11d, fp32
+   ``stablelm-smoke-4l`` with flash over 2 stages on the card (K5's fp32
+   route) == the port's CPU path.
+
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
 f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
 8 kv heads (GQA, 4 groups), beside its bound (float32 operations outside
@@ -786,21 +810,31 @@ def phase_scan_kernel(seed):
 
 
 def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks,
-           jit=True):
+           jit=True, n_stages=None):
     """Drive one serve pipeline plus staggered clients until every client
     has its answers.  ``clients`` is a list of (join_tick, prompts, gens);
-    ``jit=False`` is the eager twin of the graph route."""
+    ``jit=False`` is the eager twin of the graph route.  With ``n_stages``
+    the server is that many stage pipelines, one Device each, every one
+    given the monolithic server's generator; ``srv`` is then their runs."""
     import torch
     from repro_torch.device import make_generator
     from repro_torch.launch import model_serve as ms
     from repro_torch.runtime import Device, Runtime
     rt = Runtime(device=rt_device)
-    hub = Device("hub", device=rt_device)
-    srv = hub.add_pipeline(ms.serve_pipeline(model=model, slots=slots,
-                                             max_seq=max_seq),
-                           generator=make_generator(seed, rt.device),
-                           jit=jit)
-    rt.add_device(hub)
+    if n_stages is None:
+        pipes = [("hub", ms.serve_pipeline(model=model, slots=slots,
+                                           max_seq=max_seq))]
+    else:
+        pipes = [(f"stage{k}", ps) for k, ps in enumerate(
+            ms.staged_serve_pipelines(model=model, slots=slots,
+                                      max_seq=max_seq, n_stages=n_stages))]
+    srvs = []
+    for name, ps in pipes:
+        hub = Device(name, device=rt_device)
+        srvs.append(hub.add_pipeline(
+            ps, generator=make_generator(seed, rt.device), jit=jit))
+        rt.add_device(hub)
+    srv = srvs[0] if n_stages is None else srvs
     runs = [None] * len(clients)
     t0 = time.perf_counter()
     while rt.ticks < max_ticks:
@@ -2752,6 +2786,556 @@ def phase_failover(seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: staged pipeline-parallel serving
+# ---------------------------------------------------------------------------
+
+#: 11b: the tick before which stage 2 of the 4-stage chain dies
+STAGE_KILL_TICK = 6
+#: 11c: the tick after which stage 1's swap is requested (commit at + 2)
+STAGE_SWAP_REQUEST_TICK = 5
+
+
+def _coord(rt):
+    from repro_torch.core.batching import StagedStreamingBatcher
+    return next(b for b in rt._batchers.values()
+                if isinstance(b, StagedStreamingBatcher))
+
+
+def _stage_batchers(rt, runs):
+    """The hop server of each run in ``runs`` (stage k >= 1)."""
+    return [_batcher_of(rt, r) for r in runs]
+
+
+def _composed(shares):
+    """The full tree a chain's stage shares slice."""
+    return {"embed": shares[0]["embed"],
+            "layers": [l for p in shares for l in p["layers"]],
+            "final_norm": shares[-1]["final_norm"]}
+
+
+def _staged_fleet(model, slots, max_seq, clients, seed, n_stages,
+                  standby=(), device=None, shares=None):
+    """An ``n_stages`` chain (and a standby for each stage in ``standby``),
+    one Device a pipeline, every one given the monolithic server's
+    generator (or ``shares``), and one client per entry of ``clients``
+    ``(prompts, gens)``.  -> (runtime, [(device, run, serversrc)] stages
+    then standbys, client runs)"""
+    from repro_torch.device import make_generator
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.runtime import Device, Runtime
+    rt = Runtime(device=device)
+    pipes = [(k, f"stage{k}", ps) for k, ps in enumerate(
+        ms.staged_serve_pipelines(model=model, slots=slots, max_seq=max_seq,
+                                  n_stages=n_stages))]
+    pipes += [(k, f"standby{k}", ms.stage_pipeline(
+        model=model, slots=slots, max_seq=max_seq, stage=k,
+        n_stages=n_stages)) for k in standby]
+    stages = []
+    for k, name, ps in pipes:
+        dev = Device(name, device=device)
+        run = dev.add_pipeline(ps, generator=make_generator(seed, rt.device))
+        if shares is not None:
+            run.params["lm"] = shares[k]
+        rt.add_device(dev)
+        stages.append((dev, run, ps.elements["ssrc"]))
+    runs = []
+    for i, (prompts, gens) in enumerate(clients):
+        dev = Device(f"tv{i}", device=device)
+        p = ";".join(",".join(str(t) for t in pr) for pr in prompts)
+        runs.append(dev.add_pipeline(ms.client_pipeline(
+            prompts=p, gens=";".join(str(g) for g in gens))))
+        rt.add_device(dev)
+    return rt, stages, runs
+
+
+def _stage_launches(coord, hop_servers, layers_per_stage):
+    """K5 and K6 launches the chain's work implies: every stage prefill
+    (chain or replay) runs its stage's layers through K5, every decode
+    hop and replay step through K6."""
+    k5 = coord.prefills + sum(b.prefills for b in hop_servers)
+    k6 = coord.decode_ticks + sum(b.decode_hops + b.replay_steps
+                                  for b in hop_servers)
+    return {"flash_attention": layers_per_stage * k5,
+            "flash_decode": layers_per_stage * k6}
+
+
+def _ledgers_balance(coord, what):
+    for k in range(1, coord.n_stages):
+        led = coord.stage_ledger(k)
+        check(led["dispatched"] == led["completed"] + led["failed"],
+              f"{what}: stage {k}'s hop ledger {led} does not balance")
+    _conserved(coord.stats(), what)
+
+
+def _hop_bytes(coord, hop_runs, hop_servers, n_stages, d, slots,
+               prompt_lens):
+    """Hop bytes per decode tick (over the N - 1 hops) and over the
+    prefill chains of prompts of ``prompt_lens`` tokens, at 2 B an
+    activation, 1 B an active flag, 4 B a token; and the bytes the hop
+    channels of the stage runs ``hop_runs`` booked, with the decode hops
+    served."""
+    act = 2 * d
+    per_tick = sum(slots * act + slots +
+                   (slots * 4 if k == n_stages - 1 else slots * act)
+                   for k in range(1, n_stages))
+    prefill = 0
+    for n_tok in prompt_lens:
+        prefill += sum(n_tok * act + (4 if k == n_stages - 1 else
+                                      n_tok * act)
+                       for k in range(1, n_stages))
+    booked = 0
+    for run in hop_runs:
+        ep = run.pipe.elements["ssrc"].endpoint
+        booked += ep.requests.bytes_sent
+        ch = ep.responses.get(coord._hop_cid)
+        booked += ch.bytes_sent if ch is not None else 0
+    hops = sum(b.decode_hops for b in hop_servers)
+    return per_tick, prefill, booked, hops
+
+
+def _phase_staged_serve(seed, serve4, n_stages):
+    """11a: phase 4's clients on an ``n_stages`` chain of stablelm-1.6b:
+    every answer bitwise phase 4's and ``sequential_decode``'s."""
+    import torch
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    cfg = stablelm_1_6b.config()
+    clients = serve4["clients"]
+    _reset_launches()
+    mark = _graph_mark()
+    rt, srvs, runs, wall = _serve(None, "stablelm-1.6b-flash", 8, 1024,
+                                  clients, seed, max_ticks=400,
+                                  n_stages=n_stages)
+    graph = _graph_since(mark)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
+    answers = _check_answers(runs, clients, cfg.vocab, 8)
+    mono = serve4["answers"]
+    check([a[2] for a in answers] == [a[2] for a in mono],
+          f"11a N={n_stages}: the chain's answers != phase 4's monolithic "
+          f"answers")
+    check([a[3] for a in answers] == [a[3] for a in mono],
+          f"11a N={n_stages}: serve slots {[a[3] for a in answers]} != "
+          f"phase 4's {[a[3] for a in mono]}")
+    coord = _coord(rt)
+    hop_servers = _stage_batchers(rt, srvs[1:])
+    st = coord.stats()
+    _ledgers_balance(coord, f"11a N={n_stages}")
+    check(st["hops_failed"] == 0 and st["tokens_dropped"] == 0 and
+          st["prefills"] == st["streams_started"] == len(answers),
+          f"11a N={n_stages}: coordinator stats {st}")
+    want = _stage_launches(coord, hop_servers, cfg.n_layers // n_stages)
+    check(launches == want and launches["flash_attention"] ==
+          cfg.n_layers * st["prefills"] and launches["flash_decode"] ==
+          cfg.n_layers * st["decode_ticks"],
+          f"11a N={n_stages}: launches {launches}, the chain's work "
+          f"implies {want}")
+    check(routes == {"sm90": launches["flash_attention"], "scalar": 0},
+          f"11a N={n_stages}: K5 by route {routes}")
+    check(graph["graphs"] == n_stages,
+          f"11a N={n_stages}: {graph['graphs']} graphs captured, one "
+          f"decode binding a stage expected")
+    per_tick, prefill, booked, hops = _hop_bytes(
+        coord, srvs[1:], hop_servers, n_stages, cfg.d_model, 8,
+        [len(p) for _, prompts, _ in clients for p in prompts])
+    check(booked == prefill + hops // max(1, n_stages - 1) * per_tick,
+          f"11a N={n_stages}: hop channels booked {booked} B, the hops "
+          f"imply {prefill} + {hops} decode hops")
+    shares = [r.params["lm"] for r in srvs]
+    dec = [1e3 * x for x in coord.decode_times]
+    hop_ms = {k: float(np.median(v)) * 1e3
+              for k, v in sorted(coord.hop_times.items())}
+    row = dict(n_stages=n_stages, ticks=rt.ticks, wall_s=wall,
+               prefills=st["prefills"], decode_ticks=st["decode_ticks"],
+               tokens=st["tokens_generated"],
+               prefill_chain_ms_per_request=1e3 * st["prefill_seconds"] /
+               st["prefills"],
+               decode_ms_min_median_max=[min(dec), float(np.median(dec)),
+                                         max(dec)],
+               hop_ms_median_by_stage=hop_ms,
+               tokens_per_s=st["tokens_generated"] / wall,
+               hop_bytes_per_tick=per_tick,
+               hop_bytes_per_prefill=prefill / st["prefills"],
+               launches=launches,
+               ledgers={k: coord.stage_ledger(k)
+                        for k in range(1, n_stages)}, **graph)
+    print(f"phase 11a staged serve stablelm-1.6b bf16 {cfg.n_layers} "
+          f"layers over {n_stages} stages ({cfg.n_layers // n_stages} "
+          f"layers a stage), "
+          f"slots 8, max_seq 1024: {len(answers)} answers in {rt.ticks} "
+          f"ticks, {wall:.2f} s, bitwise phase 4's monolithic answers in "
+          f"the same slots; prefill chain "
+          f"{row['prefill_chain_ms_per_request']:.2f} ms/request; decode "
+          f"ms/tick min/median/max {_fmt(row['decode_ms_min_median_max'])}"
+          f"; hop ms median by stage {_fmt(list(hop_ms.values()))} "
+          f"(stage 0 its own tick); {row['tokens_per_s']:.1f} tokens/s; "
+          f"hop bytes {per_tick} a tick, "
+          f"{row['hop_bytes_per_prefill']:.0f} a prefill chain (the hop "
+          f"channels booked {booked}); {graph['graphs']} graphs captured "
+          f"holding {graph['graph_mib']:.1f} MiB; peak "
+          f"{graph['peak_gib_over_base']:.2f} GiB over the base; launches "
+          f"{launches}; stage ledgers {row['ledgers']}")
+    del rt, srvs, runs, hop_servers, coord
+    torch.cuda.synchronize()
+    return row, shares, answers
+
+
+def _cache_leaves(cache):
+    """A decode cache's layer leaves, in the order every cache keeps."""
+    from repro_torch.core.buffers import tree_flatten
+    return tree_flatten(cache["layers"])[0]
+
+
+def _replay_probe(elem, params, cfg, seed):
+    """On the card: one parked stream's decode step at batch 1 against
+    the replay step (the serve batch, in the stream's slot row) and the
+    hop's row.  -> (batch 1 == hop row, replay == hop row)"""
+    import torch
+    from repro_torch.models import transformer
+    dev = params["layers"][0]["norm1"]["scale"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = transformer.L.torch_dtype(cfg.dtype)
+    x = torch.randn((1, 100, cfg.d_model), generator=g, device=dev).to(dt)
+    _, parked = elem.host_stage_prefill(params, x)
+    hop = transformer.stage_cache_init(cfg, elem.stage, elem.n_stages,
+                                       elem.slots, elem.max_seq, dev)
+    slot = 3
+    for d, s_ in zip(*(_cache_leaves(c) for c in (hop, parked))):
+        d[slot:slot + 1].copy_(s_)
+    hop["pos"][slot:slot + 1].copy_(parked["pos"])
+    step = torch.randn((elem.slots, 1, cfg.d_model), generator=g,
+                       device=dev).to(dt)
+    active = torch.ones((elem.slots,), dtype=torch.bool, device=dev)
+    y, _ = transformer.stage_decode(params, cfg, elem.stage, elem.n_stages,
+                                    step, hop, advance=active.to(torch.int32))
+    b1 = {"pos": parked["pos"].clone(),
+          "layers": [{k: v.clone() for k, v in l.items()}
+                     for l in parked["layers"]]}
+    y1, _ = transformer.stage_decode(params, cfg, elem.stage, elem.n_stages,
+                                     step[slot:slot + 1], b1)
+    yr, replayed = elem.host_stage_decode(params, step[slot:slot + 1],
+                                          parked, slot)
+    b1_same = torch.equal(y1, y[slot:slot + 1]) and all(
+        torch.equal(a, b[slot:slot + 1]) for a, b in
+        zip(_cache_leaves(b1), _cache_leaves(hop)))
+    replay_same = torch.equal(yr, y[slot:slot + 1]) and all(
+        torch.equal(a, b[slot:slot + 1]) for a, b in
+        zip(_cache_leaves(replayed), _cache_leaves(hop)))
+    return b1_same, replay_same
+
+
+def _phase_staged_failover(seed):
+    """11b: a 4-stage chain with a standby for stage 2; stage 2 dies
+    before tick ``STAGE_KILL_TICK`` with every stream mid-generation and
+    the coordinator replays only stage 2 onto the standby."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.kernels import flash_attn as fa
+    cfg = stablelm_1_6b.config()
+    n = 4
+    clients = _full_width_clients(seed + 10, 12, (16, 65))
+    _graph_mark()
+    rt0, _, runs0 = _staged_fleet("stablelm-1.6b-flash", 8, 1024, clients,
+                                  seed, n, standby=(2,))
+    _drive(rt0, runs0, clients, max_ticks=400)
+    twin = _tokens(runs0)
+    del rt0, runs0
+    _reset_launches()
+    mark = _graph_mark()
+    rt, stages, runs = _staged_fleet("stablelm-1.6b-flash", 8, 1024,
+                                     clients, seed, n, standby=(2,))
+    coord = _coord(rt)
+    dev2, _, ssrc2 = stages[2]
+    at = {}
+
+    def before(t):
+        if t == STAGE_KILL_TICK:
+            at["slotted"] = len(coord._slots)
+            at["waiting"] = len(coord._waiting)
+            at["answers"] = [len(r.sink_log.get("res", [])) for r in runs]
+            _kill(rt, dev2, ssrc2)
+    tick_ms, done_at = _drive(rt, runs, clients, max_ticks=400,
+                              before_tick=before)
+    mem = _graph_since(mark)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    got = _tokens(runs)
+    check(at["slotted"] == 8 and at["slotted"] + at["waiting"] ==
+          len(clients) and at["answers"] == [0] * len(clients),
+          f"11b: at the kill {at}")
+    for i, (a, b) in enumerate(zip(twin, got)):
+        check(len(b) == 1 and len(b[0]) == clients[i][1][0],
+              f"11b: client {i} answer lengths {[len(x) for x in b]}")
+        check(a == b, f"11b: client {i}'s answer != the fault-free twin's")
+    st = coord.stats()
+    _ledgers_balance(coord, "11b")
+    check(st["tokens_dropped"] == 0 and
+          st["prefills"] == st["streams_started"] and
+          st["stage_replays"] >= 1 and st["stage_replay_steps"] >= 1,
+          f"11b: coordinator stats {st}")
+    led2 = coord.stage_ledger(2)
+    check(led2["replays"] == 2 and led2["replay_steps"] ==
+          st["stage_replay_steps"],
+          f"11b: stage 2 ledger {led2} (first sight, then the standby)")
+    hop_servers = _stage_batchers(rt, [r for _, r, _ in stages[1:]])
+    standby_b = hop_servers[-1]
+    want = _stage_launches(coord, hop_servers, cfg.n_layers // n)
+    check(launches == want, f"11b: launches {launches}, the chain's work "
+                            f"implies {want}")
+    check(standby_b.replay_steps == st["stage_replay_steps"] and
+          standby_b.decode_hops > 0, "11b: the standby served no replay")
+    b1_same, replay_same = _replay_probe(
+        stages[-1][1].pipe.elements["lm"], stages[-1][1].params["lm"], cfg,
+        seed)
+    check(replay_same, "11b: a replay step != the decode hop's row")
+    k = STAGE_KILL_TICK - 1
+    row = dict(streams=len(clients), slotted_at_kill=at["slotted"],
+               waiting_at_kill=at["waiting"],
+               recovery_tick_ms=tick_ms[k],
+               after_recovery_tick_ms=tick_ms[k + 1],
+               steady_tick_ms_median_before=float(np.median(tick_ms[1:k])),
+               replay_prefills=standby_b.prefills,
+               replay_steps=standby_b.replay_steps,
+               last_answer_tick=max(done_at.values()), ticks=rt.ticks,
+               batch1_step_is_hop_row=b1_same, launches=launches,
+               ledgers={j: coord.stage_ledger(j) for j in range(1, n)},
+               **mem)
+    print(f"phase 11b staged failover stablelm-1.6b over 4 stages, stage 2 "
+          f"killed before tick {STAGE_KILL_TICK} with {at['slotted']} "
+          f"streams slotted and {at['waiting']} waiting: all "
+          f"{len(clients)} answers full length and bitwise the fault-free "
+          f"twin; no token dropped, prefills == streams started; recovery "
+          f"tick {row['recovery_tick_ms']:.1f} ms host "
+          f"({standby_b.prefills} replay prefills, "
+          f"{standby_b.replay_steps} replay steps on the standby; steady "
+          f"tick median {row['steady_tick_ms_median_before']:.1f}, the "
+          f"tick after {row['after_recovery_tick_ms']:.1f}); a batch-1 "
+          f"step {'is' if b1_same else 'is not'} bitwise the hop's row, "
+          f"the replay step (serve batch, slot row) is; launches "
+          f"{launches}; {mem['graphs']} graphs captured; stage ledgers "
+          f"{row['ledgers']}")
+    del rt, stages, runs, hop_servers, coord
+    return row
+
+
+def _composite_decode(shares, cfg, prompt, gen, max_seq, slots, slot):
+    """Greedy decode of a composite chain (per-stage trees of different
+    draws) through the stage functions at the serve batch, in ``slot``."""
+    import torch
+    from repro_torch.models import transformer as tt
+    n = len(shares)
+    dev = shares[0]["embed"]["tok"].device
+    x = torch.tensor([prompt], device=dev)
+    c1 = []
+    for k, p in enumerate(shares):
+        x, c = tt.stage_prefill(p, cfg, k, n, x, max_seq)
+        c1.append(c)
+    tok = tt.greedy(x)
+    caches = []
+    for k, c in enumerate(c1):
+        full = tt.stage_cache_init(cfg, k, n, slots, max_seq, dev)
+        full["pos"][slot:slot + 1].copy_(c["pos"])
+        for d, s_ in zip(_cache_leaves(full), _cache_leaves(c)):
+            d[slot:slot + 1].copy_(s_)
+        caches.append(full)
+    active = torch.zeros(slots, dtype=torch.bool, device=dev)
+    active[slot] = True
+    token = torch.zeros(slots, dtype=torch.int32, device=dev)
+    token[slot:slot + 1] = tok
+    out = [tok[0]]
+    for _ in range(max(0, gen - 1)):
+        x = token
+        for k, p in enumerate(shares):
+            x, caches[k] = tt.stage_decode(p, cfg, k, n, x, caches[k],
+                                           advance=active.to(torch.int32))
+        token = tt.greedy(x)
+        out.append(token[slot])
+    return [int(t) for t in torch.stack(out).cpu()]
+
+
+def _phase_stage_swap(seed):
+    """11c: stage 1 of a 2-stage chain swapped to a second seed's weights
+    while every client's first stream is mid-generation; each client's
+    second stream starts after the commit."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.core.element import element_factory
+    from repro_torch.core.plan import (_EXEC_CACHE, executable_cache_info,
+                                       tensor_ptrs)
+    from repro_torch.device import make_generator
+    from repro_torch.kernels import flash_attn as fa
+    cfg = stablelm_1_6b.config()
+    rng = np.random.default_rng(seed + 12)
+    clients = [([rng.integers(0, cfg.vocab, int(rng.integers(128, 513)))
+                 .tolist() for _ in range(2)],
+                [int(rng.integers(12, 21)), int(rng.integers(8, 17))])
+               for _ in range(SWAP_STREAMS)]
+    _reset_launches()
+    mark = _graph_mark()
+    rt, stages, runs = _staged_fleet("stablelm-1.6b-flash", 8, 1024,
+                                     clients, seed, 2)
+    coord = _coord(rt)
+    _, srv1, ssrc1 = stages[1]
+    box, at = {}, {}
+    commit = STAGE_SWAP_REQUEST_TICK + 2
+
+    def before(t):
+        if t == STAGE_SWAP_REQUEST_TICK + 1:
+            box["rc"] = rt.reconfigure(srv1, srv1.pipe.reconfig().swap(
+                "lm", element_factory(
+                    "model_serve_stage", model="stablelm-1.6b-flash",
+                    slots="8", max_seq="1024", stage="1", n_stages="2")),
+                warm_ticks=1, rng=make_generator(seed + 1, rt.device))
+        if t == commit:
+            at["graphs_before"] = executable_cache_info()["graphs"]
+            at["in_flight"] = coord.active_streams()
+            at["answers"] = [len(r.sink_log.get("res", [])) for r in runs]
+    old = srv1.params["lm"]
+    tick_ms, _ = _drive(rt, runs, clients, max_ticks=300, before_tick=before)
+    mem = _graph_since(mark)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    rc = box["rc"]
+    check(rc.status == "committed" and rc.committed_tick == commit,
+          f"11c: {rc.status} at tick {rc.committed_tick}, expected a commit "
+          f"at tick {commit}")
+    epoch = ssrc1.endpoint.spec["serve_epoch"]
+    st = coord.stats()
+    _ledgers_balance(coord, "11c")
+    check(epoch >= 1 and at["in_flight"] == SWAP_STREAMS and
+          at["answers"] == [0] * SWAP_STREAMS,
+          f"11c: serve_epoch {epoch}, at the commit {at}")
+    check(st["replays"] == 0 and st["tokens_dropped"] == 0 and
+          st["prefills"] == st["streams_started"] == 2 * SWAP_STREAMS and
+          st["stage_replays"] >= 2,
+          f"11c: a stream restarted or the stage was not replayed: {st}")
+    new = srv1.params["lm"]
+    check(new is not old, "11c: the swap kept the old params")
+    old_ptrs = tensor_ptrs(old)
+    stale = sum(1 for e in _EXEC_CACHE.values()
+                for f in e["fns"].values() for b in f._bindings.values()
+                if b.ptrs & old_ptrs)
+    graphs_after = executable_cache_info()["graphs"]
+    check(stale == 0, f"11c: {stale} bindings keyed on the retired slice")
+    check(graphs_after <= at["graphs_before"],
+          f"11c: live graphs {at['graphs_before']} -> {graphs_after}")
+    hop_servers = _stage_batchers(rt, [srv1])
+    want = _stage_launches(coord, hop_servers, cfg.n_layers // 2)
+    check(launches == want, f"11c: launches {launches}, the chain's work "
+                            f"implies {want}")
+    del old
+    shares = [stages[0][1].params["lm"], new]
+    ecfg = srv1.pipe.elements["lm"].cfg
+    for i, run in enumerate(runs):
+        bufs = run.sink_log.get("res", [])
+        check(len(bufs) == 2 and [len(b.tensor) for b in bufs] ==
+              clients[i][1], f"11c: client {i}'s answers "
+                             f"{[len(b.tensor) for b in bufs]}")
+        ref = _composite_decode(shares, ecfg, clients[i][0][1],
+                                clients[i][1][1], 1024, 8,
+                                bufs[1].meta["slot"])
+        check(np.asarray(bufs[1].tensor).tolist() == ref,
+              f"11c: client {i}'s post-commit answer != the composite "
+              f"model's")
+    steady = tick_ms[1:STAGE_SWAP_REQUEST_TICK]
+    row = dict(streams=2 * SWAP_STREAMS, commit_tick=commit,
+               serve_epoch=epoch,
+               steady_tick_ms_median=float(np.median(steady)),
+               commit_tick_ms=tick_ms[commit - 1],
+               after_commit_tick_ms=tick_ms[commit:commit + 2],
+               graphs_live_before_commit=at["graphs_before"],
+               graphs_live_after=graphs_after,
+               stage_replays=st["stage_replays"],
+               stage_replay_steps=st["stage_replay_steps"],
+               launches=launches, **mem)
+    print(f"phase 11c stage swap: stage 1 of the 2-stage stablelm-1.6b "
+          f"chain to a second seed's weights with {at['in_flight']} "
+          f"streams mid-generation: committed at tick {commit}, serve_epoch "
+          f"{epoch}, no stream restarted ({st['stage_replay_steps']} replay "
+          f"steps); {SWAP_STREAMS} post-commit answers bitwise the "
+          f"composite model's; host ms steady tick median "
+          f"{row['steady_tick_ms_median']:.1f}, commit tick "
+          f"{row['commit_tick_ms']:.1f}, next two "
+          f"{_fmt(row['after_commit_tick_ms'])}; live graphs before/after "
+          f"{at['graphs_before']}/{graphs_after}, no binding on the retired "
+          f"slice; launches {launches}")
+    del rt, stages, runs, new, shares
+    return row
+
+
+def _phase_staged_small(seed):
+    """11d: fp32 stablelm-smoke-4l with flash, 2 stages on the card, ==
+    the port's CPU path on the same weights; its prefill takes K5's fp32
+    route."""
+    import dataclasses as dc
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models import transformer
+    scfg = dc.replace(ms.SERVE_MODELS["stablelm-smoke-4l"](),
+                      use_flash_attn=True)
+    ms.register_serve_model("stablelm-smoke-4l-flash", lambda: scfg)
+    clients = [([[i + 1, i + 2, i + 3], [i + 4]], [6, 4]) for i in range(4)]
+    _reset_launches()
+    rt, stages, runs = _staged_fleet("stablelm-smoke-4l-flash", 4, 32,
+                                     clients, seed, 2)
+    _drive(rt, runs, clients, max_ticks=60)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
+    shares = [transformer.params_from_numpy(_to_numpy(r.params["lm"]), scfg,
+                                            "cpu") for _, r, _ in stages]
+    crt, _, cruns = _staged_fleet("stablelm-smoke-4l-flash", 4, 32, clients,
+                                  seed, 2, device="cpu", shares=shares)
+    _drive(crt, cruns, clients, max_ticks=60)
+    got, cpu = _tokens(runs), _tokens(cruns)
+    check(all(len(a) == 2 for a in got) and got == cpu,
+          f"11d: card {got} != the port's CPU path {cpu}")
+    check(routes["scalar"] == launches["flash_attention"] > 0 and
+          launches["flash_decode"] > 0,
+          f"11d: launches {launches}, K5 by route {routes}")
+    _ledgers_balance(_coord(rt), "11d")
+    print(f"phase 11d fp32 stablelm-smoke-4l (flash) over 2 stages on the "
+          f"card == the port's CPU path: {sum(len(a) for a in got)} "
+          f"answers; K5 by route {routes}, launches {launches}")
+    return dict(answers=sum(len(a) for a in got), launches=launches,
+                prefill_route_launches=routes)
+
+
+def phase_staged(seed, serve4):
+    """11: staged pipeline-parallel serving on the card."""
+    import dataclasses as dc
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.launch import model_serve as ms
+    cfg = dc.replace(stablelm_1_6b.config(), use_flash_attn=True)
+    ms.register_serve_model("stablelm-1.6b-flash", lambda: cfg)
+    rows = {}
+    rows["11a N=2"], shares, answers = _phase_staged_serve(seed, serve4, 2)
+    # continuous == sequential, on the tree the stages compose to: one
+    # replay a stream serves both N (the N = 4 answers equal the N = 2 ones)
+    full = _composed(shares)
+    for prompt, gen, got, slot in answers:
+        ref = ms.sequential_decode(full, cfg, prompt, gen, 1024, slots=8,
+                                   slot=slot)
+        check(got == ref, f"11a: a {len(prompt)}-token prompt's answer in "
+                          f"slot {slot} != sequential_decode")
+    del shares, full
+    print(f"phase 11a continuous == sequential decode: {len(answers)} "
+          f"streams bitwise on the tree the stages compose to")
+    rows["11a N=4"], _, answers4 = _phase_staged_serve(seed, serve4, 4)
+    check([a[2] for a in answers4] == [a[2] for a in answers],
+          "11a: the N = 4 chain's answers != the N = 2 chain's")
+    rows["11b"] = _phase_staged_failover(seed)
+    rows["11c"] = _phase_stage_swap(seed)
+    rows["11d"] = _phase_staged_small(seed)
+    counts = {}
+    for row in rows.values():
+        for k, v in row["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    rows["launches"] = counts
+    return rows
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -2789,6 +3373,7 @@ def main(argv=None):
     graphs = phase_graphs(args.seed, {**serve4, **serve}, offload, answers6)
     del answers6
     failover = phase_failover(args.seed)
+    staged = phase_staged(args.seed, serve4)
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -2833,6 +3418,9 @@ def main(argv=None):
     # K1/K2 (10b) and K5/K6 (10a, 10c) carry failover and the hot swap
     for row in kernels[:2] + kernels[4:6]:
         row["launches_phase10"] = failover["launches"][row["name"]]
+    # K5/K6 carry staged serving (11a–11d)
+    for row in kernels[4:6]:
+        row["launches_phase11"] = staged["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2845,7 +3433,8 @@ def main(argv=None):
                                    "scan_kernel": scan,
                                    "rglru_serve": rglru,
                                    "graphs": graphs,
-                                   "failover": failover},
+                                   "failover": failover,
+                                   "staged": staged},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,15 +11,16 @@ from .plan import (ExecutionPlan, PendingQuery, clear_executable_cache,
                    executable_cache_info)
 from .admission import (AdmissionQueue, QoSConfig, TenantSpec,
                         DEFAULT_TENANT)
-from .batching import BatchingPolicy, QueryBatcher, StreamingQueryBatcher
+from .batching import (BatchingPolicy, QueryBatcher, StagedStreamingBatcher,
+                       StageQueryBatcher, StreamingQueryBatcher)
 from .broker import Broker, BrokerError, topic_matches
 from .pubsub import Channel, MqttSink, MqttSrc, Transport
 from .elements import (Compositor, Queue, Queue2, Tee, TensorDecoder,
                        TensorDemux, TensorIf, TensorMux, VideoScale)
 from .query import (QueryServerEndpoint, QueryTransport, TensorQueryClient,
                     TensorQueryServerSink, TensorQueryServerSrc)
-from .modelserve import (ModelServeElement, TokenPromptSrc, SERVE_MODELS,
-                         register_serve_model)
+from .modelserve import (ModelServeElement, ModelServeStageElement,
+                         TokenPromptSrc, SERVE_MODELS, register_serve_model)
 from .reconfig import (ReconfigError, ReconfigManager, ReconfigPlan,
                        Reconfiguration)
 from .sync import PipelineClock, SimClock, ntp_offset
@@ -35,13 +36,15 @@ __all__ = [
     "executable_cache_info",
     "AdmissionQueue", "QoSConfig", "TenantSpec", "DEFAULT_TENANT",
     "BatchingPolicy", "QueryBatcher", "StreamingQueryBatcher",
+    "StageQueryBatcher", "StagedStreamingBatcher",
     "Broker", "BrokerError", "topic_matches",
     "Channel", "MqttSink", "MqttSrc", "Transport",
     "Compositor", "Queue", "Queue2", "Tee", "TensorDecoder", "TensorDemux",
     "TensorIf", "TensorMux", "VideoScale",
     "QueryServerEndpoint", "QueryTransport", "TensorQueryClient",
     "TensorQueryServerSink", "TensorQueryServerSrc",
-    "ModelServeElement", "TokenPromptSrc", "SERVE_MODELS",
+    "ModelServeElement", "ModelServeStageElement", "TokenPromptSrc",
+    "SERVE_MODELS",
     "register_serve_model",
     "ReconfigError", "ReconfigManager", "ReconfigPlan", "Reconfiguration",
     "PipelineClock", "SimClock", "ntp_offset",

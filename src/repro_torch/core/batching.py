@@ -9,8 +9,10 @@ one answer when the generation budget is spent.  A dead endpoint never
 serves: its admitted requests close as ``server-died`` sheds on the orphan
 ledger and re-dispatch from the scheduler's PendingQuery records, and a
 streaming server's live streams become declared drops that regenerate by
-prefill replay (DESIGN.md §3, §7).  The stage batchers and the delivery
-guard wait (ROADMAP M8, M10).
+prefill replay (DESIGN.md §3, §7).  :class:`StageQueryBatcher` and
+:class:`StagedStreamingBatcher` serve one model split into stage
+pipelines, boundary activations hopping stage to stage (DESIGN.md §8).
+The delivery guard waits (ROADMAP M10).
 
 Requests drain through one :class:`~.admission.AdmissionQueue`; the port
 runs it at ``qos=None`` — global arrival order, plus the per-tenant ledger.
@@ -26,11 +28,13 @@ import numpy as np
 import torch
 
 from .admission import AdmissionQueue
+from .broker import BrokerError
 from .buffers import StreamBuffer, structure_key, unstack_buffers
 from .query import QueryServerEndpoint
 from . import compression as comp
 
 __all__ = ["BatchingPolicy", "QueryBatcher", "StreamingQueryBatcher",
+           "StageQueryBatcher", "StagedStreamingBatcher",
            "DEFAULT_QUERY_BATCH"]
 
 DEFAULT_QUERY_BATCH = 8
@@ -351,6 +355,20 @@ class QueryBatcher:
         self.fused_frames += n
         self._count(n)
 
+    def _serve_tick(self) -> Callable:
+        """The stateful serve tick of a stream-serving run: the cached
+        executable (a CUDA graph on the card), or one eager hoisted ``run``
+        for a run added with ``jit=False``."""
+        run = self.run
+        plan = run.pipe.plan
+        if run.jit:
+            return plan.compiled_serve_tick(run.state)
+
+        def serve(params, state, inputs):
+            return plan.run(params, state, inputs, hoist_io=True,
+                            hoist_queries=True)
+        return serve
+
     def _count(self, n: int):
         self.batched_frames += n
         if n > 1:
@@ -494,12 +512,15 @@ class StreamingQueryBatcher(QueryBatcher):
             return 0
         served = self._admit()
         tick = self.tick_source()
-        if tick != self._last_decode_tick and (self._slots or self._waiting):
+        if tick != self._last_decode_tick and self._has_decode_work():
             self._last_decode_tick = tick
             served += self._decode_tick()
         if served:
             self.flushes += 1
         return served
+
+    def _has_decode_work(self) -> bool:
+        return bool(self._slots or self._waiting)
 
     def _admit(self) -> int:
         finished = 0
@@ -572,14 +593,8 @@ class StreamingQueryBatcher(QueryBatcher):
         sink = plan.query_sinks[0].name
         t0 = time.perf_counter()
         elem.admit(run.state[elem.name], elem.build_admit(admits))
-        if run.jit:
-            serve = plan.compiled_serve_tick(run.state)
-        else:
-            def serve(params, state, inputs):
-                return plan.run(params, state, inputs, hoist_io=True,
-                                hoist_queries=True)
-        outputs, run.state = serve(run.params, run.state,
-                                   {src: elem.empty_admit()})
+        outputs, run.state = self._serve_tick()(
+            run.params, run.state, {src: elem.empty_admit()})
         toks, emitted, finished = outputs[sink].tensors
         lanes = torch.stack([toks, emitted.to(torch.int32),
                              finished.to(torch.int32)]).cpu().numpy()
@@ -682,3 +697,543 @@ class StreamingQueryBatcher(QueryBatcher):
             "decode_seconds": self.decode_seconds,
         })
         return base
+
+
+class StageQueryBatcher(QueryBatcher):
+    """Hop server of a DOWNSTREAM ``model_serve_stage`` pipeline (stage
+    k >= 1 of a chain, DESIGN.md §8).  Its endpoint receives hop requests
+    from the chain's :class:`StagedStreamingBatcher`, never prompts;
+    ``meta["hop"]`` selects the verb:
+
+    * ``"prefill"`` — stage-local prefill of one stream's boundary
+      activations; the batch-1 cache PARKS here under the coordinator's
+      stream id ``meta["sid"]`` (caches never cross the wire, only
+      activations do), and the boundary output answers.
+    * ``"replay"`` — one retained step folded into a parked cache, in the
+      stream's slot row ``meta["slot"]``: a replacement stage rebuilds
+      exactly its own slice of a dead stage's state.
+    * ``"decode"`` — one slot-table hop: ``meta["admit"]`` maps joining
+      slots to parked stream ids (copied into the slot rows eagerly, then
+      the cached hop runs, a CUDA graph on the card), ``meta["live"]``
+      prunes the parked caches of finished streams.
+
+    Epoch fencing: every reconfiguration of this pipeline bumps
+    ``endpoint.spec["serve_epoch"]``; the coordinator trusts a stage's
+    slot caches only while (endpoint identity, epoch) are unchanged, so a
+    hot-swapped stage recovers by the same stage-local replay as a dead
+    one.
+
+    Hop traffic drains the admission queue one request at a time, first
+    in first out, whatever the runtime's QoS: each hop is one step of a
+    stream the coordinator already admitted.  A decode hop's active rows
+    are counted on the device (the mask arrives there) and read when
+    :meth:`stats` asks."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._parked: Dict[int, Dict] = {}     # stream id -> batch-1 cache
+        self.epoch = 0
+        self.endpoint.spec.setdefault("serve_epoch", 0)
+        self.prefills = 0
+        self.replay_steps = 0
+        self.decode_hops = 0
+        #: active rows over all decode hops, and hops with more than one,
+        #: as device scalars
+        self._active_rows: Optional[torch.Tensor] = None
+        self._wide_hops: Optional[torch.Tensor] = None
+
+    def _serve_elem(self):
+        for op in self.run.pipe.plan.ops:
+            if getattr(op.elem, "is_stage_serve", False):
+                return op.elem
+        raise RuntimeError("StageQueryBatcher on a non-stage plan")
+
+    def flush(self) -> int:
+        if not self.endpoint.alive:
+            self._parked.clear()
+            self._shed_dead()
+            return 0
+        adm = self.admission
+        served = 0
+        while self.endpoint.alive:
+            self._ingest()
+            recs = adm.take(1)
+            if not recs:
+                break
+            self._serve_hop(recs[0].raw)
+            adm.mark_served(recs[0])
+            served += 1
+        if served:
+            self.flushes += 1
+        return served
+
+    def _serve_hop(self, raw: StreamBuffer):
+        clean, routing = self._decode(raw)
+        kind = clean.meta.get("hop", "decode")
+        elem = self._serve_elem()
+        params = self.run.params.get(elem.name, {})
+        if kind == "prefill":
+            sid = int(clean.meta["sid"])
+            out, cache = elem.host_stage_prefill(params, clean.tensors[0])
+            self._parked[sid] = cache
+            self.prefills += 1
+        elif kind == "replay":
+            sid = int(clean.meta["sid"])
+            out, cache = elem.host_stage_decode_idempotent(
+                params, clean.tensors[0], self._parked[sid],
+                int(clean.meta["slot"]), hop_id=routing.get("dseq"))
+            self._parked[sid] = cache
+            self.replay_steps += 1
+        else:
+            out = self._serve_decode_hop(clean, elem)
+        sink = self.run.pipe.plan.query_sinks[0]
+        answer = StreamBuffer(tensors=(out,), meta=dict(routing))
+        sink.apply(self.run.params.get(sink.name, {}), [answer])
+
+    def _serve_decode_hop(self, clean: StreamBuffer, elem):
+        x, active = clean.tensors
+        admits = [(int(slot), self._parked.pop(int(sid)))
+                  for slot, sid in clean.meta.get("admit", ())]
+        live = clean.meta.get("live")
+        if live is not None:
+            keep = set(int(s) for s in live)
+            self._parked = {s: c for s, c in self._parked.items()
+                            if s in keep}
+        run = self.run
+        plan = run.pipe.plan
+        src = plan.query_sources[0].name
+        sink = plan.query_sinks[0].name
+        hop = elem.admit(run.state[elem.name],
+                         elem.build_hop(x, active, admits))
+        outputs, run.state = self._serve_tick()(run.params, run.state,
+                                                {src: hop})
+        self.decode_hops += 1
+        run.frames += 1
+        n = active.sum()
+        if self._active_rows is None:
+            self._active_rows = torch.zeros_like(n)
+            self._wide_hops = torch.zeros_like(n)
+        self._active_rows += n
+        self._wide_hops += n > 1
+        return outputs[sink].tensors[0]
+
+    def on_reconfig(self):
+        """Stage hot-swapped under the chain: the parked caches and slot
+        rows belong to the OLD epoch; drop the parked ones and bump the
+        epoch fence, so the coordinator replays this stage before
+        trusting it."""
+        super().on_reconfig()
+        self._parked.clear()
+        self.epoch += 1
+        self.endpoint.spec["serve_epoch"] = self.epoch
+
+    def stats(self) -> Dict[str, int]:
+        base = super().stats()
+        rows = wide = 0
+        if self._active_rows is not None:
+            rows, wide = (int(v) for v in torch.stack(
+                [self._active_rows, self._wide_hops]).cpu())
+        base["batched_frames"] += rows
+        base["batches"] += wide
+        base.update({
+            "stage_prefills": self.prefills,
+            "stage_replay_steps": self.replay_steps,
+            "decode_hops": self.decode_hops,
+            "slot_steps": rows,
+            "parked_caches": len(self._parked),
+        })
+        return base
+
+
+class StagedStreamingBatcher(StreamingQueryBatcher):
+    """The chain coordinator (DESIGN.md §8): the streaming request
+    lifecycle of :class:`StreamingQueryBatcher`, with the model split over
+    N ``model_serve_stage`` pipelines discovered through the broker.
+
+    It is wired on STAGE 0's endpoint (the client-facing ``query/<op>``
+    topic) and owns the slot table.  Stage 0 serves inline through its own
+    run's serve tick; stage k >= 1 is reached as a hop: a request pushed
+    onto the best-ranked endpoint of ``query/<op>/s<k>``, served by that
+    stage's :class:`StageQueryBatcher` through the endpoint's inline
+    runner, the answer popped off the coordinator's response channel, as
+    ``tensor_query_client.apply`` does.  Broker ranking, leases and the
+    reconfiguration lifecycle thus apply per stage.
+
+    Admission runs a PREFILL CHAIN: stage 0 prefills and parks its batch-1
+    cache here, each later stage prefills the boundary activations and
+    parks its own slice, the last answers the first token.  Each decode
+    tick runs one hop per stage over the whole slot table.  Boundary
+    activations stay on the device; the last stage's int32 tokens are read
+    to the host once per tick.  The coordinator RETAINS each stream's
+    input to every stage (the prefill activations, then one step per
+    completed hop), the feedstock of the per-stage replay rule:
+
+    **Cache trust:** stage k's slot caches are trusted only while
+    (endpoint identity, serve_epoch) are unchanged since the last
+    successful hop.  On a change (death, lease expiry, failover to a
+    standby, win-back, a hot swap) the coordinator rebuilds ONLY stage k:
+    per live stream, the retained activations go through the stage's
+    prefill and replay verbs, and the parked caches re-merge into the slot
+    rows at the next hop.  No generation restarts; no token drops.
+
+    A hop that fails MID-TICK stalls the tick: stages < k already advanced
+    this step, so the pending-hop record keeps the in-flight activations
+    and the next flush resumes from stage k.  Conservation holds per
+    stage, ``hops_dispatched[k] == hops_completed[k] + hops_failed[k]``,
+    and the token law holds here.
+
+    The JAX package's hop can be at-least-once (delivery ids, checksums
+    and retransmits, counted in ``hop_retransmits``, ``hop_dups`` and
+    ``hop_corrupt``); that branch comes with the delivery layer (ROADMAP
+    M10).  The port's hop is single-shot and those counters stay 0.
+
+    ``hop_times[k]`` holds the host seconds of each decode hop of stage k
+    (stage 0: its admit and serve tick; not in :meth:`stats`)."""
+
+    def __init__(self, *args, broker=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.broker = broker
+        from .query import TensorQueryClient
+        self._hop_cid = next(TensorQueryClient._ids)
+        self._hops: Dict[int, Any] = {}         # stage -> broker Binding
+        self._trust: Dict[int, Optional[Tuple]] = {}
+        self._readmit: Dict[int, Dict[int, int]] = {}  # stage->{slot: sid}
+        self._pending_hop: Optional[Dict] = None
+        self._stalled: List[Dict] = []          # prefill chains to resume
+        self._sids = itertools.count(1)
+        self.hops_dispatched: Dict[int, int] = {}
+        self.hops_completed: Dict[int, int] = {}
+        self.hops_failed: Dict[int, int] = {}
+        self.stage_replays: Dict[int, int] = {}
+        self.stage_replay_steps: Dict[int, int] = {}
+        self.hop_retransmits = 0
+        self.hop_dups = 0
+        self.hop_corrupt = 0
+        self.hop_push_drops = 0
+        self.hop_times: Dict[int, List[float]] = {}
+
+    @property
+    def n_stages(self) -> int:
+        return self._serve_elem().n_stages
+
+    def _has_decode_work(self) -> bool:
+        return bool(self._slots or self._waiting or self._stalled
+                    or self._pending_hop)
+
+    # -- stage discovery and trust ---------------------------------------------
+    def _stage_binding(self, k: int):
+        b = self._hops.get(k)
+        if b is None:
+            op = self.endpoint.operation
+            b = self._hops[k] = self.broker.subscribe(
+                f"query/{op}/s{k}", prefer={"codec": "none", "stage": k})
+        return b
+
+    def _stage_endpoint(self, k: int):
+        try:
+            binding = self._stage_binding(k)
+            ep = binding.endpoint
+            if not ep.alive:
+                binding._rebind()
+                ep = binding.endpoint
+        except BrokerError:
+            return None
+        return ep if ep.alive else None
+
+    def _ensure_stage(self, k: int):
+        """Resolve stage k's endpoint and make its caches trustworthy: a
+        change of (endpoint identity, serve_epoch) since the last hop
+        replays the stage before it is used again."""
+        ep = self._stage_endpoint(k)
+        if ep is None:
+            return None
+        key = (ep.endpoint_id, ep.spec.get("serve_epoch", 0))
+        if self._trust.get(k) != key:
+            if not self._replay_stage(k, ep):
+                return None
+            self._trust[k] = key
+        return ep
+
+    def _replay_stage(self, k: int, ep) -> bool:
+        """Rebuild ONLY stage k's slice of every live stream's state from
+        the retained activations (DESIGN.md §8 replay rule)."""
+        recs = [self._slots[s] for s in sorted(self._slots)] + \
+            [r for r in self._waiting if r.get("sid") is not None]
+        self.stage_replays[k] = self.stage_replays.get(k, 0) + 1
+        for rec in recs:
+            acts = rec["acts"][k]
+            if self._raw_hop(ep, (acts[0],),
+                             {"hop": "prefill", "sid": rec["sid"]}) is None:
+                return False
+            for step in acts[1:]:
+                if self._raw_hop(ep, (step,),
+                                 {"hop": "replay", "sid": rec["sid"],
+                                  "slot": rec["slot"]}) is None:
+                    return False
+                self.stage_replay_steps[k] = \
+                    self.stage_replay_steps.get(k, 0) + 1
+        # slotted streams' rows on the new stage hold nothing of theirs
+        # until their freshly parked caches merge at the next decode hop
+        rd = self._readmit.setdefault(k, {})
+        for slot, rec in self._slots.items():
+            rd[slot] = rec["sid"]
+        return True
+
+    # -- the hop itself ----------------------------------------------------------
+    def _raw_hop(self, ep, tensors, meta) -> Optional[StreamBuffer]:
+        """One request -> inline serve -> answer round trip against a
+        resolved stage endpoint, with the coordinator as the client.
+        None when the endpoint cannot serve."""
+        buf = StreamBuffer(tensors=tuple(tensors), meta=dict(meta))
+        payload, nbytes = comp.encode(buf, "none")
+        payload = payload.with_(meta={**payload.meta,
+                                      "client_id": self._hop_cid,
+                                      "codec": "none"})
+        if not ep.requests.push(payload, nbytes):
+            self.hop_push_drops += 1
+        runner = ep.spec.get("inline_runner")
+        if runner is None or not ep.alive:
+            return None
+        runner()
+        raw = ep.client_channel(self._hop_cid).pop()
+        return None if raw is None else comp.decode(raw, "none")
+
+    def _hop(self, k: int, tensors, meta) -> Optional[StreamBuffer]:
+        ep = self._ensure_stage(k)
+        self.hops_dispatched[k] = self.hops_dispatched.get(k, 0) + 1
+        ans = None if ep is None else self._raw_hop(ep, tensors, meta)
+        if ans is None:
+            self.hops_failed[k] = self.hops_failed.get(k, 0) + 1
+            self._trust[k] = None       # whatever happened, re-secure first
+        else:
+            self.hops_completed[k] = self.hops_completed.get(k, 0) + 1
+        return ans
+
+    # -- admission (the prefill chain) -------------------------------------------
+    def _admit(self) -> int:
+        finished = 0
+        elem = self._serve_elem()
+        params = self.run.params.get(elem.name, {})
+        if self._replay:
+            # stage 0 was hot-swapped: the whole chain re-prefills these
+            # streams on the new epoch
+            replays, self._replay = self._replay, []
+            for rec in replays:
+                for key in ("cache0", "sid", "acts", "chain_next",
+                            "chain_x"):
+                    rec.pop(key, None)
+                finished += self._start_stream(rec, elem, params)
+        if self._stalled:
+            stalled, self._stalled = self._stalled, []
+            for rec in stalled:
+                t0 = time.perf_counter()
+                finished += self._resume_chain(rec)
+                self.prefill_seconds += time.perf_counter() - t0
+        adm = self.admission
+        while self.endpoint.alive:
+            self._ingest()
+            recs = adm.take(1)
+            if not recs:
+                break
+            arec = recs[0]
+            clean, routing = self._decode(arec.raw)
+            gen = int(clean.meta.get("gen", 1))
+            rec = {"routing": routing, "tokens": [],
+                   "prompt": clean.tensors[0], "gen": gen, "remaining": 0,
+                   "adm": arec}
+            self.streams_started += 1
+            self._track(rec)
+            finished += self._start_stream(rec, elem, params)
+        return finished
+
+    def _start_stream(self, rec: Dict, elem, params) -> int:
+        """Stage-0 prefill (its cache parked here) and the downstream
+        prefill chain.  Stage 0's own replay feedstock is the prompt."""
+        t0 = time.perf_counter()
+        out, cache0 = elem.host_stage_prefill(params, rec["prompt"])
+        self.prefills += 1
+        rec["tokens"] = []
+        rec["cache0"] = cache0
+        rec["sid"] = next(self._sids)
+        rec["acts"] = {k: [] for k in range(1, self.n_stages)}
+        rec["chain_next"] = 1
+        rec["chain_x"] = out
+        done = self._resume_chain(rec)
+        self.prefill_seconds += time.perf_counter() - t0
+        return done
+
+    def _resume_chain(self, rec: Dict) -> int:
+        k = rec["chain_next"]
+        x = rec["chain_x"]
+        while k < self.n_stages:
+            rec["acts"][k] = [x]    # assign, not append: retries overwrite
+            ans = self._hop(k, (x,), {"hop": "prefill", "sid": rec["sid"]})
+            if ans is None:
+                rec["chain_next"], rec["chain_x"] = k, x
+                self._stalled.append(rec)
+                return 0
+            x = ans.tensors[0]
+            k += 1
+        del rec["chain_next"], rec["chain_x"]
+        rec["tokens"] = [int(x.reshape(()))]    # the first token's host read
+        self.tokens_generated += 1
+        rec["remaining"] = max(0, rec["gen"] - 1)
+        if rec["remaining"] <= 0:
+            self._finish(rec)
+            return 1
+        self._waiting.append(rec)
+        return 0
+
+    # -- the per-tick decode chain -----------------------------------------------
+    def _decode_tick(self) -> int:
+        """One step of the chain over the slot table; its host seconds
+        (replays of untrusted stages included) go to ``decode_times``."""
+        if self._pending_hop is None and not (self._slots or self._waiting):
+            return 0                # only stalled prefill chains
+        t0 = time.perf_counter()
+        if self._pending_hop is not None:
+            # a stage died mid-tick: stages < k already advanced this step;
+            # resume the SAME step from stage k, never re-run it
+            done = self._run_chain()
+        else:
+            done = self._start_tick()
+        self.decode_times.append(time.perf_counter() - t0)
+        self.decode_seconds += self.decode_times[-1]
+        return done
+
+    def _start_tick(self) -> int:
+        run = self.run
+        elem = self._serve_elem()
+        free = [s for s in range(elem.slots) if s not in self._slots]
+        admits0 = []
+        while free and self._waiting:
+            rec = self._waiting.pop(0)
+            slot = free.pop(0)
+            admits0.append((slot, rec["cache0"]))
+            rec["cache0"] = None    # stage 0's slice lives in plan state now
+            rec["slot"] = slot
+            self._slots[slot] = rec
+            for k in range(1, self.n_stages):
+                self._readmit.setdefault(k, {})[slot] = rec["sid"]
+        t0 = time.perf_counter()
+        active = np.zeros((elem.slots,), np.bool_)
+        tok = np.zeros((elem.slots,), np.int32)
+        for slot, rec in self._slots.items():
+            active[slot] = True
+            tok[slot] = rec["tokens"][-1]
+        active_t = torch.from_numpy(active).to(run.device)
+        plan = run.pipe.plan
+        src = plan.query_sources[0].name
+        sink = plan.query_sinks[0].name
+        hop = elem.admit(run.state[elem.name], elem.build_hop(
+            torch.from_numpy(tok).to(run.device), active_t, admits0))
+        outputs, run.state = self._serve_tick()(run.params, run.state,
+                                                {src: hop})
+        self.hop_times.setdefault(0, []).append(time.perf_counter() - t0)
+        self.decode_ticks += 1
+        run.frames += 1
+        n_active = int(active.sum())
+        self.batched_frames += n_active
+        if n_active > 1:
+            self.batches += 1
+        self._pending_hop = {"k": 1, "x": outputs[sink].tensors[0],
+                             "active": active, "active_t": active_t}
+        return self._run_chain()
+
+    def _run_chain(self) -> int:
+        ph = self._pending_hop
+        x, active, k = ph["x"], ph["active"], ph["k"]
+        live = tuple(sorted(rec["sid"] for rec in self._iter_recs()
+                            if rec.get("sid") is not None))
+        while k < self.n_stages:
+            # secure the stage BEFORE assembling the admit list: a trust
+            # break replays into _readmit[k], and those freshly parked
+            # caches must merge on THIS hop
+            self._ensure_stage(k)
+            rd = self._readmit.get(k, {})
+            admit = tuple((int(slot), int(sid))
+                          for slot, sid in sorted(rd.items())
+                          if active[slot])
+            t0 = time.perf_counter()
+            ans = self._hop(k, (x, ph["active_t"]),
+                            {"hop": "decode", "admit": admit, "live": live})
+            if ans is None:
+                ph["k"], ph["x"] = k, x
+                return 0
+            self.hop_times.setdefault(k, []).append(time.perf_counter() - t0)
+            # x is now part of stage k's committed history: retain it as
+            # replay feedstock AFTER the hop (an in-flight step must not be
+            # replayed into a cache it never reached).  Hop outputs are
+            # fresh tensors, so a retained row is never overwritten.
+            for slot, rec in self._slots.items():
+                rec["acts"][k].append(x[slot:slot + 1])
+            self._readmit[k] = {}
+            x = ans.tensors[0]
+            k += 1
+        self._pending_hop = None
+        toks = x.cpu().numpy()      # the tick's one host read
+        done = 0
+        for slot in sorted(self._slots):
+            rec = self._slots[slot]
+            rec["tokens"].append(int(toks[slot]))
+            self.tokens_generated += 1
+            rec["remaining"] -= 1
+            if rec["remaining"] <= 0:
+                self._finish(rec)
+                del self._slots[slot]
+                for rd in self._readmit.values():
+                    rd.pop(slot, None)
+                done += 1
+        return done
+
+    def _iter_recs(self):
+        yield from self._slots.values()
+        yield from self._waiting
+        yield from self._stalled
+
+    # -- lifecycle edges -----------------------------------------------------------
+    def on_reconfig(self):
+        """Stage 0's pipeline was hot-swapped: whole-stream replay (its
+        slice of the state starts afresh at the commit), stalled
+        admissions join the replay queue, and downstream stages see fresh
+        stream ids (their stale parked caches prune at the next hop's live
+        list)."""
+        stalled, self._stalled = self._stalled, []
+        super().on_reconfig()
+        for rec in stalled:
+            self.replays += 1
+            rec["tokens"] = []
+            self._replay.append(rec)
+        self._pending_hop = None
+        self._readmit = {}
+
+    def _abort_streams(self):
+        super()._abort_streams()
+        self._stalled.clear()
+        self._pending_hop = None
+        self._readmit = {}
+        self._trust = {}
+
+    def stats(self) -> Dict[str, int]:
+        base = super().stats()
+        base.update({
+            "hops_dispatched": sum(self.hops_dispatched.values()),
+            "hops_completed": sum(self.hops_completed.values()),
+            "hops_failed": sum(self.hops_failed.values()),
+            "stage_replays": sum(self.stage_replays.values()),
+            "stage_replay_steps": sum(self.stage_replay_steps.values()),
+            "hop_retransmits": self.hop_retransmits,
+            "hop_dups": self.hop_dups,
+            "hop_corrupt": self.hop_corrupt,
+            "hop_push_drops": self.hop_push_drops,
+        })
+        return base
+
+    def stage_ledger(self, k: int) -> Dict[str, int]:
+        """Per-stage hop conservation record: every dispatched hop is
+        completed or failed."""
+        return {"dispatched": self.hops_dispatched.get(k, 0),
+                "completed": self.hops_completed.get(k, 0),
+                "failed": self.hops_failed.get(k, 0),
+                "replays": self.stage_replays.get(k, 0),
+                "replay_steps": self.stage_replay_steps.get(k, 0)}

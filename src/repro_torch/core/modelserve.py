@@ -1,6 +1,7 @@
 """Model serving elements — a real autoregressive LM behind the query fabric.
 
-Port of ``ModelServeElement``, ``TokenPromptSrc`` and the preset registry of
+Port of ``ModelServeElement``, ``ModelServeStageElement``,
+``TokenPromptSrc`` and the preset registry of
 ``src/repro/core/modelserve.py``.  ``model_serve`` sits behind
 ``tensor_query_serversrc ! model_serve ! tensor_query_serversink``; its
 decode state is PLAN STATE — a slot-stacked KV cache plus active / token /
@@ -28,9 +29,17 @@ Differences from the JAX package, same results:
   Inactive slots may be written or advanced with values nobody reads: a
   slot's rows and state are replaced wholesale, every leaf, when a stream
   is admitted into it.
+* ``model_serve_stage`` (one layer slice of a pipeline-parallel chain,
+  DESIGN.md §8) keeps boundary activations and its caches on the device,
+  admits parked caches eagerly before its graphed hop as the decode tick
+  does, and replays a parked stream's steps at the serve batch in the
+  stream's own slot row (:meth:`ModelServeStageElement.host_stage_decode`)
+  where JAX replays at batch 1: a batch-1 GEMM need not be bitwise a row
+  of a batch-S one, and on the card it is not (chip_smoke phase 11b).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, Dict, List
 
 import torch
@@ -39,8 +48,8 @@ from .buffers import StreamBuffer, tree_flatten
 from .element import Element, PipelineContext, register_element
 from .formats import Caps
 
-__all__ = ["ModelServeElement", "TokenPromptSrc", "SERVE_MODELS",
-           "register_serve_model"]
+__all__ = ["ModelServeElement", "ModelServeStageElement", "TokenPromptSrc",
+           "SERVE_MODELS", "register_serve_model"]
 
 # Preset registry: ``model_serve model=<key>`` resolves through here.
 # Values are zero-arg callables returning a ModelConfig.
@@ -50,6 +59,22 @@ SERVE_MODELS: Dict[str, Callable] = {}
 def register_serve_model(key: str, cfg_fn: Callable):
     SERVE_MODELS[key] = cfg_fn
     return cfg_fn
+
+
+def _stack_caches(caches) -> List[torch.Tensor]:
+    """Batch-1 caches stacked along the slot axis on the device: ``pos``,
+    then each layer leaf in the order every cache keeps them."""
+    cols = zip(*[tree_flatten(c["layers"])[0] for c in caches])
+    return [torch.cat([c["pos"] for c in caches])] + \
+        [col[0] if len(col) == 1 else torch.cat(col) for col in cols]
+
+
+def _copy_rows(cache: dict, slots: torch.Tensor, pos, leaves):
+    """Copy stacked caches (:func:`_stack_caches`) into the ``slots`` rows
+    of a batch-S cache, in place, ``pos`` included."""
+    cache["pos"].index_copy_(0, slots, pos)
+    for d, src in zip(tree_flatten(cache["layers"])[0], leaves):
+        d.index_copy_(0, slots, src)
 
 
 def _default_presets():
@@ -133,11 +158,7 @@ class ModelServeElement(Element):
         if bundle.meta.get("empty"):
             return
         slots, tok, rem, pos, *leaves = bundle.tensors
-        cache = st["cache"]
-        cache["pos"].index_copy_(0, slots, pos)
-        dst, _ = tree_flatten(cache["layers"])
-        for d, src in zip(dst, leaves):
-            d.index_copy_(0, slots, src)
+        _copy_rows(st["cache"], slots, pos, leaves)
         st["token"].index_copy_(0, slots, tok)
         st["remaining"].index_copy_(0, slots, rem)
         st["active"].index_fill_(0, slots, True)
@@ -191,11 +212,201 @@ class ModelServeElement(Element):
                            device=dev)
         rem = torch.tensor([a[2] for a in admits], dtype=torch.int32,
                            device=dev)
-        caches = [a[3] for a in admits]
-        pos = torch.cat([c["pos"] for c in caches])
-        cols = zip(*[tree_flatten(c["layers"])[0] for c in caches])
-        leaves = [col[0] if len(col) == 1 else torch.cat(col) for col in cols]
-        return StreamBuffer(tensors=(slots, tok, rem, pos, *leaves), meta={})
+        return StreamBuffer(tensors=(slots, tok, rem, *_stack_caches(
+            [a[3] for a in admits])), meta={})
+
+
+@register_element("model_serve_stage")
+class ModelServeStageElement(ModelServeElement):
+    """One pipeline-parallel stage of a model behind the query fabric
+    (DESIGN.md §8): layers ``[stage*R/N, (stage+1)*R/N)`` of the preset
+    plus that slice of the slot-stacked decode cache as plan state.  The
+    first stage embeds tokens, the last norms and unembeds; per-slot
+    boundary activations hop stage to stage over the query fabric, driven
+    by the StagedStreamingBatcher on stage 0.
+
+    State is the stage cache only (``pos`` int32 [S] included): the
+    coordinator owns the slot table and ships ``active`` as a device
+    tensor with every hop.
+
+    Input frame (:meth:`build_hop`): ``(x_in, active)`` with
+    ``meta={"empty": True}``, or ``(x_in, active, slots, pos,
+    *cache_leaves)`` on a hop with joins (parked batch-1 caches for those
+    slots).  ``x_in`` is ``token`` int32 [S] on stage 0, activations
+    [S, 1, d] after it; ``active`` is bool [S].  Output frame: the next
+    stage's activations [S, 1, d] (zero where inactive), or ``token``
+    int32 [S] from the last stage (zero where inactive).  Active rows
+    advance ``pos``; an inactive row keeps its ``pos``, so its valid
+    history is untouched (its attention layers write one row past it,
+    which an admit overwrites with every other leaf of the row)."""
+
+    is_stage_serve = True
+
+    def __init__(self, name=None, model="stablelm-smoke-flash", slots=8,
+                 max_seq=64, stage=0, n_stages=1, **props):
+        super().__init__(name=name, model=model, slots=slots,
+                         max_seq=max_seq, **props)
+        self.stage = int(props.get("stage", stage))
+        self.n_stages = int(props.get("n_stages", n_stages))
+        self._scratch = None
+        self._hop_memo = None
+
+    @property
+    def is_first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def is_last(self) -> bool:
+        return self.stage == self.n_stages - 1
+
+    # -- params / state -------------------------------------------------------
+    def init_params(self, generator, device) -> dict:
+        """Draw the FULL model from ``generator``, then keep this stage's
+        share.  Every stage pipeline puts its model element first in topo
+        order (``ssrc ! lm ! ssink``), so a stage given the monolithic
+        server's seed draws the monolithic tree, and the slices compose
+        back to it exactly (the staged == monolithic pin rests on this).
+        The other stages' layers are freed when this returns."""
+        from ..models import transformer
+        full = transformer.init_params(self.cfg, generator, device)
+        return transformer.stage_params(full, self.cfg, self.stage,
+                                        self.n_stages)
+
+    def init_state(self, device) -> dict:
+        from ..models import transformer
+        self._device = device
+        return {"cache": transformer.stage_cache_init(
+            self.cfg, self.stage, self.n_stages, self.slots, self.max_seq,
+            device)}
+
+    # -- the stage hop ----------------------------------------------------------
+    def build_hop(self, x_in, active, admits) -> StreamBuffer:
+        """One decode-hop bundle.  ``admits`` is a list of ``(slot,
+        batch-1 stage cache)`` joining this hop; no admits give the
+        steady-state ``(x_in, active)`` bundle.  Cache leaves are stacked
+        along the slot axis on the device."""
+        if not admits:
+            return StreamBuffer(tensors=(x_in, active), meta={"empty": True})
+        slots = torch.tensor([a[0] for a in admits], dtype=torch.long,
+                             device=self._device)
+        return StreamBuffer(tensors=(x_in, active, slots, *_stack_caches(
+            [a[1] for a in admits])), meta={})
+
+    def admit(self, st: dict, bundle: StreamBuffer) -> StreamBuffer:
+        """Copy the parked caches of a hop bundle into their slot rows, in
+        place, ``pos`` included, and return the steady-state ``(x_in,
+        active)`` bundle the hop runs on.  The batchers run this eagerly
+        before the hop, so the cached hop has one shape per stage."""
+        x_in, active = bundle.tensors[:2]
+        if not bundle.meta.get("empty"):
+            slots, pos, *leaves = bundle.tensors[2:]
+            _copy_rows(st["cache"], slots, pos, leaves)
+        return StreamBuffer(tensors=(x_in, active), meta={"empty": True})
+
+    def _hop_out(self, out, active):
+        """The hop's answer: greedy tokens on the last stage, boundary
+        activations elsewhere, zero where inactive."""
+        from ..models import transformer
+        if self.is_last:
+            tok = transformer.greedy(out)
+            return torch.where(active, tok, torch.zeros_like(tok))
+        return torch.where(active[:, None, None], out, torch.zeros_like(out))
+
+    def apply(self, params, inputs: List[StreamBuffer],
+              ctx: PipelineContext = None) -> List[StreamBuffer]:
+        from ..models import transformer
+        st = ctx.get_state(self.name)
+        # admit (a no-op on the batchers' path, which admitted already)
+        x_in, active = self.admit(st, inputs[0]).tensors
+        out, cache = transformer.stage_decode(
+            params, self.cfg, self.stage, self.n_stages, x_in, st["cache"],
+            advance=active.to(torch.int32))
+        ctx.set_state(self.name, {"cache": cache})
+        return [StreamBuffer(tensors=(self._hop_out(out, active),))]
+
+    # -- host half: stage-local prefill and replay ------------------------------
+    def host_stage_prefill(self, params, x):
+        """Stage-local prefill of one stream: prompt tokens int [L] (stage
+        0) or boundary activations [1, L, d] -> (boundary activations
+        [1, L, d], or the first token int32 [1] on the last stage; the
+        batch-1 stage cache), all on the serve device."""
+        from ..models import transformer
+        if self.is_first:
+            x = torch.as_tensor(x).to(device=self._device,
+                                      dtype=torch.long)[None]
+        out, cache = transformer.stage_prefill(params, self.cfg, self.stage,
+                                               self.n_stages, x, self.max_seq)
+        if self.is_last:
+            out = transformer.greedy(out)
+        return out, cache
+
+    def _replay_cache(self) -> dict:
+        """Scratch batch-S stage cache the replay steps run in.  A row
+        other than the replayed one holds whatever earlier replays left
+        there; no row reads another."""
+        if self._scratch is None:
+            from ..models import transformer
+            self._scratch = transformer.stage_cache_init(
+                self.cfg, self.stage, self.n_stages, self.slots,
+                self.max_seq, self._device)
+        return self._scratch
+
+    def host_stage_decode(self, params, x, cache, slot: int):
+        """One decode step of a parked stream through this stage: the
+        stage-local REPLAY primitive (DESIGN.md §8).  ``x`` is the
+        stream's retained input of one hop (token int [1] on stage 0,
+        activations [1, 1, d] after), ``cache`` its parked batch-1 stage
+        cache, ``slot`` the slot row it decodes in.  The step runs at the
+        serve batch, in that row of a scratch cache, with only that row
+        active: every GEMM has the hop's shape and the row's values are the
+        ones the hop computes for it (the port's ``sequential_decode``
+        rule), so re-running a stage's retained activations rebuilds its
+        cache bitwise.  The row is copied back into ``cache`` in place.
+        -> (the step's output for the stream, ``cache``)."""
+        from ..models import transformer
+        scr = self._replay_cache()
+        row = slice(slot, slot + 1)
+        scr["pos"][row].copy_(cache["pos"])
+        dst, src = tree_flatten(scr["layers"])[0], \
+            tree_flatten(cache["layers"])[0]
+        for d, s in zip(dst, src):
+            d[row].copy_(s)
+        x = torch.as_tensor(x).to(self._device)
+        xs = torch.zeros((self.slots,) + tuple(x.shape[1:]), dtype=x.dtype,
+                         device=self._device)
+        xs[row] = x
+        active = torch.zeros((self.slots,), dtype=torch.bool,
+                             device=self._device)
+        active[row] = True
+        out, _ = transformer.stage_decode(
+            params, self.cfg, self.stage, self.n_stages, xs, scr,
+            advance=active.to(torch.int32))
+        cache["pos"].copy_(scr["pos"][row])
+        for d, s in zip(src, dst):
+            d.copy_(s[row])
+        return self._hop_out(out, active)[row], cache
+
+    def host_stage_decode_idempotent(self, params, x, cache, slot: int,
+                                     hop_id=None):
+        """:meth:`host_stage_decode` with at most one effect per
+        ``hop_id`` (a hop's delivery id): a replayed hop whose id was
+        already served returns the memoized (out, cache) instead of
+        advancing the parked cache a second time.  The memo keeps the last
+        64 ids.  ``hop_id=None`` (no delivery id) is a plain
+        :meth:`host_stage_decode`; the port's hops carry no delivery id
+        until the delivery layer (ROADMAP M10)."""
+        if hop_id is None:
+            return self.host_stage_decode(params, x, cache, slot)
+        if self._hop_memo is None:
+            self._hop_memo = OrderedDict()
+        hit = self._hop_memo.get(hop_id)
+        if hit is not None:
+            return hit
+        out = self.host_stage_decode(params, x, cache, slot)
+        self._hop_memo[hop_id] = out
+        while len(self._hop_memo) > 64:
+            self._hop_memo.popitem(last=False)
+        return out
 
 
 @register_element("token_prompt_src")

@@ -188,10 +188,16 @@ class ExecutionPlan:
         #: decode state is plan state carried across ticks
         self.stream_serving = self.query_batchable and any(
             getattr(op.elem, "is_stream_serve", False) for op in ops)
-        #: (stage, n_stages) of a pipeline-parallel serve stage, part of
-        #: the serve tick's cache key as in the JAX package; None until
-        #: the port has stage elements (ROADMAP M8)
-        self.serve_stage = None
+        #: stream-serving pipeline that is ONE STAGE of a pipeline-parallel
+        #: chain (DESIGN.md §8); (stage, n_stages) is part of the serve
+        #: tick's cache key, so two stages of one chain (or the same stage
+        #: of chains of different depth) never share a serve tick even
+        #: where their cache structures agree
+        stage_elems = [op.elem for op in ops
+                       if getattr(op.elem, "is_stage_serve", False)]
+        self.stage_serving = self.stream_serving and bool(stage_elems)
+        self.serve_stage = ((stage_elems[0].stage, stage_elems[0].n_stages)
+                            if self.stage_serving else None)
         #: op indices of the query clients, in schedule order (the deferred
         #: walk's pause points — static, because topology is static)
         self.client_idxs = tuple(i for i, op in enumerate(ops)

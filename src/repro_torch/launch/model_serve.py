@@ -2,8 +2,8 @@
 gst-launch builders for server and client pipelines, and the per-request
 sequential decode that continuous batching must reproduce bitwise.
 
-Port of ``src/repro/launch/model_serve.py`` (monolithic serving; the staged
-pipeline-parallel builders and the QoS contract wait for ROADMAP M8/M9).
+Port of ``src/repro/launch/model_serve.py``: monolithic serving and the
+staged pipeline-parallel helpers (the QoS contract waits for ROADMAP M9).
 
 How the system starts::
 
@@ -20,6 +20,10 @@ How the system starts::
     rt.add_device(tv)
     rt.run(12)
     cli.sink_log["res"]     # one StreamBuffer of int32 tokens per answer
+
+Staged serving replaces the hub with one Device per stage pipeline
+(``staged_serve_pipelines(model="stablelm-smoke-4l", n_stages=2)``), each
+given the monolithic server's generator; clients are unchanged.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from ..models import transformer
 from ..models.config import ModelConfig
 
 __all__ = ["serve_pipeline", "client_pipeline", "sequential_decode",
-           "SERVE_MODELS", "register_serve_model"]
+           "stage_pipeline", "staged_serve_pipelines", "SERVE_MODELS",
+           "register_serve_model"]
 
 
 def _stablelm_smoke_flash() -> ModelConfig:
@@ -59,9 +64,17 @@ def _recurrentgemma_smoke() -> ModelConfig:
     return recurrentgemma_9b.config().smoke()
 
 
+def _stablelm_smoke_4l() -> ModelConfig:
+    """4-layer smoke variant: the pipeline-parallel staging testbed, whose
+    layer count divides into 2 and 4 stages (DESIGN.md §8)."""
+    from ..configs import stablelm_1_6b
+    return dataclasses.replace(stablelm_1_6b.config().smoke(), n_layers=4)
+
+
 register_serve_model("stablelm-smoke-flash", _stablelm_smoke_flash)
 register_serve_model("stablelm-smoke", _stablelm_smoke)
 register_serve_model("recurrentgemma-smoke", _recurrentgemma_smoke)
+register_serve_model("stablelm-smoke-4l", _stablelm_smoke_4l)
 
 
 def serve_pipeline(operation: str = "lm", model: str = "stablelm-smoke-flash",
@@ -73,6 +86,38 @@ def serve_pipeline(operation: str = "lm", model: str = "stablelm-smoke-flash",
         f"name=lm ! tensor_query_serversink name=ssink")
     ps.elements["ssink"].pair_with(ps.elements["ssrc"])
     return ps
+
+
+def stage_pipeline(operation: str = "lm", model: str = "stablelm-smoke-4l",
+                   slots: int = 8, max_seq: int = 32, stage: int = 0,
+                   n_stages: int = 2):
+    """ONE hop of a pipeline-parallel chain (DESIGN.md §8).  Stage 0
+    serves the client-facing operation topic; stage k > 0 serves
+    ``{operation}/s{k}``, the topic the coordinator's per-stage bindings
+    subscribe, with ``stage`` declared as a ranking spec so a wildcard
+    never binds a hop to the wrong layer slice."""
+    topic = operation if stage == 0 else f"{operation}/s{stage}"
+    ps = parse_launch(
+        f"tensor_query_serversrc operation={topic} stage={stage} "
+        f"name=ssrc ! "
+        f"model_serve_stage model={model} slots={slots} max_seq={max_seq} "
+        f"stage={stage} n_stages={n_stages} name=lm ! "
+        f"tensor_query_serversink name=ssink")
+    ps.elements["ssink"].pair_with(ps.elements["ssrc"])
+    return ps
+
+
+def staged_serve_pipelines(operation: str = "lm",
+                           model: str = "stablelm-smoke-4l",
+                           slots: int = 8, max_seq: int = 32,
+                           n_stages: int = 2):
+    """The full N-hop chain: one :func:`stage_pipeline` per layer slice.
+    Deploy each on its own Device, with the generator the monolithic
+    server would get (every stage draws the full tree and keeps its
+    slice); stage k's boundary activations reach stage k+1 over the same
+    query fabric clients use."""
+    return [stage_pipeline(operation, model, slots, max_seq, k, n_stages)
+            for k in range(n_stages)]
 
 
 def client_pipeline(operation: str = "lm", prompts: str = "1,2,3",

@@ -206,6 +206,103 @@ def lm_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# pipeline-stage entry points (among-device hops, DESIGN.md §8)
+#
+# A stage is a contiguous slice [lo, hi) of the layer stack running as its
+# own pipeline: stage 0 embeds, the last stage norms and unembeds, middle
+# stages map activations to activations.  Layer kinds and cache shapes are
+# indexed by GLOBAL layer number and each stage runs the same per-layer ops
+# as ``lm_prefill``/``lm_decode``, so chaining the stages of one tree gives
+# the monolithic model's values bitwise.  A stage cache is the layer slice
+# of ``cache_init`` with its own per-row ``pos`` [B].
+# ---------------------------------------------------------------------------
+
+def stage_bounds(cfg: ModelConfig, stage: int, n_stages: int
+                 ) -> Tuple[int, int]:
+    """Global layer range [lo, hi) owned by ``stage`` of ``n_stages``."""
+    if not 0 <= stage < n_stages:
+        raise ValueError(f"stage {stage} not in [0, {n_stages})")
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"n_stages={n_stages}")
+    r = cfg.n_layers // n_stages
+    return stage * r, (stage + 1) * r
+
+
+def stage_params(params: Dict, cfg: ModelConfig, stage: int, n_stages: int
+                 ) -> Dict:
+    """One stage's share of a full list-layout tree.  ``embed`` rides on
+    the first stage (token embedding) and the last (unembed reads it);
+    ``final_norm`` on the last.  The share holds the full tree's layer
+    dicts themselves, no view of a larger tensor, so dropping the full
+    tree frees the other stages' layers."""
+    lo, hi = stage_bounds(cfg, stage, n_stages)
+    out: Dict = {"layers": params["layers"][lo:hi]}
+    if stage == 0 or stage == n_stages - 1:
+        out["embed"] = params["embed"]
+    if stage == n_stages - 1:
+        out["final_norm"] = params["final_norm"]
+    return out
+
+
+def stage_cache_init(cfg: ModelConfig, stage: int, n_stages: int,
+                     batch: int, max_seq: int,
+                     device: DeviceLike = None) -> Dict:
+    """Zero decode cache of this stage's layers: the slice of
+    :func:`cache_init`, same per-layer shapes, ``pos`` int32 [batch]."""
+    dev = resolve_device(device)
+    lo, hi = stage_bounds(cfg, stage, n_stages)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": [layer_cache_init(cfg, i, batch, max_seq, dev)
+                       for i in range(lo, hi)]}
+
+
+def stage_prefill(params, cfg: ModelConfig, stage: int, n_stages: int, x,
+                  max_seq: int) -> Tuple[torch.Tensor, Dict]:
+    """Prefill one stage: tokens [B, L] in for stage 0, activations
+    [B, L, d] for later stages -> (boundary activations [B, L, d], or the
+    last position's logits [B, vocab] on the last stage; this stage's
+    decode cache with ``pos == L`` for every row)."""
+    lo, hi = stage_bounds(cfg, stage, n_stages)
+    if stage == 0:
+        x = L.embed(params["embed"], cfg, x)
+    b, s = x.shape[:2]
+    caches = []
+    for j, p in enumerate(params["layers"]):
+        x, c = block_prefill(p, cfg, _check_kind(cfg, lo + j), x, max_seq)
+        caches.append(c)
+    out = x
+    if stage == n_stages - 1:
+        h = L.apply_norm(params["final_norm"], x[:, -1:], cfg)
+        out = L.unembed(params["embed"], cfg, h)[:, 0]
+    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return out, {"pos": pos, "layers": caches}
+
+
+def stage_decode(params, cfg: ModelConfig, stage: int, n_stages: int, x,
+                 cache: Dict, advance: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step through one stage: token int [B] in for stage 0,
+    activations [B, 1, d] for later stages -> (activations [B, 1, d], or
+    logits [B, vocab] on the last stage; the cache, updated in place).
+    ``pos`` advances by one, or by ``advance`` (int32 [B], 0 or 1), as in
+    :func:`lm_decode`."""
+    lo, hi = stage_bounds(cfg, stage, n_stages)
+    pos = cache["pos"]
+    if stage == 0:
+        x = L.embed(params["embed"], cfg, x[:, None])
+    for j, p in enumerate(params["layers"]):
+        x = block_decode(p, cfg, _check_kind(cfg, lo + j), x,
+                         cache["layers"][j], pos)
+    out = x
+    if stage == n_stages - 1:
+        h = L.apply_norm(params["final_norm"], x, cfg)
+        out = L.unembed(params["embed"], cfg, h)[:, 0]
+    cache["pos"] = pos + (1 if advance is None else advance)
+    return out, cache
+
+
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """First maximal index per row, int32 (``torch.argmax`` and
     ``jnp.argmax`` both return the first maximum)."""

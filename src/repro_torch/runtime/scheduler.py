@@ -21,8 +21,10 @@ with a global tick (60 Hz frame cadence, as in the paper's evaluation):
   the Broker ranks first (its batcher flushes early when full);
 * the drain flushes every server batcher — for a ``model_serve`` server
   that is the continuous-batching lifecycle (prefill on arrival, one decode
-  tick per scheduler tick), for any other server the stateless
-  gather-stack-flush — and resumes each paused frame with its answer,
+  tick per scheduler tick), for stage 0 of a ``model_serve_stage`` chain
+  the same lifecycle driving one hop per stage (a stage k > 0 serves the
+  hops inline), for any other server the stateless gather-stack-flush —
+  and resumes each paused frame with its answer,
   routed back by ``client_id`` and decoded per (codec, structure) group;
   streams still mid-generation re-enter the drain next tick;
 * pipelines without query clients step once per tick (or burst).
@@ -77,6 +79,7 @@ import torch
 from ..core.admission import (DEFAULT_TENANT, merge_tenant_stats,
                               percentile_from_hist)
 from ..core.batching import (BatchingPolicy, QueryBatcher,
+                             StagedStreamingBatcher, StageQueryBatcher,
                              StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
 from ..core.broker import Broker, BrokerError
 from ..core.buffers import (StreamBuffer, stack_buffers, structure_key,
@@ -248,7 +251,26 @@ class Runtime:
                     e.broker is None:
                 e.connect(self.broker)
             if isinstance(e, TensorQueryServerSrc) and e.registration is None:
-                if run.pipe.plan.stream_serving:
+                plan = run.pipe.plan
+                if plan.stage_serving and plan.serve_stage[0] > 0:
+                    # downstream hop of a pipeline-parallel chain (DESIGN.md
+                    # §8): prefill/replay/decode-hop verbs against its layer
+                    # slice, batch-1 caches parked by stream id; hop traffic
+                    # is never re-scheduled (qos stays off)
+                    batcher = StageQueryBatcher(
+                        e.endpoint, run, self.batching,
+                        on_orphans=self._count_orphans,
+                        clock=lambda: self.ticks)
+                elif plan.stage_serving:
+                    # stage 0: the coordinator owns the request lifecycle
+                    # and drives the hop chain to the stages it discovers
+                    # through the broker
+                    batcher = StagedStreamingBatcher(
+                        e.endpoint, run, self.batching,
+                        on_orphans=self._count_orphans,
+                        tick_source=lambda: self.ticks,
+                        clock=lambda: self.ticks, broker=self.broker)
+                elif plan.stream_serving:
                     batcher = StreamingQueryBatcher(
                         e.endpoint, run, self.batching,
                         on_orphans=self._count_orphans,

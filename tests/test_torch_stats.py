@@ -1,6 +1,6 @@
 """``Runtime.stats()`` of the port equals the JAX package's, key for key.
 
-Four scenarios run in both packages on the CPU, and their whole stats
+Five scenarios run in both packages on the CPU, and their whole stats
 dicts are compared:
 
 * a pub/sub pair (``testsrc ! ... ! mqttsink`` to ``mqttsrc ! appsink``),
@@ -14,7 +14,12 @@ dicts are compared:
   the streams re-dispatch to the second by prefill replay, and the revived
   server's slot table still holds the lanes of the streams it lost, which
   decode with no record listening until new streams overwrite them or
-  their budget drains (``batched_frames`` counts them in both packages).
+  their budget drains (``batched_frames`` counts them in both packages);
+* ``stablelm-smoke-4l`` split into 2 stage pipelines serving 3 clients,
+  stage 1 killed mid-generation: with a standby it is replayed there, with
+  none the chain stalls until it revives (the coordinator's and the hop
+  servers' keys: hops, stage prefills, replays and replay steps, slot
+  steps, parked caches).
 
 Left out of the comparison: the port's extra ``prefill_seconds`` and
 ``decode_seconds`` (host clocks).
@@ -240,3 +245,57 @@ def test_kill_and_revive_stats_match():
     assert qb["tokens_dropped"] > 0 and qb["flush_orphans"] >= 1
     assert qb["tokens_generated"] == qb["tokens_delivered"] + \
         qb["tokens_dropped"] + qb["tokens_in_flight"]
+
+
+def _staged(pkg, standby, shares=None):
+    """A 2-stage ``stablelm-smoke-4l`` chain of 4 slots (and a standby for
+    stage 1, or none), 3 clients; stage 1 dies at tick 4 and, with no
+    standby, revives at tick 8.  The port serves ``shares``, the JAX
+    stages' params.  -> (runtime, [stage 0, stage 1, standby] runs)."""
+    from chaoslib import Chaos
+    rt = pkg.runtime()
+    mod = jax_ms if pkg is Jax else ms
+    pipes = mod.staged_serve_pipelines(model="stablelm-smoke-4l", slots=4,
+                                       max_seq=16, n_stages=2)
+    if standby:
+        pipes.append(mod.stage_pipeline(model="stablelm-smoke-4l", slots=4,
+                                        max_seq=16, stage=1, n_stages=2))
+    runs, devs = [], []
+    for k, ps in enumerate(pipes):
+        dev = pkg.device(f"stage{k}")
+        run = pkg.add(dev, ps)
+        if pkg is Port:
+            run.params["lm"] = shares[k]
+        rt.add_device(dev)
+        runs.append(run)
+        devs.append(dev)
+    for i in range(3):
+        dev = pkg.device(f"tv{i}")
+        pkg.add(dev, mod.client_pipeline(prompts=f"{i + 1},{i + 2}",
+                                         gens=f"{5 + i};3"))
+        rt.add_device(dev)
+    harness = Chaos(rt)
+    ssrc = runs[1].pipe.elements["ssrc"]
+    harness.kill_server(4, devs[1], ssrc, crash=True)
+    if not standby:
+        harness.revive_server(8, devs[1], ssrc)
+    harness.run(16)
+    return rt, runs
+
+
+@pytest.mark.parametrize("standby", [True, False])
+def test_staged_serving_stats_match(standby):
+    """The whole stats dicts of a staged chain through a stage kill match,
+    the coordinator's hop keys and the hop servers' keys included."""
+    jrt, jruns = _staged(Jax, standby)
+    shares = [tt.params_from_numpy(jax.device_get(r.params["lm"]),
+                                   r.pipe.elements["lm"].cfg, "cpu")
+              for r in jruns]
+    rt, _ = _staged(Port, standby, shares)
+    _same_stats(rt, jrt)
+    qb = rt.stats()["query_batching"]
+    assert qb["stage_replays"] >= 2 and qb["stage_replay_steps"] >= 1
+    assert qb["decode_hops"] > 0 and qb["slot_steps"] > qb["decode_hops"]
+    assert (qb["hops_failed"] > 0) == (not standby)
+    assert qb["hops_dispatched"] == qb["hops_completed"] + qb["hops_failed"]
+    assert qb["tokens_dropped"] == 0 and qb["streams_finished"] >= 3
