@@ -149,6 +149,27 @@ Phases, one result line each (any failure exits non-zero):
    ``stablelm-smoke-4l`` with flash over 2 stages on the card (K5's fp32
    route) == the port's CPU path.
 
+12. tenant QoS and autoscaling — 12a, phase 4's server (stablelm-1.6b,
+   bf16, 8 slots, ``max_seq=1024``, phase 4's seed) under
+   ``Runtime(qos=three_tier_qos(**QOS_KW))`` with an ``Autoscaler`` that
+   may grow one replica from the same seed, and 12 clients, 4 a tier
+   (realtime, standard, best-effort), 2 requests each (prompts 128–512,
+   generations 16–64), each stopping between requests once answered:
+   every answer full length and bitwise ``sequential_decode`` in its
+   slot, the grown replica's params bitwise the hub's, every shed an
+   error frame with a reason matching the tenant ledgers (conservation
+   asserted by ``rt.stats()``), standard and best-effort shed, realtime
+   never and its p99 ticks at most best-effort's, one scale-up and one
+   scale-down, graph bytes after the scale-down at most before the
+   scale-up plus one binding, K5/K6 launches; prints each tenant's
+   admitted, served, sheds by reason and p50/p99 ticks, decode ms per
+   tick, the host ms of the scale-up's request, commit and capture ticks
+   and of the scale-down's commit tick against the run's median, and
+   the peak.  12b, the same contract on fp32 stablelm-smoke-flash (4
+   slots, 6 clients) and on a 2-stage stablelm-smoke-4l chain: the card
+   == the port's CPU path (answers, error frames, tenant and autoscale
+   stats; hop servers pass-through, ledgers balance).
+
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
 f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
 8 kv heads (GQA, 4 groups), beside its bound (float32 operations outside
@@ -2815,16 +2836,18 @@ def _composed(shares):
 
 
 def _staged_fleet(model, slots, max_seq, clients, seed, n_stages,
-                  standby=(), device=None, shares=None):
+                  standby=(), device=None, shares=None, qos=None,
+                  tenants=None):
     """An ``n_stages`` chain (and a standby for each stage in ``standby``),
     one Device a pipeline, every one given the monolithic server's
     generator (or ``shares``), and one client per entry of ``clients``
-    ``(prompts, gens)``.  -> (runtime, [(device, run, serversrc)] stages
-    then standbys, client runs)"""
+    ``(prompts, gens)``, tagged with ``tenants[i]`` when given.  ``qos``
+    is the runtime's.  -> (runtime, [(device, run, serversrc)] stages then
+    standbys, client runs)"""
     from repro_torch.device import make_generator
     from repro_torch.launch import model_serve as ms
     from repro_torch.runtime import Device, Runtime
-    rt = Runtime(device=device)
+    rt = Runtime(device=device, qos=qos)
     pipes = [(k, f"stage{k}", ps) for k, ps in enumerate(
         ms.staged_serve_pipelines(model=model, slots=slots, max_seq=max_seq,
                                   n_stages=n_stages))]
@@ -2844,7 +2867,8 @@ def _staged_fleet(model, slots, max_seq, clients, seed, n_stages,
         dev = Device(f"tv{i}", device=device)
         p = ";".join(",".join(str(t) for t in pr) for pr in prompts)
         runs.append(dev.add_pipeline(ms.client_pipeline(
-            prompts=p, gens=";".join(str(g) for g in gens))))
+            prompts=p, gens=";".join(str(g) for g in gens),
+            tenant=None if tenants is None else tenants[i])))
         rt.add_device(dev)
     return rt, stages, runs
 
@@ -3336,6 +3360,410 @@ def phase_staged(seed, serve4):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: tenant QoS and autoscaling
+# ---------------------------------------------------------------------------
+
+QOS_TIERS = ("realtime", "standard", "best-effort")
+#: 12's admission contract, ``three_tier_qos(**QOS_KW)`` (PERF.md §4 gives
+#: the reason for each value)
+QOS_KW = dict(rate=0.5, deadline_ticks=8, max_queue=2, serve_per_tick=2)
+#: the shed reasons admission may give
+SHED_REASONS = ("rate", "queue-full", "deadline")
+
+
+def _asc_kw(slots):
+    """12's autoscaler: grow once the mean replica holds more streams than
+    it has slots, remove the grown replica once the fleet has drained
+    (below one stream on two replicas), one action at a time."""
+    return dict(high_load=slots + 1, low_load=0.25, max_replicas=2,
+                cooldown_ticks=8, warm_ticks=1)
+
+
+def _qos_clients(seed, per_tier, n_req, vocab, prompt_range, gen_range):
+    """``per_tier`` clients a tier with ``n_req`` requests each; the k-th
+    client of every tier draws the same generation lengths, so the tiers'
+    latencies differ by scheduling alone.  -> [(tier, prompts, gens)]"""
+    rng = np.random.default_rng(seed)
+    gens = [[int(rng.integers(*gen_range)) for _ in range(n_req)]
+            for _ in range(per_tier)]
+    return [(tier, [rng.integers(0, vocab, int(rng.integers(*prompt_range)))
+                    .tolist() for _ in range(n_req)], gens[k])
+            for tier in QOS_TIERS for k in range(per_tier)]
+
+
+def _qos_fleet(model, slots, max_seq, clients, seed, device=None,
+               qos=True):
+    """Phase 12's fleet: ``Runtime(qos=three_tier_qos(**QOS_KW))``, one hub
+    with weights from ``seed``, an autoscaler on its topic that grows
+    replicas from the same seed, and one tagged client per entry of
+    ``clients``.  ``qos=False`` is the pre-QoS twin: ``qos=None``, no
+    autoscaler.  -> (runtime, hub run, autoscaler or None, client runs)"""
+    from repro_torch.device import make_generator
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.runtime import Autoscaler, Device, Runtime
+    rt = Runtime(device=device,
+                 qos=ms.three_tier_qos(**QOS_KW) if qos else None)
+    hub = Device("hub", device=device)
+    srv = hub.add_pipeline(ms.serve_pipeline(model=model, slots=slots,
+                                             max_seq=max_seq),
+                           generator=make_generator(seed, rt.device))
+    rt.add_device(hub)
+    asc = None
+    if qos:
+        asc = Autoscaler(rt, "query/lm", lambda i: ms.serve_pipeline(
+            model=model, slots=slots, max_seq=max_seq), seed=seed,
+            **_asc_kw(slots))
+    runs = []
+    for i, (tier, prompts, gens) in enumerate(clients):
+        dev = Device(f"{tier}-{i}", device=device)
+        runs.append(dev.add_pipeline(ms.client_pipeline(
+            prompts=";".join(",".join(str(t) for t in pr) for pr in prompts),
+            gens=";".join(str(g) for g in gens), tenant=tier)))
+        rt.add_device(dev)
+    return rt, srv, asc, runs
+
+
+def _qos_drive(rt, srv, asc, runs, clients, max_ticks, params=None):
+    """Tick until every client has all its answers and the autoscaler (if
+    any) has removed what it grew.  A client retires at the end of the
+    tick its last answer lands, so it stops between requests.  ``params`` replace
+    a grown replica's draw before its commit (the CPU path, whose
+    generator draws other weights than the card's).  -> what the run
+    recorded, per tick and at the scaling events"""
+    import torch
+    from repro_torch.core.graphs import graph_stats
+    rec = dict(tick_ms=[], captured=[], hub=[], stopped={}, up=None,
+               down=None, graph_bytes_before_up=None, replica=None,
+               replica_batcher=None, replica_first_decode=None,
+               hub_batcher=_batcher_of(rt, srv))
+    while rt.ticks < max_ticks:
+        if rec["up"] is None:
+            rec["graph_bytes_before_up"] = graph_stats()["bytes"]
+        t0 = time.perf_counter()
+        rt.tick()
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["tick_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["captured"].append(graph_stats()["captured"])
+        b = rec["hub_batcher"]
+        rec["hub"].append((len(b._slots), len(b._waiting)))
+        p = asc and asc._pending
+        if p and rec[p["kind"]] is None:
+            rec[p["kind"]] = dict(requested=rt.ticks, handle=p["handle"],
+                                  run=p["run"])
+            if p["kind"] == "up" and params is not None:
+                p["handle"].new_params["lm"] = params
+        up = rec["up"]
+        if up is not None and rec["replica"] is None and \
+                up["handle"].status == "committed":
+            rec["replica"] = up["run"]
+            rec["replica_batcher"] = _batcher_of(rt, up["run"])
+            rec["replica_params"] = up["run"].params["lm"]
+        rb = rec["replica_batcher"]
+        if rb is not None and rb.decode_ticks and \
+                rec["replica_first_decode"] is None:
+            rec["replica_first_decode"] = rt.ticks
+        for i, run in enumerate(runs):
+            if i not in rec["stopped"] and \
+                    len(run.sink_log.get("res", [])) >= len(clients[i][1]):
+                check(not rt._run_in_flight(run),
+                      f"12: client {i} stops with a frame in flight")
+                run.retired = True
+                rec["stopped"][i] = rt.ticks
+        if len(rec["stopped"]) == len(runs) and \
+                (asc is None or (asc._pending is None and asc.scale_downs)):
+            break
+    return rec
+
+
+def _qos_errors(runs):
+    """Every client's error frames as (reason, tenant, tick)."""
+    return [[(e.meta["reason"], e.meta["tenant"], e.meta["tick"])
+             for e in r.sink_log.get("qc.error", [])] for r in runs]
+
+
+def _qos_checks(rt, asc, runs, clients, rec, what):
+    """What phase 12 holds on either size: every answer full length, every
+    shed an error frame whose reason and tenant the ledger booked, the
+    tenant laws, one scale-up and one scale-down.  -> stats()"""
+    st = rt.stats()                    # asserts per-tenant conservation
+    tenants = st["tenants"]
+    booked = {tid: dict(t["shed_reasons"]) for tid, t in tenants.items()}
+    seen = {}
+    for i, (run, (tier, prompts, gens)) in enumerate(zip(runs, clients)):
+        got = [len(b.tensor) for b in run.sink_log.get("res", [])]
+        check(got == gens, f"{what}: client {i}'s answer lengths {got}, "
+                           f"expected {gens}")
+        for e in run.sink_log.get("qc.error", []):
+            check(e.tensors == () and e.meta["error"] == "shed" and
+                  e.meta["reason"] in SHED_REASONS and
+                  e.meta["tenant"] == tier and e.meta["operation"] == "lm",
+                  f"{what}: client {i}'s error frame {e.meta}")
+            r = seen.setdefault(tier, {})
+            r[e.meta["reason"]] = r.get(e.meta["reason"], 0) + 1
+    check(seen == {t: r for t, r in booked.items() if r},
+          f"{what}: error frames {seen} != the ledger's sheds {booked}")
+    for tid, t in tenants.items():
+        check(t["queued"] == t["in_flight"] == 0 and
+              t["served"] == sum(len(c[1]) for c in clients if c[0] == tid),
+              f"{what}: tenant {tid}'s ledger {t}")
+    check(tenants["realtime"]["shed"] == 0,
+          f"{what}: realtime shed {tenants['realtime']['shed_reasons']}")
+    check(tenants["standard"]["shed"] >= 1 and
+          tenants["best-effort"]["shed"] >= 1,
+          f"{what}: standard and best-effort must each shed: "
+          f"{ {t: v['shed_reasons'] for t, v in tenants.items()} }")
+    check(tenants["realtime"]["p99_ticks"] <=
+          tenants["best-effort"]["p99_ticks"],
+          f"{what}: realtime p99 {tenants['realtime']['p99_ticks']} > "
+          f"best-effort's {tenants['best-effort']['p99_ticks']}")
+    sc = st["autoscale"][0]
+    check(sc["scale_ups"] == 1 and sc["scale_downs"] == 1 and
+          sc["rollbacks"] == 0 and sc["pending"] is None and
+          sc["managed_replicas"] == 0, f"{what}: autoscale {sc}")
+    check(rec["replica"] is not None and rec["replica"].retired,
+          f"{what}: the grown replica was not removed")
+    check(max(w for s, w in rec["hub"][:rec["up"]["requested"]]) > 0,
+          f"{what}: no stream waited for a slot on the hub before the "
+          f"scale-up {rec['hub']}")
+    check(rec["replica_batcher"].streams_finished > 0,
+          f"{what}: the grown replica served no stream")
+    return st
+
+
+def _tenant_row(t):
+    return dict(admitted=t["admitted"], served=t["served"],
+                shed=dict(t["shed_reasons"]), p50_ticks=t["p50_ticks"],
+                p99_ticks=t["p99_ticks"])
+
+
+def _phase_qos_full(seed):
+    """12a: three tiers of stablelm-1.6b clients against a hub that grows
+    to two replicas and drains back to one."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.core.graphs import graph_stats
+    from repro_torch.launch import model_serve as ms
+    cfg = stablelm_1_6b.config()
+    clients = _qos_clients(seed + 30, 4, 2, cfg.vocab, (128, 513), (16, 65))
+    _reset_launches()
+    mark = _graph_mark()
+    t0 = time.perf_counter()
+    rt, srv, asc, runs = _qos_fleet("stablelm-1.6b-flash", 8, 1024,
+                                    clients, seed)
+    rec = _qos_drive(rt, srv, asc, runs, clients, max_ticks=600)
+    wall = time.perf_counter() - t0
+    mem = _graph_since(mark)
+    launches = {k: _launch_counts()[k]
+                for k in ("flash_attention", "flash_decode")}
+    st = _qos_checks(rt, asc, runs, clients, rec, "12a")
+    _same_tree(srv.params["lm"], rec.pop("replica_params"),
+               "12a: the grown replica's params vs the hub's")
+    bats = (rec["hub_batcher"], rec["replica_batcher"])
+    prefills = sum(b.prefills for b in bats)
+    decode_ticks = sum(b.decode_ticks for b in bats)
+    check(launches["flash_attention"] == cfg.n_layers * prefills > 0 and
+          launches["flash_decode"] == cfg.n_layers * decode_ticks > 0,
+          f"12a: launches {launches} for {prefills} prefills and "
+          f"{decode_ticks} decode ticks")
+    for b in bats:
+        _conserved(b.stats(), "12a")
+    one = _binding_bytes()
+    after = graph_stats()["bytes"]
+    check(after <= rec["graph_bytes_before_up"] + one,
+          f"12a: graph bytes {rec['graph_bytes_before_up']} before the "
+          f"scale-up, {after} after the scale-down (one binding {one})")
+    params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
+    for i, (run, (_, prompts, gens)) in enumerate(zip(runs, clients)):
+        for j, b in enumerate(run.sink_log["res"]):
+            ref = ms.sequential_decode(params, ecfg, prompts[j], gens[j],
+                                       1024, slots=8, slot=b.meta["slot"])
+            check(np.asarray(b.tensor).tolist() == ref,
+                  f"12a: client {i} answer {j} (slot {b.meta['slot']}) != "
+                  f"sequential_decode")
+    ms_ = rec["tick_ms"]
+    up, down = rec["up"], rec["down"]
+    up_commit = up["handle"].committed_tick
+    down_commit = down["handle"].committed_tick
+    first = rec["replica_first_decode"]
+    capture = next(t for t in range(up_commit + 1, len(ms_) + 1)
+                   if rec["captured"][t - 1] > rec["captured"][t - 2])
+    special = {up["requested"], up_commit, first, capture, down_commit}
+    steady = float(np.median([m for t, m in enumerate(ms_, 1)
+                              if t not in special]))
+    decode = [1e3 * x for b in bats for x in b.decode_times]
+    tenants = {tid: _tenant_row(st["tenants"][tid]) for tid in QOS_TIERS}
+    row = dict(
+        clients=len(clients), streams=sum(len(c[1]) for c in clients),
+        ticks=rt.ticks, wall_s=wall, tenants=tenants,
+        hub_streams_max=max(s + w for s, w in rec["hub"]),
+        hub_waiting_max=max(w for _, w in rec["hub"]),
+        scale_up_requested_tick=up["requested"],
+        scale_up_commit_tick=up_commit, capture_tick=capture,
+        scale_down_requested_tick=down["requested"],
+        scale_down_commit_tick=down_commit,
+        scale_up_request_tick_ms=ms_[up["requested"] - 1],
+        scale_up_commit_tick_ms=ms_[up_commit - 1],
+        replica_first_decode_tick=first,
+        replica_first_decode_tick_ms=ms_[first - 1],
+        capture_tick_ms=ms_[capture - 1],
+        scale_down_commit_tick_ms=ms_[down_commit - 1],
+        steady_tick_ms_median=steady,
+        decode_ms=dict(min=min(decode), median=float(np.median(decode)),
+                       max=max(decode)),
+        replica_streams=rec["replica_batcher"].streams_finished,
+        prefills=prefills, decode_ticks=decode_ticks,
+        graph_bytes_before_up=rec["graph_bytes_before_up"],
+        graph_bytes_after_down=after, binding_bytes=one,
+        autoscale=st["autoscale"][0], launches=launches, **mem)
+    for tid, t in tenants.items():
+        print(f"phase 12a tenant {tid}: admitted {t['admitted']}, served "
+              f"{t['served']}, shed {t['shed'] or 0}, p50 "
+              f"{t['p50_ticks']:.0f} p99 {t['p99_ticks']:.0f} ticks")
+    print(f"phase 12a QoS fleet stablelm-1.6b bf16 24 layers slots 8 "
+          f"max_seq 1024, {len(clients)} clients in 3 tiers, "
+          f"{row['streams']} streams, three_tier_qos({QOS_KW}): hub held "
+          f"up to {row['hub_streams_max']} streams ({row['hub_waiting_max']}"
+          f" waiting for a slot); scale-up requested at tick {up['requested']}"
+          f" ({row['scale_up_request_tick_ms']:.1f} ms host, the weight "
+          f"draw), committed at tick {up_commit} "
+          f"({row['scale_up_commit_tick_ms']:.1f} ms), the grown replica's "
+          f"first (eager) decode tick at tick {first} "
+          f"({row['replica_first_decode_tick_ms']:.1f} ms) and its "
+          f"capture at tick {capture} ({row['capture_tick_ms']:.1f} ms), "
+          f"scale-down committed at tick {down_commit} "
+          f"({row['scale_down_commit_tick_ms']:.1f} ms), steady tick "
+          f"median {steady:.1f} ms; the grown replica served "
+          f"{row['replica_streams']} streams on params bitwise the hub's; "
+          f"all answers bitwise sequential_decode in their slots; decode "
+          f"ms/tick min/median/max {_fmt(list(row['decode_ms'].values()))};"
+          f" {rt.ticks} ticks, {wall:.2f} s; graph bytes before the "
+          f"scale-up {row['graph_bytes_before_up']}, after the scale-down "
+          f"{after} (one binding {one}); peak "
+          f"{mem['peak_gib_over_base']:.2f} GiB over the base; launches "
+          f"{launches}")
+    answers = _tokens(runs)
+    del rt, srv, asc, runs, rec, bats, params
+    # the pre-QoS twin: scheduling changes order and admission, never
+    # answers
+    trt, tsrv, _, truns = _qos_fleet("stablelm-1.6b-flash", 8, 1024,
+                                     clients, seed, qos=False)
+    trec = _qos_drive(trt, tsrv, None, truns, clients, max_ticks=600)
+    check(_tokens(truns) == answers,
+          "12a: the qos=None twin's answers != the QoS fleet's, request by "
+          "request")
+    check(not any(r.sink_log.get("qc.error") for r in truns),
+          "12a: the qos=None twin shed")
+    row["twin_ticks"] = trt.ticks
+    row["twin_hub_waiting_max"] = max(w for _, w in trec["hub"])
+    print(f"phase 12a qos=None twin (one hub, no autoscaler): all "
+          f"{row['streams']} answers equal the QoS fleet's request by "
+          f"request; {trt.ticks} ticks, up to "
+          f"{row['twin_hub_waiting_max']} streams waiting for a slot")
+    del trt, tsrv, truns, trec
+    return row
+
+
+def _phase_qos_small(seed):
+    """12b: 12a's scenario cut to stablelm-smoke-flash (fp32, 4 slots, 6
+    clients), and a 2-stage stablelm-smoke-4l chain under the same
+    contract: the card == the port's CPU path."""
+    import dataclasses as dc
+    from repro_torch.core.batching import StageQueryBatcher
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models import transformer
+    clients = _qos_clients(seed + 31, 2, 2, 512, (8, 33), (4, 17))
+    _reset_launches()
+    out = []
+    for device in (None, "cpu"):
+        rt, srv, asc, runs = _qos_fleet("stablelm-smoke-flash", 4, 64,
+                                        clients, seed, device=device)
+        params = None
+        if device == "cpu":
+            params = transformer.params_from_numpy(
+                _to_numpy(out[0][1].params["lm"]),
+                srv.pipe.elements["lm"].cfg, "cpu")
+            srv.params["lm"] = params
+        rec = _qos_drive(rt, srv, asc, runs, clients, max_ticks=300,
+                         params=params)
+        st = _qos_checks(rt, asc, runs, clients, rec,
+                         "12b " + (device or "card"))
+        out.append((rt, srv, runs, st))
+    (rt, _, runs, st), (_, _, cruns, cst) = out
+    check(_tokens(runs) == _tokens(cruns) and
+          _qos_errors(runs) == _qos_errors(cruns),
+          "12b: the card's answers or error frames != the CPU path's")
+    for key in ("tenants", "autoscale"):
+        check(st[key] == cst[key],
+              f"12b: stats()[{key!r}] card {st[key]} != CPU {cst[key]}")
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    n_err = sum(len(e) for e in _qos_errors(runs))
+    del out, rt, runs, cruns
+    # a 2-stage chain whose stage 0 admits under the tenants' budgets
+    scfg = dc.replace(ms.SERVE_MODELS["stablelm-smoke-4l"](),
+                      use_flash_attn=True)
+    ms.register_serve_model("stablelm-smoke-4l-flash", lambda: scfg)
+    chain = [(c[1], c[2]) for c in clients]
+    tiers = [c[0] for c in clients]
+    qos = ms.three_tier_qos(**QOS_KW)
+    rt, stages, runs = _staged_fleet("stablelm-smoke-4l-flash", 4, 64, chain,
+                                     seed, 2, qos=qos, tenants=tiers)
+    _drive(rt, runs, chain, max_ticks=200)
+    shares = [transformer.params_from_numpy(_to_numpy(r.params["lm"]), scfg,
+                                            "cpu") for _, r, _ in stages]
+    crt, _, cruns = _staged_fleet("stablelm-smoke-4l-flash", 4, 64, chain,
+                                  seed, 2, device="cpu", shares=shares,
+                                  qos=ms.three_tier_qos(**QOS_KW),
+                                  tenants=tiers)
+    _drive(crt, cruns, chain, max_ticks=200)
+    coord = _coord(rt)
+    _ledgers_balance(coord, "12b chain")
+    t = coord.tenant_stats()
+    check(coord.admission.enabled and t["standard"]["shed"] >= 1 and
+          t["best-effort"]["shed"] >= 1 and t["realtime"]["shed"] == 0,
+          f"12b chain: stage 0's ledger {t}")
+    for b in rt._batchers.values():
+        if isinstance(b, StageQueryBatcher):
+            hs = b.stats()
+            check(not b.admission.enabled and hs["shed_requests"] == 0 and
+                  hs["admitted_requests"] == hs["served_requests"],
+                  f"12b chain: a hop server's ledger {hs}")
+    got, cpu = _tokens(runs), _tokens(cruns)
+    check([len(a) for a in got] == [len(c[1]) for c in chain] and
+          got == cpu and _qos_errors(runs) == _qos_errors(cruns) and
+          rt.stats()["tenants"] == crt.stats()["tenants"],
+          "12b chain: the card != the port's CPU path")
+    chain_launches = {k: fa.LAUNCHES[k] - launches[k] for k in launches}
+    sheds = {tid: v["shed"] for tid, v in st["tenants"].items()}
+    print(f"phase 12b fp32 stablelm-smoke-flash, 4 slots, {len(clients)} "
+          f"clients: card == the port's CPU path (answers, {n_err} error "
+          f"frames, stats()['tenants'] and ['autoscale']), sheds {sheds}, "
+          f"one scale-up and one scale-down; 2-stage stablelm-smoke-4l "
+          f"chain under the same contract: stage 0 shed "
+          f"{ {k: v['shed'] for k, v in t.items()} }, hop servers "
+          f"pass-through, ledgers balance, card == CPU; launches "
+          f"{launches}, chain {chain_launches}")
+    total = {k: launches[k] + chain_launches[k] for k in launches}
+    return dict(sheds=sheds, error_frames=n_err, launches=total,
+                chain_sheds={k: v["shed"] for k, v in t.items()})
+
+
+def phase_qos(seed):
+    """12: tenant QoS and autoscaling on the card."""
+    import dataclasses as dc
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.launch import model_serve as ms
+    cfg = dc.replace(stablelm_1_6b.config(), use_flash_attn=True)
+    ms.register_serve_model("stablelm-1.6b-flash", lambda: cfg)
+    rows = {"12a": _phase_qos_full(seed), "12b": _phase_qos_small(seed)}
+    rows["launches"] = {k: rows["12a"]["launches"][k] +
+                        rows["12b"]["launches"][k]
+                        for k in ("flash_attention", "flash_decode")}
+    return rows
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -3374,6 +3802,7 @@ def main(argv=None):
     del answers6
     failover = phase_failover(args.seed)
     staged = phase_staged(args.seed, serve4)
+    qos = phase_qos(args.seed)
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -3418,9 +3847,10 @@ def main(argv=None):
     # K1/K2 (10b) and K5/K6 (10a, 10c) carry failover and the hot swap
     for row in kernels[:2] + kernels[4:6]:
         row["launches_phase10"] = failover["launches"][row["name"]]
-    # K5/K6 carry staged serving (11a–11d)
+    # K5/K6 carry staged serving (11a–11d) and the QoS fleet (12a, 12b)
     for row in kernels[4:6]:
         row["launches_phase11"] = staged["launches"][row["name"]]
+        row["launches_phase12"] = qos["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3434,7 +3864,7 @@ def main(argv=None):
                                    "rglru_serve": rglru,
                                    "graphs": graphs,
                                    "failover": failover,
-                                   "staged": staged},
+                                   "staged": staged, "qos": qos},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

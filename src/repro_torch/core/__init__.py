@@ -3,9 +3,12 @@
 # the query (inference offloading) protocol, live reconfiguration,
 # timestamp synchronization and the wire codecs.
 from .formats import Caps, CapsError, TensorFormat, TensorSpec
-from .buffers import (FlexHeader, StreamBuffer, flex_unwrap, flex_wrap,
-                      stack_buffers, structure_key, unstack_buffers)
-from .element import Element, element_factory, register_element, FACTORY
+from .buffers import (FlexHeader, SparsePayload, StreamBuffer, flex_unwrap,
+                      flex_wrap, stack_buffers, structure_key,
+                      unstack_buffers)
+from .element import (Element, StatefulElement, element_factory,
+                      register_element, FACTORY)
+from .elements import register_model, MODEL_REGISTRY
 from .pipeline import Pipeline, parse_launch, parse_caps
 from .plan import (ExecutionPlan, PendingQuery, clear_executable_cache,
                    executable_cache_info)
@@ -28,9 +31,10 @@ from . import compression
 
 __all__ = [
     "Caps", "CapsError", "TensorFormat", "TensorSpec",
-    "FlexHeader", "StreamBuffer", "flex_unwrap", "flex_wrap",
-    "stack_buffers", "structure_key", "unstack_buffers",
-    "Element", "element_factory", "register_element", "FACTORY",
+    "FlexHeader", "SparsePayload", "StreamBuffer", "flex_unwrap",
+    "flex_wrap", "stack_buffers", "structure_key", "unstack_buffers",
+    "Element", "StatefulElement", "element_factory", "register_element",
+    "FACTORY", "register_model", "MODEL_REGISTRY",
     "Pipeline", "parse_launch", "parse_caps",
     "ExecutionPlan", "PendingQuery", "clear_executable_cache",
     "executable_cache_info",

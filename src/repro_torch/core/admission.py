@@ -1,7 +1,8 @@
 """Tenant-aware admission control — the QoS scheduling core (DESIGN.md §9).
 
-A copy of ``src/repro/core/admission.py`` (framework-free).  The port's
-serve path runs it at ``qos=None``: global-FIFO pass-through plus the ledger.
+A copy of ``src/repro/core/admission.py`` (framework-free).  Every batcher
+of the port runs one; ``Runtime(qos=...)`` hands it the tenant policy, and
+the hop servers of a staged chain keep ``qos=None``.
 
 The among-device pitch only works at scale if the serving fabric can tell
 tenants apart, enforce budgets, and shed load explicitly (arXiv 2210.10514

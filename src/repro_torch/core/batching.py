@@ -14,8 +14,15 @@ prefill replay (DESIGN.md §3, §7).  :class:`StageQueryBatcher` and
 pipelines, boundary activations hopping stage to stage (DESIGN.md §8).
 The delivery guard waits (ROADMAP M10).
 
-Requests drain through one :class:`~.admission.AdmissionQueue`; the port
-runs it at ``qos=None`` — global arrival order, plus the per-tenant ledger.
+Requests drain through one :class:`~.admission.AdmissionQueue` (DESIGN.md
+§9).  At ``qos=None`` it is global arrival order plus the per-tenant
+ledger, bit for bit the pre-QoS fabric.  With a
+:class:`~.admission.QoSConfig` it sheds over-budget requests with a
+reason, expires queued ones past their tenant's deadline, caps dequeues at
+``serve_per_tick`` and orders them by priority class, then deadline; a
+streaming server also gives its free slots to waiting streams in
+``(priority, deadline, arrival)`` order.  Scheduling changes order and
+admission, never answers.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .admission import AdmissionQueue
+from .admission import AdmissionQueue, QoSConfig
 from .broker import BrokerError
 from .buffers import StreamBuffer, structure_key, unstack_buffers
 from .query import QueryServerEndpoint
@@ -97,13 +104,19 @@ class QueryBatcher:
     every group: a death that lands mid-flush leaves the groups still in
     the batcher's hands to the orphan ledger (``on_orphans``), never to
     the dead server.  The mesh placement and the delivery guard of the JAX
-    package wait (ROADMAP M11, M10)."""
+    package wait (ROADMAP M11, M10).
+
+    ``qos`` is the runtime's admission policy: each flush round first
+    expires queued requests past their deadline, and a round whose serve
+    budget is spent ends the flush, leaving the rest queued (in flight
+    for the scheduler) until the next tick."""
 
     def __init__(self, endpoint: QueryServerEndpoint, run: Any,
                  policy: BatchingPolicy,
                  inline_step: Optional[Callable[[], Any]] = None,
                  fused: bool = True,
                  on_orphans: Optional[Callable[[int], None]] = None, *,
+                 qos: Optional[QoSConfig] = None,
                  clock: Optional[Callable[[], int]] = None):
         self.endpoint = endpoint
         self.run = run
@@ -115,7 +128,7 @@ class QueryBatcher:
         #: abandons (the runtime's orphan ledger; the paused frames
         #: re-dispatch from their PendingQuery records)
         self.on_orphans = on_orphans
-        self.admission = AdmissionQueue(qos=None, clock=clock)
+        self.admission = AdmissionQueue(qos=qos, clock=clock)
         self.flushes = 0
         self.batches = 0
         self.batched_frames = 0
@@ -125,7 +138,8 @@ class QueryBatcher:
         self.orphaned = 0
 
     def in_flight(self, client_id: int) -> bool:
-        """Whether ``client_id`` has work the scheduler must keep waiting on."""
+        """Whether ``client_id`` has work the scheduler must keep waiting on:
+        a request a serve budget holds queued is in flight, not lost."""
         return self.admission.queued_for(client_id) > 0
 
     def pending(self) -> int:
@@ -153,14 +167,16 @@ class QueryBatcher:
             self.run.pipe.plan.query_batchable
         while self.endpoint.alive:
             self._ingest()
+            adm.expire()
             if not len(adm):
                 break
+            recs = adm.take(self.policy.max_batch if batchable else 1)
+            if not recs:
+                break               # serve budget spent this tick
             if not batchable:
-                rec = adm.take(1)[0]
-                self._serve_sequential(rec)
+                self._serve_sequential(recs[0])
                 served += 1
                 continue
-            recs = adm.take(self.policy.max_batch)
             raws = [r.raw for r in recs]
             groups = self._group_wire(raws) if self.fused else \
                 [(g, None) for g in self._group(raws)]
@@ -418,13 +434,16 @@ class StreamingQueryBatcher(QueryBatcher):
 
     Per flush (called every scheduler drain round):
 
-    1. **admit** — pop every pending request, decode it, run the serve
-       element's host prefill (first token + batch-1 cache, on the card),
-       and queue the stream for a slot.  ``gen <= 1`` answers at once.
-    2. **decode tick** — at most once per scheduler tick: free slots go to
-       waiting streams lowest-slot-first (arrival order) and are admitted
-       into the plan state eagerly, then ONE ``compiled_serve_tick`` call
-       (a CUDA graph on the card) decodes the whole slot table.
+    1. **admit** — expire what waited past its deadline, then take
+       requests one at a time until none is left or the serve budget is
+       spent: decode each, run the serve element's host prefill (first
+       token + batch-1 cache, on the card), and queue the stream for a
+       slot.  ``gen <= 1`` answers at once.
+    2. **decode tick** — at most once per scheduler tick: free slots go
+       lowest-slot-first to waiting streams (:meth:`_next_waiting`) and
+       are admitted into the plan state eagerly, then ONE
+       ``compiled_serve_tick`` call (a CUDA graph on the card) decodes the
+       whole slot table.
     3. **finish** — slots whose ``finished`` lane fired deliver their
        tokens as one answer through the real serversink apply.
 
@@ -548,6 +567,7 @@ class StreamingQueryBatcher(QueryBatcher):
         adm = self.admission
         while self.endpoint.alive:
             self._ingest()
+            adm.expire()
             recs = adm.take(1)
             if not recs:
                 break
@@ -572,6 +592,19 @@ class StreamingQueryBatcher(QueryBatcher):
                 self._waiting.append(rec)
         return finished
 
+    def _next_waiting(self) -> Dict:
+        """The waiting stream the next free slot goes to: first in first out
+        when QoS is off (the pre-QoS order, bit for bit) or one stream
+        waits, else the smallest ``(priority, deadline, arrival)`` key of
+        its admission record.  Priority decides slot admission, never
+        eviction: a slotted stream keeps its slot until it finishes."""
+        if not self.admission.enabled or len(self._waiting) <= 1:
+            return self._waiting.pop(0)
+        best = min(range(len(self._waiting)),
+                   key=lambda i: self._waiting[i]["adm"].order_key()
+                   if "adm" in self._waiting[i] else (-1, 0.0, -1))
+        return self._waiting.pop(best)
+
     def _decode_tick(self) -> int:
         """ONE decode call over the whole slot table: waiting streams join
         (admitted eagerly, in place), every active slot emits a token
@@ -582,7 +615,7 @@ class StreamingQueryBatcher(QueryBatcher):
         free = [s for s in range(elem.slots) if s not in self._slots]
         admits = []
         while free and self._waiting:
-            rec = self._waiting.pop(0)
+            rec = self._next_waiting()
             slot = free.pop(0)
             admits.append((slot, rec["tokens"][-1], rec["remaining"],
                            rec["cache"]))
@@ -861,7 +894,10 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
 
     Admission runs a PREFILL CHAIN: stage 0 prefills and parks its batch-1
     cache here, each later stage prefills the boundary activations and
-    parks its own slice, the last answers the first token.  Each decode
+    parks its own slice, the last answers the first token.  Under QoS the
+    requests are admitted under their tenant's budget as in
+    :class:`StreamingQueryBatcher`; waiting streams take slots in arrival
+    order, as in the JAX package.  Each decode
     tick runs one hop per stage over the whole slot table.  Boundary
     activations stay on the device; the last stage's int32 tokens are read
     to the host once per tick.  The coordinator RETAINS each stream's
@@ -1032,6 +1068,7 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
         adm = self.admission
         while self.endpoint.alive:
             self._ingest()
+            adm.expire()
             recs = adm.take(1)
             if not recs:
                 break

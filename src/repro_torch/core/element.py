@@ -15,8 +15,8 @@ from typing import Dict, List, Optional, Sequence, Type
 from .buffers import StreamBuffer
 from .formats import Caps, CapsError
 
-__all__ = ["Element", "PipelineContext", "register_element",
-           "element_factory", "FACTORY"]
+__all__ = ["Element", "StatefulElement", "PipelineContext",
+           "register_element", "element_factory", "FACTORY"]
 
 FACTORY: Dict[str, Type["Element"]] = {}
 
@@ -125,6 +125,12 @@ class Element:
     def __repr__(self):
         kv = " ".join(f"{k}={v}" for k, v in self.props.items())
         return f"<{self.factory_name} {self.name}{' ' + kv if kv else ''}>"
+
+
+class StatefulElement(Element):
+    """Element whose ``apply`` also consumes and produces state: it may
+    read ``ctx.state[self.name]`` and write ``ctx.next_state[self.name]``
+    (both trees of tensors)."""
 
 
 class PipelineContext:

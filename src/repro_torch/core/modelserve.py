@@ -184,6 +184,17 @@ class ModelServeElement(Element):
         return [StreamBuffer(tensors=(token, active, finished))]
 
     # -- host half (StreamingQueryBatcher calls) ------------------------------
+    def active_slots(self, state) -> int:
+        """Occupied decode slots, read from the plan-state active mask (a
+        device read).  The autoscaler's idle check needs exactly this
+        (slots a forgotten stream still holds count too); the per-tick
+        load signal counts the batcher's host records instead
+        (``StreamingQueryBatcher.active_streams``).  Never call it inside a
+        graph's capture or replay.  A slotted stream keeps its slot until
+        its ``finished`` lane fires: priority decides admission only."""
+        active = state.get(self.name, {}).get("active")
+        return 0 if active is None else int(active.sum())
+
     def host_prefill(self, params, prompt):
         """Prefill one request: prompt int[L] -> (first token int, batch-1
         decode cache on the serve device)."""

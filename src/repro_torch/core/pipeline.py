@@ -244,6 +244,16 @@ class Pipeline:
         return state
 
     # -- execution --------------------------------------------------------------
+    def sources(self) -> List[str]:
+        """Names of the app sources (the inputs ``step`` takes)."""
+        return [e.name for e in self.elements.values()
+                if isinstance(e, AppSrc)]
+
+    def sinks(self) -> List[str]:
+        """Names of the app sinks (the outputs ``step`` returns)."""
+        return [e.name for e in self.elements.values()
+                if isinstance(e, AppSink)]
+
     def step(self, params: dict, state: dict,
              inputs: Optional[Dict[str, StreamBuffer]] = None
              ) -> Tuple[Dict[str, StreamBuffer], dict]:

@@ -142,6 +142,10 @@ class TensorQueryClient(Element):
         raw = self.recv_answer_raw(ep)
         return None if raw is None else comp.decode(raw, self.codec)
 
+    def recv_answer(self) -> Optional[StreamBuffer]:
+        """Pop and decode this client's answer from its bound endpoint."""
+        return self.recv_answer_from(self._endpoint())
+
     def apply(self, params, inputs, ctx=None):
         """Synchronous round trip (used when the runtime's query batching
         is off): send, let the server's inline runner serve, receive."""

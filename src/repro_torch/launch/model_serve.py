@@ -2,8 +2,8 @@
 gst-launch builders for server and client pipelines, and the per-request
 sequential decode that continuous batching must reproduce bitwise.
 
-Port of ``src/repro/launch/model_serve.py``: monolithic serving and the
-staged pipeline-parallel helpers (the QoS contract waits for ROADMAP M9).
+Port of ``src/repro/launch/model_serve.py``: monolithic serving, the
+staged pipeline-parallel helpers and the three-tier QoS contract.
 
 How the system starts::
 
@@ -23,7 +23,10 @@ How the system starts::
 
 Staged serving replaces the hub with one Device per stage pipeline
 (``staged_serve_pipelines(model="stablelm-smoke-4l", n_stages=2)``), each
-given the monolithic server's generator; clients are unchanged.
+given the monolithic server's generator; clients are unchanged.  Tenants:
+``Runtime(qos=three_tier_qos(...))`` and ``client_pipeline(...,
+tenant="realtime")``; an elastic fleet adds
+``repro_torch.runtime.Autoscaler(rt, "query/lm", factory)``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import List, Optional
 import torch
 
 from ..core import parse_launch
+from ..core.admission import QoSConfig, TenantSpec
 from ..core.buffers import tree_flatten
 from ..core.modelserve import SERVE_MODELS, register_serve_model
 from ..device import DeviceLike, resolve_device
@@ -41,7 +45,7 @@ from ..models.config import ModelConfig
 
 __all__ = ["serve_pipeline", "client_pipeline", "sequential_decode",
            "stage_pipeline", "staged_serve_pipelines", "SERVE_MODELS",
-           "register_serve_model"]
+           "register_serve_model", "three_tier_qos"]
 
 
 def _stablelm_smoke_flash() -> ModelConfig:
@@ -123,12 +127,46 @@ def staged_serve_pipelines(operation: str = "lm",
 def client_pipeline(operation: str = "lm", prompts: str = "1,2,3",
                     gens: str = "4", codec: str = "none",
                     tenant: Optional[str] = None):
-    """Streaming client: one prompt request per frame, cycling prompts/gens."""
+    """Streaming client: one prompt request per frame, cycling prompts/gens.
+    ``tenant`` tags every request for the serve side's admission layer;
+    ``None`` keeps the untagged wire format."""
     tenant_prop = f" tenant={tenant}" if tenant is not None else ""
     return parse_launch(
         f"token_prompt_src prompts={prompts} gens={gens} ! "
         f"tensor_query_client operation={operation} codec={codec}"
         f"{tenant_prop} name=qc ! appsink name=res")
+
+
+def three_tier_qos(rate: Optional[float] = None,
+                   deadline_ticks: Optional[int] = None,
+                   max_queue: Optional[int] = None,
+                   serve_per_tick: Optional[int] = None):
+    """The three-tenant serving contract (DESIGN.md §9):
+
+    * ``realtime``: priority 0, ``deadline_ticks``, no rate budget;
+    * ``standard``: priority 1, ``rate`` requests a tick (burst the same,
+      at least 1), twice the deadline and twice the queue cap;
+    * ``best-effort``: priority 2, the same rate, ``deadline_ticks`` and
+      ``max_queue``: the tier that sheds first.
+
+    Unknown tenant ids fall into ``best-effort``.  ``serve_per_tick`` caps
+    each endpoint's dequeues a tick."""
+    best_effort = TenantSpec("best-effort", priority=2, rate=rate,
+                             deadline_ticks=deadline_ticks,
+                             max_queue=max_queue)
+    return QoSConfig(
+        tenants=(
+            TenantSpec("realtime", priority=0,
+                       deadline_ticks=deadline_ticks),
+            TenantSpec("standard", priority=1, rate=rate,
+                       deadline_ticks=(None if deadline_ticks is None
+                                       else 2 * deadline_ticks),
+                       max_queue=(None if max_queue is None
+                                  else 2 * max_queue)),
+            best_effort,
+        ),
+        default=best_effort,
+        serve_per_tick=serve_per_tick)
 
 
 def sequential_decode(params, cfg: ModelConfig, prompt, gen: int,

@@ -1,3 +1,4 @@
+from .autoscale import Autoscaler
 from .scheduler import DEFAULT_BURST, Device, Runtime
 
-__all__ = ["DEFAULT_BURST", "Device", "Runtime"]
+__all__ = ["Autoscaler", "DEFAULT_BURST", "Device", "Runtime"]

@@ -64,10 +64,18 @@ and warms a topology edit off the serving path and commits it at a tick
 boundary (``core/reconfig.py``).  Broker liveness events route through the
 same manager: a server's death or revival is an unplanned reconfiguration.
 
+Tenant QoS and elastic serving (DESIGN.md §9): ``qos=`` gives every
+batcher but the hop servers the tenant-aware admission policy, turns an
+admission shed into an explicit ``<client>.error`` frame, tightens a
+parked frame's limit to its tenant's deadline, and spreads dispatches over
+live replicas by join-shortest-queue.  Autoscalers
+(``runtime/autoscale.py``) register in ``autoscalers`` and are stepped at
+every tick boundary, right after pending reconfigurations.
+
 Every pipeline's tensors live on one device: the GPU unless the caller
-passes ``device="cpu"``.  Mesh placement, tenant QoS, the lossy network
-and autoscaling wait for their ROADMAP items (M11, M9, M10) and raise
-``NotImplementedError`` where asked for.
+passes ``device="cpu"``.  Mesh placement and the lossy network wait for
+their ROADMAP items (M11, M10) and raise ``NotImplementedError`` where
+asked for.
 """
 from __future__ import annotations
 
@@ -76,8 +84,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..core.admission import (DEFAULT_TENANT, merge_tenant_stats,
-                              percentile_from_hist)
+from ..core.admission import (DEFAULT_TENANT, QoSConfig,
+                              merge_tenant_stats, percentile_from_hist)
 from ..core.batching import (BatchingPolicy, QueryBatcher,
                              StagedStreamingBatcher, StageQueryBatcher,
                              StreamingQueryBatcher, DEFAULT_QUERY_BATCH)
@@ -178,12 +186,12 @@ class Runtime:
     def __init__(self, broker: Optional[Broker] = None,
                  tick_ns: int = TICK_NS, burst: int = DEFAULT_BURST,
                  query_batch=DEFAULT_QUERY_BATCH,
-                 device: DeviceLike = None, qos=None, mesh=None,
+                 device: DeviceLike = None,
+                 qos: Optional[QoSConfig] = None, mesh=None,
                  delivery=None, fused_wire: bool = True,
                  lease_ticks: Optional[int] = None,
                  park_deadline_ticks: Optional[int] = None):
-        for value, what in ((qos, "tenant QoS (qos=): ROADMAP M9"),
-                            (mesh, "mesh placement (mesh=): ROADMAP M11"),
+        for value, what in ((mesh, "mesh placement (mesh=): ROADMAP M11"),
                             (delivery, "the delivery layer (delivery=): "
                                        "ROADMAP M10")):
             if value is not None:
@@ -201,6 +209,16 @@ class Runtime:
         self.batching = BatchingPolicy.of(query_batch)
         #: fused batched wire path (module docstring)
         self.fused_wire = bool(fused_wire)
+        #: tenant-aware admission policy (DESIGN.md §9); None keeps every
+        #: admission queue in global-FIFO pass-through, the pre-QoS fabric
+        #: bit for bit
+        self.qos = qos
+        #: elastic-serving controllers (runtime/autoscale.py), stepped at
+        #: every tick boundary right after pending reconfigurations
+        self.autoscalers: List = []
+        #: this tick's dispatches per registration, on top of the heartbeat
+        #: load the QoS join-shortest-queue reads (cleared every tick)
+        self._load_bumps: Dict[int, int] = {}
         #: endpoint_id -> batcher for every runtime-wired serversrc
         self._batchers: Dict[int, QueryBatcher] = {}
         #: frames paused at a query client with no live server, as
@@ -260,21 +278,22 @@ class Runtime:
                     batcher = StageQueryBatcher(
                         e.endpoint, run, self.batching,
                         on_orphans=self._count_orphans,
-                        clock=lambda: self.ticks)
+                        qos=None, clock=lambda: self.ticks)
                 elif plan.stage_serving:
                     # stage 0: the coordinator owns the request lifecycle
-                    # and drives the hop chain to the stages it discovers
-                    # through the broker
+                    # (admitting under the tenants' budgets) and drives the
+                    # hop chain to the stages it discovers through the
+                    # broker
                     batcher = StagedStreamingBatcher(
                         e.endpoint, run, self.batching,
                         on_orphans=self._count_orphans,
-                        tick_source=lambda: self.ticks,
+                        tick_source=lambda: self.ticks, qos=self.qos,
                         clock=lambda: self.ticks, broker=self.broker)
                 elif plan.stream_serving:
                     batcher = StreamingQueryBatcher(
                         e.endpoint, run, self.batching,
                         on_orphans=self._count_orphans,
-                        tick_source=lambda: self.ticks,
+                        tick_source=lambda: self.ticks, qos=self.qos,
                         clock=lambda: self.ticks)
                 else:
                     batcher = QueryBatcher(
@@ -282,7 +301,7 @@ class Runtime:
                         inline_step=lambda r=run: self._run_once(r),
                         fused=self.fused_wire,
                         on_orphans=self._count_orphans,
-                        clock=lambda: self.ticks)
+                        qos=self.qos, clock=lambda: self.ticks)
                 self._batchers[e.endpoint.endpoint_id] = batcher
                 e.connect(self.broker, inline_runner=batcher.flush)
         # renegotiate with the broker wiring in place (mqttsink registers);
@@ -348,10 +367,13 @@ class Runtime:
     # -- liveness: heartbeats and leases --------------------------------------------
     def _heartbeat_and_lease(self):
         """Beat for every live device's registrations (a suspected one that
-        beats again is healed) and refresh each server's declared load
-        (queued requests), which the broker's ranking reads; then advance
-        the broker's lease clock, expiring whoever went silent.  A device
-        in ``_control_blocked`` serves but does not beat."""
+        beats again is healed) and refresh each server's declared load,
+        which the broker's ranking reads: queued requests, plus, under QoS,
+        the streams holding or waiting for decode slots (the autoscaler's
+        and join-shortest-queue's signal, counted from the batcher's host
+        records: no device read).  Then advance the broker's lease clock,
+        expiring whoever went silent.  A device in ``_control_blocked``
+        serves but does not beat."""
         for dev in self.devices:
             if not dev.alive or dev in self._control_blocked:
                 continue
@@ -364,9 +386,16 @@ class Runtime:
                         self.broker.heal(reg)
                     self.broker.heartbeat(reg)
                     if isinstance(e, TensorQueryServerSrc):
+                        # pre-QoS the load stays channel plus admission:
+                        # the failover pins' binding choices depend on it
                         b = self._batchers.get(e.endpoint.endpoint_id)
-                        reg.load = float(len(e.endpoint.requests)) + \
-                            float(len(b.admission) if b else 0)
+                        load = float(len(e.endpoint.requests))
+                        if b is not None:
+                            load += float(len(b.admission))
+                            if self.qos is not None and \
+                                    hasattr(b, "active_streams"):
+                                load += float(b.active_streams())
+                        reg.load = load
         self.broker.tick()
 
     def _ready(self, run: _PipeRun) -> bool:
@@ -422,10 +451,29 @@ class Runtime:
         return res
 
     def _select_endpoint(self, qc) -> QueryServerEndpoint:
-        """Endpoint for one dispatch: the client's sticky binding (the JAX
-        package spreads over replicas here only under tenant QoS, ROADMAP
-        M9)."""
-        return qc._endpoint()
+        """Endpoint for one dispatch.  Without QoS, the client's sticky
+        binding (the failover pins depend on its win-back).  Under QoS with
+        more than one live candidate, join-shortest-queue: the hard
+        preferences of the broker's rank (stage, tenant, codec) first, then
+        heartbeat load plus this tick's own dispatches (the heartbeat lags
+        by a tick, and without the bump a whole round would land on one
+        replica), then registration order.  The binding is untouched."""
+        ep = qc._endpoint()
+        if self.qos is None or qc.binding is None:
+            return ep
+        cands = [r for r in qc.binding._candidates()
+                 if getattr(r.endpoint, "alive", True)]
+        if len(cands) <= 1:
+            return ep
+        prefer = qc.binding.prefer
+
+        def key(r):
+            return (self.broker.rank_key(r, prefer)[:3],
+                    r.load + self._load_bumps.get(r.reg_id, 0), r.reg_id)
+        best = min(cands, key=key)
+        self._load_bumps[best.reg_id] = \
+            self._load_bumps.get(best.reg_id, 0) + 1
+        return best.endpoint
 
     def _after_send(self, pq: PendingQuery, ep):
         if pq.endpoint is not None and pq.endpoint is not ep:
@@ -506,10 +554,15 @@ class Runtime:
         return pending
 
     def _park_limit(self, qc) -> Optional[int]:
-        """Ticks a frame of this client may stay parked: the runtime's
-        ``park_deadline_ticks`` (a tenant's own deadline joins it under
-        QoS, ROADMAP M9)."""
-        return self.park_deadline_ticks
+        """Ticks a frame of this client may stay parked: the tighter of the
+        runtime's ``park_deadline_ticks`` and, under QoS, its tenant's
+        ``deadline_ticks`` (parked time is queue time)."""
+        limits = [self.park_deadline_ticks]
+        if self.qos is not None:
+            tenant = getattr(qc, "tenant", None) or DEFAULT_TENANT
+            limits.append(self.qos.spec(tenant).deadline_ticks)
+        limits = [m for m in limits if m is not None]
+        return min(limits) if limits else None
 
     def _expire_parked(self):
         """A frame parked past its limit degrades explicitly: counted in
@@ -531,11 +584,14 @@ class Runtime:
 
     def _account_tenant_shed(self, qc, reason: str):
         """Book a runtime-owned shed (the request never reached a server's
-        admission queue) on its tenant's ledger: one admission, one shed."""
+        admission queue) on its tenant's ledger: one admission, one shed,
+        and under QoS the tenant's priority."""
         tenant = getattr(qc, "tenant", None) or DEFAULT_TENANT
         led = self._tenant_shed.setdefault(tenant, {
             "admitted": 0, "served": 0, "shed": 0, "queued": 0,
             "in_flight": 0, "shed_reasons": {}, "latency_hist": {}})
+        if self.qos is not None:
+            led["priority"] = self.qos.spec(tenant).priority
         led["admitted"] += 1
         led["shed"] += 1
         led["shed_reasons"][reason] = led["shed_reasons"].get(reason, 0) + 1
@@ -554,15 +610,31 @@ class Runtime:
             "tick": self.ticks})
         run.sink_log.setdefault(f"{qc.name}.error", []).append(err)
 
+    def _shed_query(self, run: _PipeRun, pq: PendingQuery, reason: str):
+        """Answer a request the server's admission refused (rate budget,
+        queue cap or deadline; already on the tenant's ledger) with an
+        error frame under ``<client>.error`` naming the reason.  The frame
+        is abandoned and its pipeline is free next tick."""
+        qc = pq.client
+        err = StreamBuffer(tensors=(), meta={
+            "error": "shed", "reason": reason,
+            "operation": qc.operation,
+            "tenant": getattr(qc, "tenant", None) or DEFAULT_TENANT,
+            "tick": self.ticks})
+        run.sink_log.setdefault(f"{qc.name}.error", []).append(err)
+
     def _drain_queries(self, pending: List[Tuple[_PipeRun, PendingQuery]]):
         """Flush every batcher, resume the paused frames that have their
         answers, and repeat for frames that pause again at a later client.
 
         A frame whose endpoint died before answering re-dispatches its
         retained request to the next-ranked survivor (served in the next
-        round) or parks.  A stream still decoding on a live endpoint leaves
-        the drain and re-enters next tick; a missing answer from a live
-        endpoint with nothing in flight is a serving bug and raises.  Each
+        round) or parks.  A request the live endpoint's admission shed is
+        answered with an error frame (never a silent drop, never a
+        failover).  A stream still decoding, or a request a serve budget
+        holds queued, leaves the drain and re-enters next tick; a missing
+        answer from a live endpoint with nothing in flight is a serving bug
+        and raises.  Each
         round every frame is answered, parked, raised on, or moved to a
         live endpoint other than its dead one, so the drain ends."""
         pending = list(pending)
@@ -577,9 +649,14 @@ class Runtime:
                 if raw is None:
                     if ep is not None and ep.alive:
                         b = self._batchers.get(ep.endpoint_id)
-                        if b is not None and b.in_flight(qc.client_id):
-                            self._inflight.append((run, pq))
-                            continue
+                        if b is not None:
+                            reason = b.admission.pop_notice(qc.client_id)
+                            if reason is not None:
+                                self._shed_query(run, pq, reason)
+                                continue
+                            if b.in_flight(qc.client_id):
+                                self._inflight.append((run, pq))
+                                continue
                         raise BrokerError(
                             f"{qc.name}: no answer from {qc.operation!r}")
                     if self._dispatch_query(pq):
@@ -685,6 +762,12 @@ class Runtime:
         # tick boundary: pending reconfigurations commit (or drain or roll
         # back) before any frame of this tick starts
         self.reconfig.step()
+        # autoscalers read the scaling signal once pending reconfigurations
+        # settled; their scale-ups and scale-downs are reconfigurations
+        # that commit on later ticks
+        for scaler in list(self.autoscalers):
+            scaler.step()
+        self._load_bumps.clear()
         self._expire_parked()
         # parked frames go first (a server may be back); then streams
         # mid-generation re-enter the drain (a dead server's re-dispatch
@@ -775,4 +858,6 @@ class Runtime:
                 t["queued"] + t["in_flight"], \
                 f"tenant {tid!r} leaks requests: {t}"
         out["tenants"] = tenants
+        if self.autoscalers:
+            out["autoscale"] = [s.stats() for s in self.autoscalers]
         return out

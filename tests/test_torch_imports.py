@@ -59,6 +59,16 @@ def test_the_scan_covers_the_rglru_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: tenant QoS and elastic serving's modules
+QOS_MODULES = ("runtime/autoscale.py", "runtime/scheduler.py",
+               "core/admission.py", "launch/model_serve.py")
+
+
+def test_the_scan_covers_the_qos_modules():
+    for rel in QOS_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -134,6 +144,11 @@ def test_later_slices_raise_naming_their_roadmap_item(kw, item):
     if item == "M3":
         # query_batch=0 is ported: synchronous round trips in the client
         assert not Runtime(device="cpu", **kw).batching.enabled
+        return
+    if item == "M9":
+        # tenant QoS is ported: the runtime keeps the policy it is given
+        qos = ms.three_tier_qos()
+        assert Runtime(device="cpu", qos=qos).qos is qos
         return
     with pytest.raises(NotImplementedError, match=item):
         Runtime(device="cpu", **kw)

@@ -1,8 +1,9 @@
 """Pipeline-parallel serving as stage hops (DESIGN.md §8) in the port, on
 the CPU, against the JAX package.
 
-Port of ``tests/test_pp_staged_serving.py`` (its soak and its shard_map
-cross-check, red in the JAX package, are not ported).  The
+Port of ``tests/test_pp_staged_serving.py`` (its soak's twin is in
+``test_torch_soak.py``; its shard_map cross-check, red in the JAX
+package, is not ported).  The
 ``stablelm-smoke-4l`` preset splits into N ``model_serve_stage``
 pipelines, one Device each; the port serves the JAX package's weights
 (``params_from_numpy``, each stage given its slice).  Pinned:
