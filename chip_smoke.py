@@ -170,6 +170,35 @@ Phases, one result line each (any failure exits non-zero):
    == the port's CPU path (answers, error frames, tenant and autoscale
    stats; hop servers pass-through, ledgers balance).
 
+13. the lossy network and effectively-once delivery — every lossy run
+   has ``Runtime(delivery=DeliveryPolicy())`` and a ``FaultFabric``
+   (``core/netfault.py``) installed through ``tests/chaoslib.py``'s
+   ``lossy_endpoint`` on a server's request link and every answer link,
+   with fixed seeds and pinned client ids (the fault schedule is the one
+   the CPU rehearsal saw).  13d first: phase 4's graphed serve with
+   delivery on over zero-rate links against delivery off, in turns (off,
+   on, on, off): answers bitwise (and phase 4's), the device-to-host
+   copies the profiler counts in ticks 6–59 of the first pair equal (the
+   CRC reads no CUDA tensor), the median ticks of the unprofiled pair
+   side by side.  13a: phase 4's clients and server, every
+   link dropping, duplicating, corrupting, delaying and reordering
+   (0.05/0.12/0.05/0.05/0.05): every stream bitwise its twin's where it
+   was served in the twin's slot, else ``sequential_decode`` in its slot;
+   every fault class fired, message and token conservation, one prefill
+   a request, the twin's token count and K5 launches, K6 once a layer a
+   decode tick; the replay cache holds what each client got.  13b: phase
+   6's 8 clients (quant8, then sparse:0.15) over the same kind of links
+   until each has 4 answers: each bitwise phase 6's, corrupt requests
+   rejected, the server's served frames == its guard's accepted, the
+   replay cache bitwise phase 6's; prints K1–K4 launches beside the
+   retransmits.  13c: phase 11a's 2-stage chain with the stage-1 hop
+   link lossy (requests dup 0.12, corrupt 0.06, drop 0.03; answers dup
+   0.10): streams bitwise phase 4's in the same slots, ledgers balance,
+   no hop failed, hop retransmits/dups/corrupt > 0, one decode hop a
+   tick, launches == 11a's.  13e: an ``EdgeSensor``'s numpy frames reach
+   a subscriber pipeline on the card, ``EdgeQueryClient.infer`` round
+   trips through a server there, bitwise the model.
+
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
 f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
 8 kv heads (GQA, 4 groups), beside its bound (float32 operations outside
@@ -831,17 +860,22 @@ def phase_scan_kernel(seed):
 
 
 def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks,
-           jit=True, n_stages=None):
+           jit=True, n_stages=None, rt_kw=None, on_servers=None,
+           tick_ms=None, before_tick=None):
     """Drive one serve pipeline plus staggered clients until every client
     has its answers.  ``clients`` is a list of (join_tick, prompts, gens);
     ``jit=False`` is the eager twin of the graph route.  With ``n_stages``
     the server is that many stage pipelines, one Device each, every one
-    given the monolithic server's generator; ``srv`` is then their runs."""
+    given the monolithic server's generator; ``srv`` is then their runs.
+    ``rt_kw`` goes to the Runtime, ``on_servers(rt, server runs)`` runs
+    once the servers are deployed, ``before_tick(t)`` before tick ``t``,
+    and ``tick_ms`` (a list) collects each tick's host ms, the card
+    synchronized at its end."""
     import torch
     from repro_torch.device import make_generator
     from repro_torch.launch import model_serve as ms
     from repro_torch.runtime import Device, Runtime
-    rt = Runtime(device=rt_device)
+    rt = Runtime(device=rt_device, **(rt_kw or {}))
     if n_stages is None:
         pipes = [("hub", ms.serve_pipeline(model=model, slots=slots,
                                            max_seq=max_seq))]
@@ -856,9 +890,13 @@ def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks,
             ps, generator=make_generator(seed, rt.device), jit=jit))
         rt.add_device(hub)
     srv = srvs[0] if n_stages is None else srvs
+    if on_servers is not None:
+        on_servers(rt, srvs)
     runs = [None] * len(clients)
     t0 = time.perf_counter()
     while rt.ticks < max_ticks:
+        if before_tick is not None:
+            before_tick(rt.ticks + 1)
         for i, (join, prompts, gens) in enumerate(clients):
             if runs[i] is None and rt.ticks >= join:
                 dev = Device(f"tv{i}", device=rt_device)
@@ -868,7 +906,12 @@ def _serve(rt_device, model, slots, max_seq, clients, seed, max_ticks,
                                                               gens=g),
                                            jit=jit)
                 rt.add_device(dev)
+        t1 = time.perf_counter()
         rt.tick()
+        if tick_ms is not None:
+            if rt.device.type == "cuda":
+                torch.cuda.synchronize()
+            tick_ms.append(1e3 * (time.perf_counter() - t1))
         done = 0
         for i, run in enumerate(runs):
             if run is not None and \
@@ -3764,6 +3807,506 @@ def phase_qos(seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the lossy network and effectively-once delivery
+# ---------------------------------------------------------------------------
+
+#: 13a, 13b: every fault class on the request link and every answer link
+LOSSY_MIXED = dict(drop=0.05, dup=0.12, corrupt=0.05, delay=0.05,
+                   reorder=0.05)
+#: 13c: the stage-1 hop link's requests and answers
+HOP_REQ, HOP_ANS = dict(dup=0.12, corrupt=0.06, drop=0.03), dict(dup=0.10)
+#: the link counter each fault class books
+FAULT_COUNTERS = {"drop": "dropped_by_fault", "dup": "injected_dups",
+                  "corrupt": "corrupted", "delay": "delayed",
+                  "reorder": "reordered"}
+#: the request links' fault seeds (answer links draw from seed + 1 and the
+#: client id): the schedule is host-side and the same on every run
+LOSSY_SEEDS = {"13a": 133, "13b": 135, "13c": 133}
+#: the first query client id of each lossy run (see _pin_client_ids)
+CLIENT_ID_BASE = {"13a": 1_000_000, "13b": 1_001_000, "13c": 1_002_000}
+#: 13d: the ticks whose device-to-host copies the profiler counts, after
+#: the decode graph's capture and through every join and most answers
+CLEAN_WINDOW = (6, 60)
+
+
+def _lossy_links(rt, ep, req, ans, seed, name):
+    """Lossy links (``tests/chaoslib.py``'s ``lossy_endpoint``) on a query
+    endpoint's request channel and, with ``ans``, on every answer channel;
+    the runtime steps the fabric each tick.  -> the fabric"""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from chaoslib import lossy_endpoint
+    from repro_torch.core.netfault import FaultFabric, FaultPolicy
+    if rt.fabric is None:
+        rt.fabric = FaultFabric()
+    lossy_endpoint(rt.fabric, ep, FaultPolicy(seed=seed, **req),
+                   None if ans is None else
+                   FaultPolicy(seed=seed + 1, **ans), name=name)
+    return rt.fabric
+
+
+def _pin_client_ids(base):
+    """Draw the next query client ids from ``base`` on (above every id
+    drawn so far): the answer links' fault seeds derive from client ids,
+    so pinned ids give the schedule the CPU rehearsal saw, whatever ran
+    before."""
+    from repro_torch.core.query import TensorQueryClient
+    nxt = next(TensorQueryClient._ids)
+    check(nxt <= base, f"client ids already reached {nxt} > {base}")
+    TensorQueryClient._ids = itertools.count(base)
+
+
+def _fired(fabric):
+    """Faults injected over every link of ``fabric``, by class."""
+    links = list(fabric.stats().values())
+    return {k: sum(l[c] for l in links) for k, c in FAULT_COUNTERS.items()}
+
+
+def _replayed_payloads(guard):
+    """{delivery id: the answer payload its replay would re-push}: the
+    replay closure's bound payload (``TensorQueryServerSink._ship``)."""
+    return {dseq: fn.__defaults__[2] for dseq, fn in guard._answers.items()}
+
+
+def _client_of(runs):
+    """{client id: index} of the clients' query elements."""
+    return {r.pipe.elements["qc"].client_id: i for i, r in enumerate(runs)}
+
+
+def _unprofiled(tick_ms):
+    """The host ms of the ticks outside 13d's profiled window (tick t is
+    ``tick_ms[t - 1]``)."""
+    lo, hi = CLEAN_WINDOW
+    return [ms for t, ms in enumerate(tick_ms, 1) if not lo <= t < hi]
+
+
+def _d2h_copies(prof):
+    """Device-to-host copies the profiler recorded."""
+    return sum(e.count for e in prof.key_averages()
+               if "Memcpy DtoH" in e.key)
+
+
+def _phase_clean_overhead(seed, serve4, model="stablelm-1.6b-flash",
+                          device=None):
+    """13d: phase 4's graphed serve with the delivery layer on over
+    zero-rate links, against delivery off, in turns (off, on, on, off):
+    answers bitwise; the first pair counts the device-to-host copies of
+    ticks 6-59 under the profiler (equal: the CRC never reads a CUDA
+    tensor), the second pair is timed without it (median tick side by
+    side)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.netfault import DeliveryPolicy
+    from repro_torch.kernels import flash_attn as fa
+    clients = serve4["clients"]
+    cuda = torch.device(device or "cuda").type == "cuda"
+    rows, answers = {}, {}
+    for key, profiled in (("off", True), ("on", True), ("on2", False),
+                          ("off2", False)):
+        on = key.startswith("on")
+        prof = profile(activities=[ProfilerActivity.CUDA]) \
+            if cuda and profiled else None
+        live = []
+
+        def before(t, prof=prof, live=live):
+            if prof is None:
+                return
+            if t == CLEAN_WINDOW[0]:
+                torch.cuda.synchronize()
+                prof.start()
+                live.append(1)
+            elif t == CLEAN_WINDOW[1] and live:
+                torch.cuda.synchronize()
+                prof.stop()
+                live.clear()
+
+        def servers(rt, srvs, on=on):
+            if on:
+                # a FaultLink on every link, every rate zero
+                _lossy_links(rt, srvs[0].pipe.elements["ssrc"].endpoint,
+                             {}, {}, 0, "clean")
+        tick_ms = []
+        _reset_launches()
+        rt, srv, runs, wall = _serve(
+            device, model, 8, 1024, clients, seed, max_ticks=400,
+            rt_kw=dict(delivery=DeliveryPolicy()) if on else {},
+            on_servers=servers, tick_ms=tick_ms, before_tick=before)
+        if live:
+            torch.cuda.synchronize()
+            prof.stop()
+        launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                                "flash_decode")}
+        qb = rt.stats()["query_batching"]
+        _conserved(qb, f"13d {key}")
+        answers[key] = _check_answers(runs, clients,
+                                      srv.pipe.elements["lm"].cfg.vocab, 8)
+        rows[key] = dict(
+            ticks=rt.ticks, tick_ms=tick_ms,
+            tick_ms_median=float(np.median(
+                _unprofiled(tick_ms) if profiled else tick_ms)),
+            prefills=qb["prefills"], decode_ticks=qb["decode_ticks"],
+            tokens=qb["tokens_generated"], launches=launches,
+            d2h_copies=None if prof is None else _d2h_copies(prof))
+        if on:
+            d = rt.stats()["delivery"]
+            check(d["retransmits"] == d["deduped"] == d["replayed"] ==
+                  d["rejected_corrupt"] == d["client_answer_dups"] == 0,
+                  f"13d: the delivery layer acted on clean links: {d}")
+            rt.fabric.assert_conservation()
+            check(sum(_fired(rt.fabric).values()) == 0,
+                  "13d: a zero-rate link injected a fault")
+            rows[key]["delivery"] = d
+        del rt, srv, runs
+        gc.collect()
+    off = rows["off"]
+    for key in ("on", "on2", "off2"):
+        check(answers[key] == answers["off"],
+              f"13d: answers of the {key} run != the off run's")
+        check(rows[key]["launches"] == off["launches"] and
+              rows[key]["ticks"] == off["ticks"],
+              f"13d: launches or ticks differ: {key} "
+              f"{rows[key]['launches']} {rows[key]['ticks']} vs off "
+              f"{off['launches']} {off['ticks']}")
+    check([a[2:] for a in answers["off"]] ==
+          [a[2:] for a in serve4["answers"]],
+          "13d: the delivery-off twin's answers or slots != phase 4's")
+    if cuda:
+        check(off["d2h_copies"] > 0,
+              "13d: the profiler saw no device-to-host copy at all")
+        check(rows["on"]["d2h_copies"] == off["d2h_copies"],
+              f"13d: device-to-host copies {rows['on']['d2h_copies']} "
+              f"with delivery on != {off['d2h_copies']} off")
+    med = {k: rows[k]["tick_ms_median"] for k in rows}
+    print(f"phase 13d clean-link overhead, phase 4's graphed serve "
+          f"({len(answers['off'])} streams, {off['ticks']} ticks), run "
+          f"off, on, on, off: answers bitwise in all four and == phase 4; "
+          f"device-to-host copies in ticks {CLEAN_WINDOW[0]}.."
+          f"{CLEAN_WINDOW[1] - 1} (profiled pair): "
+          f"{rows['on']['d2h_copies']} on, {off['d2h_copies']} off; median "
+          f"tick ms, profiled pair outside the window: on "
+          f"{med['on']:.3f} / off {med['off']:.3f}; unprofiled pair, every "
+          f"tick: on {med['on2']:.3f} / off {med['off2']:.3f}; delivery "
+          f"{rows['on']['delivery']}")
+    total = {k: sum(r["launches"][k] for r in rows.values())
+             for k in off["launches"]}
+    return dict(rows, launches=total)
+
+
+def _phase_lossy_serve(seed, serve4, twin, model="stablelm-1.6b-flash",
+                       device=None):
+    """13a: phase 4's clients against phase 4's server with every fault
+    class on both directions of its links."""
+    from repro_torch.core.netfault import DeliveryPolicy
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    clients = serve4["clients"]
+    tick_ms = []
+    _pin_client_ids(CLIENT_ID_BASE["13a"])
+    _reset_launches()
+    rt, srv, runs, wall = _serve(
+        device, model, 8, 1024, clients, seed, max_ticks=800,
+        rt_kw=dict(delivery=DeliveryPolicy()),
+        on_servers=lambda rt, srvs: _lossy_links(
+            rt, srvs[0].pipe.elements["ssrc"].endpoint, LOSSY_MIXED,
+            LOSSY_MIXED, LOSSY_SEEDS["13a"], "lm"),
+        tick_ms=tick_ms)
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    ecfg = srv.pipe.elements["lm"].cfg
+    answers = _check_answers(runs, clients, ecfg.vocab, 8)
+    fabric = rt.fabric
+    fabric.assert_conservation()
+    fired = _fired(fabric)
+    check(all(v > 0 for v in fired.values()),
+          f"13a: a fault class never fired: {fired}")
+    st = rt.stats()
+    qb, d = st["query_batching"], st["delivery"]
+    _conserved(qb, "13a")
+    # effectively once: one prefill a logical request, every token once
+    check(qb["prefills"] == qb["streams_started"] == len(answers) ==
+          twin["prefills"], f"13a: {qb['prefills']} prefills, "
+          f"{qb['streams_started']} streams for {len(answers)} requests "
+          f"(twin {twin['prefills']})")
+    check(qb["tokens_generated"] == twin["tokens"] and
+          qb["tokens_dropped"] == 0,
+          f"13a: {qb['tokens_generated']} tokens generated, the twin "
+          f"{twin['tokens']}")
+    check(launches["flash_attention"] == twin["launches"]["flash_attention"]
+          == ecfg.n_layers * qb["prefills"],
+          f"13a: K5 launches {launches} vs the twin's {twin['launches']}")
+    check(launches["flash_decode"] == ecfg.n_layers * qb["decode_ticks"],
+          f"13a: K6 launches {launches} != {ecfg.n_layers} x "
+          f"{qb['decode_ticks']} decode ticks")
+    # every stream bitwise its twin's (phase 4) where it was served in the
+    # same slot, and sequential_decode's in the slot it was served in
+    params = srv.params["lm"]
+    same_slot = replayed = 0
+    refs = {}
+    for (prompt, gen, got, slot), (_, _, want, wslot) in zip(
+            answers, serve4["answers"]):
+        if slot == wslot:
+            check(got == want, f"13a: a {len(prompt)}-token stream in slot "
+                               f"{slot} != its fault-free twin's")
+            same_slot += 1
+            continue
+        key = (tuple(prompt), gen, slot)
+        if key not in refs:
+            refs[key] = ms.sequential_decode(params, ecfg, prompt, gen, 1024,
+                                             slots=8, slot=slot,
+                                             device=rt.device)
+        check(got == refs[key], f"13a: a {len(prompt)}-token stream in "
+                                f"slot {slot} != sequential_decode")
+        replayed += 1
+    # the replay cache holds exactly what each client received
+    guard = _batcher_of(rt, srv).guard
+    idx = _client_of(runs)
+    for (cid, n), p in _replayed_payloads(guard).items():
+        got = np.asarray(runs[idx[cid]].sink_log["res"][n - 1].tensor)
+        check(np.array_equal(np.asarray(p.tensors[0]), got),
+              f"13a: the replay cache's answer {cid, n} != the delivered one")
+    row = dict(ticks=rt.ticks, twin_ticks=twin["ticks"], wall_s=wall,
+               tick_ms_median=float(np.median(tick_ms)),
+               twin_tick_ms_median=twin["tick_ms_median"],
+               prefills=qb["prefills"], decode_ticks=qb["decode_ticks"],
+               twin_decode_ticks=twin["decode_ticks"],
+               tokens=qb["tokens_generated"], launches=launches,
+               twin_launches=twin["launches"], fired=fired, delivery=d,
+               same_slot=same_slot, other_slot=replayed,
+               replay_cache=len(guard._answers))
+    print(f"phase 13a lossy streaming serve stablelm-1.6b bf16, phase 4's "
+          f"8 clients, every link drop/dup/corrupt/delay/reorder "
+          f"{'/'.join(str(LOSSY_MIXED[k]) for k in FAULT_COUNTERS)}: "
+          f"{len(answers)} streams in {rt.ticks} ticks (twin "
+          f"{twin['ticks']}), {same_slot} bitwise the twin's in the same "
+          f"slot, {replayed} in another slot bitwise sequential_decode; "
+          f"faults fired {fired}; delivery {d}; {qb['prefills']} prefills "
+          f"and {qb['tokens_generated']} tokens (twin {twin['prefills']}, "
+          f"{twin['tokens']}); launches {launches} (twin "
+          f"{twin['launches']}; {qb['decode_ticks']} decode ticks, twin "
+          f"{twin['decode_ticks']}); median tick "
+          f"{row['tick_ms_median']:.3f} ms vs the twin's (13d's last "
+          f"unprofiled off run) {twin['tick_ms_median']:.3f}; message "
+          f"conservation exact on {len(fabric.links)} links")
+    del rt, srv, runs
+    gc.collect()
+    return row
+
+
+def _phase_lossy_offload(seed, answers6, model="offload-gate", device=None,
+                         width=None, channels=None):
+    """13b: phase 6's 8 clients and server (quant8, then sparse:0.15) with
+    every fault class on both directions of the server's links."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.netfault import DeliveryPolicy
+    L, D = width or OFFLOAD_L, channels or OFFLOAD_D
+    C, T = OFFLOAD_CLIENTS, OFFLOAD_TICKS
+    kernels = {"quant8": ("quantize8", "dequantize8"),
+               "sparse:0.15": ("sparse_enc", "sparse_dec")}
+    rows = {}
+    for k, codec in enumerate(("quant8", "sparse:0.15")):
+        _pin_client_ids(CLIENT_ID_BASE["13b"] + 100 * k)
+        rt, runs, srv, _, _ = _offload(device, model, codec, L, D, C, 0,
+                                       seed, query_batch=8,
+                                       delivery=DeliveryPolicy())
+        fabric = _lossy_links(rt, srv.pipe.elements["ssrc"].endpoint,
+                              LOSSY_MIXED, LOSSY_MIXED,
+                              LOSSY_SEEDS["13b"] + 2 * k, "act")
+        _reset_launches()
+        while rt.ticks < 200:
+            rt.tick()
+            for r in runs:
+                if len(r.sink_log.get("res", [])) >= T:
+                    r.retired = True
+            if all(r.retired for r in runs):
+                break
+        launches = {n: v for n, v in _launch_counts().items()
+                    if n in kernels[codec]}
+        fabric.assert_conservation()
+        fired = _fired(fabric)
+        d = rt.stats()["delivery"]
+        guard = _batcher_of(rt, srv).guard
+        for i, r in enumerate(runs):
+            got = [b.tensor for b in r.sink_log.get("res", [])]
+            check(len(got) >= T, f"13b {codec}: client {i} has {len(got)} "
+                                 f"answers after {rt.ticks} ticks")
+            for t in range(T):
+                same_bits(got[t], answers6[codec][i][t],
+                          f"13b {codec} client {i} request {t}: answer != "
+                          f"phase 6's")
+        check(d["rejected_corrupt"] > 0,
+              f"13b {codec}: no corrupt request was rejected: {d}")
+        check(srv.frames == guard.accepted,
+              f"13b {codec}: the server served {srv.frames} frames, its "
+              f"guard accepted {guard.accepted}")
+        idx = _client_of(runs)
+        pinned = 0
+        for (cid, n), p in _replayed_payloads(guard).items():
+            if n <= T:
+                same_bits(comp.decode(p, codec).tensor,
+                          answers6[codec][idx[cid]][n - 1],
+                          f"13b {codec}: the replay cache's answer "
+                          f"{cid, n} != phase 6's")
+                pinned += 1
+        rows[codec] = dict(ticks=rt.ticks, fired=fired, delivery=d,
+                           launches=launches, served=srv.frames,
+                           replay_cache_pinned=pinned)
+        print(f"phase 13b lossy offload {codec} f32 [1, {L}, {D}] x {C} "
+              f"clients: {T} answers each bitwise phase 6's in {rt.ticks} "
+              f"ticks; faults fired {fired}; delivery {d}; the server "
+              f"served {srv.frames} frames == the guard's accepted; "
+              f"launches {launches} beside {d['retransmits']} "
+              f"retransmits; {pinned} replay-cache answers bitwise phase "
+              f"6's")
+        del rt, runs, srv, guard
+        gc.collect()
+    rows["launches"] = {n: v for row in list(rows.values())
+                        for n, v in row["launches"].items()}
+    return rows
+
+
+def _phase_lossy_staged(seed, serve4, twin_launches,
+                        model="stablelm-1.6b-flash", device=None):
+    """13c: phase 11a's 2-stage chain with the stage-1 hop link lossy both
+    ways."""
+    from repro_torch.core.netfault import DeliveryPolicy
+    from repro_torch.kernels import flash_attn as fa
+    clients = serve4["clients"]
+    _pin_client_ids(CLIENT_ID_BASE["13c"])
+    _reset_launches()
+    rt, srvs, runs, wall = _serve(
+        device, model, 8, 1024, clients, seed, max_ticks=400, n_stages=2,
+        rt_kw=dict(delivery=DeliveryPolicy()),
+        on_servers=lambda rt, srvs: _lossy_links(
+            rt, srvs[1].pipe.elements["ssrc"].endpoint, HOP_REQ, HOP_ANS,
+            LOSSY_SEEDS["13c"], "s1"))
+    launches = {k: fa.LAUNCHES[k] for k in ("flash_attention",
+                                            "flash_decode")}
+    ecfg = srvs[0].pipe.elements["lm"].cfg
+    answers = _check_answers(runs, clients, ecfg.vocab, 8)
+    check([a[2:] for a in answers] == [a[2:] for a in serve4["answers"]],
+          "13c: the chain's streams or slots under loss != phase 4's "
+          "(and 11a's)")
+    coord = _coord(rt)
+    (hop,) = _stage_batchers(rt, srvs[1:])
+    _ledgers_balance(coord, "13c")
+    st = coord.stats()
+    check(st["hops_failed"] == 0 and st["tokens_dropped"] == 0,
+          f"13c: {st['hops_failed']} hops failed all their retransmits")
+    check(st["hop_retransmits"] + st["hop_dups"] + st["hop_corrupt"] > 0,
+          f"13c: the hop delivery machinery never acted: {st}")
+    # a hop is served once however often it crossed the link: one decode
+    # hop a decode tick, no replay step, one stage prefill a stream
+    check(hop.decode_hops == coord.decode_ticks and hop.replay_steps == 0
+          and hop.prefills == coord.prefills,
+          f"13c: the stage served {hop.decode_hops} decode hops, "
+          f"{hop.replay_steps} replay steps and {hop.prefills} prefills "
+          f"for {coord.decode_ticks} decode ticks and {coord.prefills} "
+          f"streams")
+    check(launches == twin_launches,
+          f"13c: launches {launches} != the fault-free chain's "
+          f"{twin_launches}")
+    rt.fabric.assert_conservation()
+    d = rt.stats()["delivery"]
+    fired = _fired(rt.fabric)
+    row = dict(ticks=rt.ticks, wall_s=wall, launches=launches, fired=fired,
+               delivery=d, hop_retransmits=st["hop_retransmits"],
+               hop_dups=st["hop_dups"], hop_corrupt=st["hop_corrupt"],
+               decode_hops=hop.decode_hops, stage_prefills=hop.prefills,
+               ledgers={k: coord.stage_ledger(k)
+                        for k in range(1, coord.n_stages)})
+    print(f"phase 13c staged stablelm-1.6b over 2 stages, stage-1 hop link "
+          f"lossy (requests dup/corrupt/drop {HOP_REQ['dup']}/"
+          f"{HOP_REQ['corrupt']}/{HOP_REQ['drop']}, answers dup "
+          f"{HOP_ANS['dup']}): {len(answers)} streams bitwise phase 4's and "
+          f"11a's in the same slots, {rt.ticks} ticks; hop retransmits "
+          f"{st['hop_retransmits']}, dups {st['hop_dups']}, corrupt "
+          f"{st['hop_corrupt']}; faults fired {fired}; delivery {d}; the "
+          f"stage served {hop.decode_hops} decode hops for "
+          f"{coord.decode_ticks} ticks; ledgers {row['ledgers']}; launches "
+          f"{launches} == the fault-free chain's")
+    del rt, srvs, runs, coord, hop
+    gc.collect()
+    return row
+
+
+def _phase_edge_card(seed, device=None):
+    """13e: numpy-only edge clients against port pipelines on the card."""
+    import torch
+    from repro_torch.core import parse_launch
+    from repro_torch.core.netfault import DeliveryPolicy
+    from repro_torch.device import make_generator
+    from repro_torch.edge import EdgeQueryClient, EdgeSensor
+    from repro_torch.runtime import Device, Runtime
+    rng = np.random.default_rng(seed + 13)
+    frames = [rng.standard_normal((1, OFFLOAD_L, OFFLOAD_D))
+              .astype(np.float32) for _ in range(3)]
+    rt = Runtime(device=device, delivery=DeliveryPolicy())
+    sensor = EdgeSensor(rt.broker, "sensor/act")
+    sub = Device("sub", device=device)
+    run = sub.add_pipeline(parse_launch(
+        "mqttsrc sub-topic=sensor/# ! appsink name=o"))
+    rt.add_device(sub)
+    for i, x in enumerate(frames):
+        sensor.publish([x], pts=1000 * i)
+        rt.tick()
+    got = run.sink_log.get("o", [])
+    check(len(got) == len(frames), f"13e: {len(got)} sensor frames arrived")
+    for x, b in zip(frames, got):
+        t = b.tensors[0]
+        check(isinstance(t, torch.Tensor) and t.device.type ==
+              rt.device.type,
+              f"13e: a sensor frame is not on {rt.device}")
+        check(np.array_equal(t.cpu().numpy(), x),
+              "13e: a sensor frame changed on its way")
+    hub = Device("hub", device=device)
+    ps = parse_launch("tensor_query_serversrc operation=edge name=ssrc ! "
+                      "tensor_filter model=offload-gate ! "
+                      "tensor_query_serversink name=ssink")
+    ps.elements["ssink"].pair_with(ps.elements["ssrc"])
+    srv = hub.add_pipeline(ps, generator=make_generator(seed, rt.device))
+    rt.add_device(hub)
+    client = EdgeQueryClient(rt.broker, "edge")
+    params = srv.params[next(iter(srv.params))]
+    apply = _register_offload_models(seed)
+    for x in frames:
+        out = client.infer([x])
+        check(isinstance(out[0], np.ndarray), "13e: infer returned no numpy")
+        want = apply(params, torch.from_numpy(x).to(rt.device)).cpu().numpy()
+        check(np.array_equal(out[0], want),
+              "13e: an edge answer != the model on the card")
+    d = rt.stats()["delivery"]
+    check(d["accepted"] == len(frames),
+          f"13e: the guard saw {d['accepted']} edge requests")
+    print(f"phase 13e edge: {len(frames)} numpy sensor frames f32 [1, "
+          f"{OFFLOAD_L}, {OFFLOAD_D}] reached a subscriber pipeline on "
+          f"{rt.device} unchanged; {len(frames)} EdgeQueryClient round "
+          f"trips through a server there (delivery on: unstamped, "
+          f"{d['accepted']} accepted) == the model, bitwise")
+    return dict(frames=len(frames), delivery=d)
+
+
+def phase_lossy(seed, serve4, answers6, staged):
+    """13: the lossy network and effectively-once delivery on the card."""
+    import dataclasses as dc
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.launch import model_serve as ms
+    cfg = dc.replace(stablelm_1_6b.config(), use_flash_attn=True)
+    ms.register_serve_model("stablelm-1.6b-flash", lambda: cfg)
+    rows = {"13d": _phase_clean_overhead(seed, serve4)}
+    rows["13a"] = _phase_lossy_serve(seed, serve4, rows["13d"]["off2"])
+    rows["13b"] = _phase_lossy_offload(seed, answers6)
+    rows["13c"] = _phase_lossy_staged(seed, serve4,
+                                      staged["11a N=2"]["launches"])
+    rows["13e"] = _phase_edge_card(seed)
+    counts = {}
+    for key in ("13a", "13b", "13c", "13d"):
+        for k, v in rows[key]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    rows["launches"] = counts
+    return rows
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -3799,10 +4342,11 @@ def main(argv=None):
     del srv                         # phase 8 needs the card's memory
     rglru = phase_rglru_serve(args.seed, profile=args.profile)
     graphs = phase_graphs(args.seed, {**serve4, **serve}, offload, answers6)
-    del answers6
     failover = phase_failover(args.seed)
     staged = phase_staged(args.seed, serve4)
     qos = phase_qos(args.seed)
+    lossy = phase_lossy(args.seed, serve4, answers6, staged)
+    del answers6
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -3851,6 +4395,10 @@ def main(argv=None):
     for row in kernels[4:6]:
         row["launches_phase11"] = staged["launches"][row["name"]]
         row["launches_phase12"] = qos["launches"][row["name"]]
+    # K1–K4 carry the lossy offload (13b), K5/K6 the lossy serve, the
+    # lossy hops and the clean-link twins (13a, 13c, 13d)
+    for row in kernels[:6]:
+        row["launches_phase13"] = lossy["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3864,7 +4412,8 @@ def main(argv=None):
                                    "rglru_serve": rglru,
                                    "graphs": graphs,
                                    "failover": failover,
-                                   "staged": staged, "qos": qos},
+                                   "staged": staged, "qos": qos,
+                                   "lossy": lossy},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,14 @@ streaming server's live streams become declared drops that regenerate by
 prefill replay (DESIGN.md §3, §7).  :class:`StageQueryBatcher` and
 :class:`StagedStreamingBatcher` serve one model split into stage
 pipelines, boundary activations hopping stage to stage (DESIGN.md §8).
-The delivery guard waits (ROADMAP M10).
+
+With the delivery layer on (DESIGN.md §10) every batcher ingests through
+a :class:`~.netfault.DeliveryGuard`: corrupt requests are rejected,
+duplicates dedup and re-fire the committed answer from the replay cache,
+and a shed-unserved request's delivery id leaves the dedup window so its
+re-dispatch is served.  The staged coordinator's hops become
+at-least-once: stamped, retransmitted synchronously under one delivery
+id, their answers guarded.
 
 Requests drain through one :class:`~.admission.AdmissionQueue` (DESIGN.md
 §9).  At ``qos=None`` it is global arrival order plus the per-tenant
@@ -36,9 +43,11 @@ import torch
 
 from .admission import AdmissionQueue, QoSConfig
 from .broker import BrokerError
-from .buffers import StreamBuffer, structure_key, unstack_buffers
+from .buffers import StreamBuffer, structure_key, to_device, \
+    unstack_buffers
 from .query import QueryServerEndpoint
 from . import compression as comp
+from . import netfault
 
 __all__ = ["BatchingPolicy", "QueryBatcher", "StreamingQueryBatcher",
            "StageQueryBatcher", "StagedStreamingBatcher",
@@ -103,8 +112,9 @@ class QueryBatcher:
     grouping and restored on every answer.  Liveness is re-checked before
     every group: a death that lands mid-flush leaves the groups still in
     the batcher's hands to the orphan ledger (``on_orphans``), never to
-    the dead server.  The mesh placement and the delivery guard of the JAX
-    package wait (ROADMAP M11, M10).
+    the dead server.  The mesh placement of the JAX package waits
+    (ROADMAP M11).  A request's numpy tensors (an edge client's frame)
+    become tensors on the run's device on ingest.
 
     ``qos`` is the runtime's admission policy: each flush round first
     expires queued requests past their deadline, and a round whose serve
@@ -129,6 +139,10 @@ class QueryBatcher:
         #: re-dispatch from their PendingQuery records)
         self.on_orphans = on_orphans
         self.admission = AdmissionQueue(qos=qos, clock=clock)
+        #: delivery guard (DESIGN.md §10), installed by the runtime when a
+        #: DeliveryPolicy is on: every ingested request passes CRC + dedup
+        #: triage first.  None is the guard-less wire, bit for bit.
+        self.guard = None
         self.flushes = 0
         self.batches = 0
         self.batched_frames = 0
@@ -199,13 +213,44 @@ class QueryBatcher:
         return served
 
     def _ingest(self):
-        self.admission.ingest_channel(self.endpoint.requests)
+        """Drain the endpoint channel into admission (numpy tensors placed
+        on the run's device), through the delivery guard when the runtime
+        installed one.  Guard triage: a corrupt frame dies here (counted by
+        the guard), a duplicate re-fires the committed answer's replay (a
+        retransmit means the client never saw it), and an accepted frame
+        sheds its wire checksum (it authenticated this hop; the answer gets
+        its own) before admission."""
+        ch = self.endpoint.requests
+        guard = self.guard
+        device = getattr(self.run, "device", None)
+        while True:
+            raw = ch.pop()
+            if raw is None:
+                return
+            if guard is not None:
+                verdict = guard.check(raw, ch)
+                if verdict == "dup":
+                    guard.replay_answer((raw.meta or {}).get("dseq"))
+                    continue
+                if verdict == "corrupt":
+                    continue
+                # every send path builds the wire meta fresh: shed the
+                # checksum in place
+                raw.meta.pop("crc", None)
+            if device is not None:
+                raw = to_device(raw, device)
+            self.admission.ingest(raw)
 
     # -- a dead endpoint -------------------------------------------------------
     def _forget_delivery(self, rec):
-        """Evict a shed request's delivery id from the dedup window, so its
-        re-dispatch is not deduplicated away.  A no-op until the delivery
-        layer (ROADMAP M10): the port's requests carry no delivery id."""
+        """Evict a shed-unserved request's delivery id from the dedup
+        window: its failover re-dispatch reuses the id, and a window that
+        still held it would dedup the retry into a void."""
+        if self.guard is None or rec is None:
+            return
+        raw = getattr(rec, "raw", None)
+        if raw is not None:
+            self.guard.forget((raw.meta or {}).get("dseq"))
 
     def _orphan(self, n: int):
         """Account requests a dying endpoint admitted but never served."""
@@ -918,10 +963,14 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
     stage, ``hops_dispatched[k] == hops_completed[k] + hops_failed[k]``,
     and the token law holds here.
 
-    The JAX package's hop can be at-least-once (delivery ids, checksums
-    and retransmits, counted in ``hop_retransmits``, ``hop_dups`` and
-    ``hop_corrupt``); that branch comes with the delivery layer (ROADMAP
-    M10).  The port's hop is single-shot and those counters stay 0.
+    With a delivery policy (``delivery``, installed by the runtime) a hop
+    is at-least-once: the request carries a delivery id and a CRC, up to
+    ``hop_retries`` synchronous retransmits reuse the id (counted in
+    ``hop_retransmits``), and answers are guarded: a corrupt one is
+    rejected (``hop_corrupt``), a late duplicate of an earlier hop's answer
+    dropped (``hop_dups``).  The stage's guard dedups a replayed request
+    and re-fires its committed answer, and the stage element's memo keyed
+    on the id backs it up, so a hop never advances a slot twice.
 
     ``hop_times[k]`` holds the host seconds of each decode hop of stage k
     (stage 0: its admit and serve tick; not in :meth:`stats`)."""
@@ -942,6 +991,10 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
         self.hops_failed: Dict[int, int] = {}
         self.stage_replays: Dict[int, int] = {}
         self.stage_replay_steps: Dict[int, int] = {}
+        #: delivery policy for the hops (DESIGN.md §10); None keeps the
+        #: single-shot hop, bit for bit
+        self.delivery: Optional[netfault.DeliveryPolicy] = None
+        self._hop_seq = 0
         self.hop_retransmits = 0
         self.hop_dups = 0
         self.hop_corrupt = 0
@@ -1019,20 +1072,58 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
     def _raw_hop(self, ep, tensors, meta) -> Optional[StreamBuffer]:
         """One request -> inline serve -> answer round trip against a
         resolved stage endpoint, with the coordinator as the client.
-        None when the endpoint cannot serve."""
+        None when the endpoint cannot serve.  With a delivery policy the
+        round trip retransmits under one delivery id (class docstring);
+        a hop cannot wait a tick (the chain holds the slot), hence the
+        inline loop rather than the scheduler's backoff clock."""
         buf = StreamBuffer(tensors=tuple(tensors), meta=dict(meta))
         payload, nbytes = comp.encode(buf, "none")
-        payload = payload.with_(meta={**payload.meta,
-                                      "client_id": self._hop_cid,
-                                      "codec": "none"})
-        if not ep.requests.push(payload, nbytes):
-            self.hop_push_drops += 1
-        runner = ep.spec.get("inline_runner")
-        if runner is None or not ep.alive:
-            return None
-        runner()
-        raw = ep.client_channel(self._hop_cid).pop()
-        return None if raw is None else comp.decode(raw, "none")
+        hmeta = {**payload.meta, "client_id": self._hop_cid,
+                 "codec": "none"}
+        delivery = self.delivery
+        dseq = crc = None
+        if delivery is not None:
+            self._hop_seq += 1
+            dseq = (self._hop_cid, self._hop_seq)
+            hmeta["dseq"] = dseq
+            hmeta["crc"] = crc = netfault.checksum(payload)
+        payload = payload.with_(meta=hmeta)
+        if crc is not None:
+            netfault.memoize_crc(payload, crc)
+        attempts = max(1, delivery.hop_retries) if delivery is not None \
+            else 1
+        for attempt in range(attempts):
+            if attempt:
+                self.hop_retransmits += 1
+            if not ep.requests.push(payload, nbytes):
+                self.hop_push_drops += 1
+            runner = ep.spec.get("inline_runner")
+            if runner is None or not ep.alive:
+                return None
+            runner()
+            ch = ep.client_channel(self._hop_cid)
+            while True:
+                raw = ch.pop()
+                if raw is None:
+                    break
+                if delivery is not None:
+                    rmeta = raw.meta or {}
+                    rcrc = rmeta.get("crc")
+                    if rcrc is not None and \
+                            netfault.checksum(raw) != int(rcrc):
+                        self.hop_corrupt += 1
+                        netfault.note(ch, "rejected_corrupt")
+                        continue
+                    rds = rmeta.get("dseq")
+                    if rds is not None and rds != dseq:
+                        # a late duplicate of an EARLIER hop's answer: that
+                        # hop consumed one copy already
+                        self.hop_dups += 1
+                        netfault.note(ch, "deduped")
+                        continue
+                    netfault.note(ch, "accepted")
+                return comp.decode(raw, "none")
+        return None
 
     def _hop(self, k: int, tensors, meta) -> Optional[StreamBuffer]:
         ep = self._ensure_stage(k)

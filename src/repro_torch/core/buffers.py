@@ -26,7 +26,8 @@ from .formats import MAX_RANK, dtype_to_tag
 
 __all__ = ["FlexHeader", "StreamBuffer", "Quant8Payload", "SparsePayload",
            "flex_wrap", "flex_unwrap", "structure_key", "tree_flatten",
-           "tree_unflatten", "stack_buffers", "unstack_buffers"]
+           "tree_unflatten", "stack_buffers", "unstack_buffers",
+           "to_device"]
 
 
 @dataclass
@@ -181,6 +182,20 @@ def tree_unflatten(treedef: Tuple, leaves) -> Any:
         children = [go(c) for c in td[1]]
         return children if kind == "list" else tuple(children)
     return go(treedef)
+
+
+def to_device(buf: "StreamBuffer", device: torch.device) -> "StreamBuffer":
+    """``buf`` with every numpy leaf (an edge client's frame) made a torch
+    tensor on ``device``, as the JAX package's arrays take numpy in
+    implicitly.  Torch tensors stay where they are (a prompt is a host
+    tensor by design).  ``buf`` itself when there is no numpy leaf."""
+    leaves, treedef = tree_flatten(buf.tensors)
+    if not any(isinstance(l, np.ndarray) for l in leaves):
+        return buf
+    moved = [torch.tensor(l, device=device)
+             if isinstance(l, np.ndarray) else l for l in leaves]
+    return buf.with_(tensors=tree_unflatten(treedef, moved),
+                     meta=buf.meta)
 
 
 def _leaf_sig(leaf) -> Tuple:

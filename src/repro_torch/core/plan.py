@@ -566,7 +566,7 @@ class PendingQuery:
 
     __slots__ = ("plan", "params", "inputs", "ctx", "vals", "outputs",
                  "op_idx", "request", "endpoint", "redispatches", "state",
-                 "live", "is_compiled")
+                 "live", "is_compiled", "dseq", "retries", "next_retry")
 
     def __init__(self, plan: ExecutionPlan, params: dict, inputs: dict,
                  ctx: PipelineContext, vals: List[Any],
@@ -582,6 +582,12 @@ class PendingQuery:
         self.request = request
         self.endpoint = None
         self.redispatches = 0
+        #: delivery id + retransmit clock (scheduler-owned, DESIGN.md §10):
+        #: ``dseq`` is minted once per logical request and reused by every
+        #: retransmit and failover re-dispatch, so receivers dedup them
+        self.dseq = None
+        self.retries = 0
+        self.next_retry = 0
         # compiled-mode fields (PendingQuery.compiled)
         self.state = None
         self.live = ()

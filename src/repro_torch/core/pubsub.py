@@ -19,8 +19,10 @@ import enum
 from collections import deque
 from typing import Deque, Dict, Optional
 
+import torch
+
 from .broker import Broker, BrokerError
-from .buffers import StreamBuffer, structure_key
+from .buffers import StreamBuffer, structure_key, to_device
 from .element import Element, PipelineContext, register_element
 from .formats import Caps
 from . import compression as comp
@@ -186,6 +188,13 @@ class MqttSrc(Element):
         self._rx_hist: Dict[int, tuple] = {}
         self._pushback: Deque = deque()         # decoded frames handed back
         self.sync_clock = sync_clock
+        #: the pipeline's device (set by ``init_state``): a numpy frame,
+        #: such as an edge sensor's, becomes tensors there on receipt
+        self._device: Optional[torch.device] = None
+
+    def init_state(self, device) -> dict:
+        self._device = device
+        return {}
 
     def connect(self, broker: Broker):
         self.broker = broker
@@ -247,6 +256,8 @@ class MqttSrc(Element):
 
     def _decode(self, raw: StreamBuffer) -> StreamBuffer:
         buf = comp.decode(raw, self.codec)
+        if self._device is not None:
+            buf = to_device(buf, self._device)
         if self.sync_clock is not None and "base_time_utc" in buf.meta:
             # §4.2.3: rebase the publisher's running time into ours
             buf = self.sync_clock.rebase(buf)
@@ -313,6 +324,8 @@ class MqttSrc(Element):
                 j += 1
             decoded.extend(comp.decode_batch(raws[i:j], self.codec))
             i = j
+        if self._device is not None:
+            decoded = [to_device(b, self._device) for b in decoded]
         if self.sync_clock is not None:
             decoded = [self.sync_clock.rebase(b) if "base_time_utc" in b.meta
                        else b for b in decoded]

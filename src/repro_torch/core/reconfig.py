@@ -38,6 +38,7 @@ from ..device import make_generator
 from .pipeline import Link, Pipeline
 from .plan import release_bindings, tensor_ptrs
 from .pubsub import MqttSink, MqttSrc
+from . import netfault
 from .query import (QueryServerEndpoint, TensorQueryClient,
                     TensorQueryServerSrc)
 
@@ -79,9 +80,13 @@ def activate_endpoint(ep: QueryServerEndpoint):
 
 
 def _book_purges(ep: QueryServerEndpoint):
-    """Book the frames a teardown or activation clears on their fault
-    links.  A no-op: the port has no fault links until the lossy network
-    (``core/netfault.py``, ROADMAP M10)."""
+    """Book the frames a teardown or activation is about to clear on their
+    fault links (a no-op outside chaos runs): a purged frame left the
+    network accounted, so the per-link conservation law sees it as
+    ``purged``, not forever ``in_flight``."""
+    netfault.note_purged(ep.requests, len(ep.requests.q))
+    for ch in ep.responses.values():
+        netfault.note_purged(ch, len(ch.q))
 
 
 # ---------------------------------------------------------------------------

@@ -72,10 +72,18 @@ live replicas by join-shortest-queue.  Autoscalers
 (``runtime/autoscale.py``) register in ``autoscalers`` and are stepped at
 every tick boundary, right after pending reconfigurations.
 
+The delivery layer (DESIGN.md §10): ``delivery=DeliveryPolicy()`` hands
+the policy to every query client (delivery ids + CRCs on requests,
+guarded answers) and a :class:`~..core.netfault.DeliveryGuard` to every
+batcher and its serversink (request triage, answer replay cache); an
+unanswered request from a live server retransmits on the policy's backoff
+clock under its original delivery id.  A chaos scenario's
+:class:`~..core.netfault.FaultFabric` set as ``rt.fabric`` is stepped at
+the top of every tick.  ``stats()`` gains ``delivery`` and ``netfault``.
+
 Every pipeline's tensors live on one device: the GPU unless the caller
-passes ``device="cpu"``.  Mesh placement and the lossy network wait for
-their ROADMAP items (M11, M10) and raise ``NotImplementedError`` where
-asked for.
+passes ``device="cpu"``.  Mesh placement waits for its ROADMAP item (M11)
+and raises ``NotImplementedError`` where asked for.
 """
 from __future__ import annotations
 
@@ -101,6 +109,7 @@ from ..core.query import (QueryServerEndpoint, TensorQueryClient,
 from ..core.reconfig import ReconfigManager, ReconfigPlan
 from ..core.sync import PipelineClock, SimClock
 from ..core import compression as comp
+from ..core import netfault
 from ..device import DeviceLike, make_generator, resolve_device
 
 TICK_NS = 16_666_667  # 60 Hz
@@ -188,14 +197,12 @@ class Runtime:
                  query_batch=DEFAULT_QUERY_BATCH,
                  device: DeviceLike = None,
                  qos: Optional[QoSConfig] = None, mesh=None,
-                 delivery=None, fused_wire: bool = True,
+                 delivery: Optional[netfault.DeliveryPolicy] = None,
+                 fused_wire: bool = True,
                  lease_ticks: Optional[int] = None,
                  park_deadline_ticks: Optional[int] = None):
-        for value, what in ((mesh, "mesh placement (mesh=): ROADMAP M11"),
-                            (delivery, "the delivery layer (delivery=): "
-                                       "ROADMAP M10")):
-            if value is not None:
-                raise NotImplementedError(what)
+        if mesh is not None:
+            raise NotImplementedError("mesh placement (mesh=): ROADMAP M11")
         #: the torch device every deployed pipeline must live on
         self.device = resolve_device(device)
         self.broker = broker or Broker()
@@ -213,6 +220,15 @@ class Runtime:
         #: admission queue in global-FIFO pass-through, the pre-QoS fabric
         #: bit for bit
         self.qos = qos
+        #: at-least-once delivery layer (module docstring); None keeps the
+        #: reliable-transport wire bit for bit: no delivery ids, no
+        #: checksums, no retransmits
+        self.delivery = delivery
+        #: the FaultFabric a chaos scenario installed, stepped at the top of
+        #: every tick so held frames release on the scheduler's clock
+        self.fabric = None
+        #: client-side timeouts that re-shipped a request
+        self.retransmits = 0
         #: elastic-serving controllers (runtime/autoscale.py), stepped at
         #: every tick boundary right after pending reconfigurations
         self.autoscalers: List = []
@@ -268,6 +284,8 @@ class Runtime:
             if isinstance(e, (MqttSink, MqttSrc, TensorQueryClient)) and \
                     e.broker is None:
                 e.connect(self.broker)
+            if isinstance(e, TensorQueryClient) and self.delivery is not None:
+                e.delivery = self.delivery
             if isinstance(e, TensorQueryServerSrc) and e.registration is None:
                 plan = run.pipe.plan
                 if plan.stage_serving and plan.serve_stage[0] > 0:
@@ -302,6 +320,18 @@ class Runtime:
                         fused=self.fused_wire,
                         on_orphans=self._count_orphans,
                         qos=self.qos, clock=lambda: self.ticks)
+                if self.delivery is not None:
+                    # one guard per endpoint, shared by the batcher (request
+                    # triage) and its paired serversink (answer CRC and
+                    # replay cache)
+                    guard = netfault.DeliveryGuard(self.delivery)
+                    batcher.guard = guard
+                    if isinstance(batcher, StagedStreamingBatcher):
+                        batcher.delivery = self.delivery
+                    for el in run.pipe.elements.values():
+                        if getattr(el, "is_query_sink", False) and \
+                                getattr(el, "serversrc", None) is e:
+                            el.guard = guard
                 self._batchers[e.endpoint.endpoint_id] = batcher
                 e.connect(self.broker, inline_runner=batcher.flush)
         # renegotiate with the broker wiring in place (mqttsink registers);
@@ -516,10 +546,21 @@ class Runtime:
                                   for _, pq, _ in ready], comp.encode_batch)
         out = []
         for (run, pq, ep), (enc, nbytes) in zip(ready, encs):
-            pq.client.send_query_wire(enc, nbytes, ep)
+            self._stamp(pq)
+            pq.client.send_query_wire(enc, nbytes, ep, dseq=pq.dseq)
             self._after_send(pq, ep)
             out.append((run, pq))
         return out
+
+    def _stamp(self, pq: PendingQuery):
+        """With delivery on, mint the frame's delivery id ONCE per logical
+        request (parks, failover re-dispatches and timeout retransmits all
+        reuse it, so receiver dedup makes every duplicate harmless) and arm
+        its retransmit clock."""
+        if self.delivery is not None:
+            if pq.dseq is None:
+                pq.dseq = pq.client.next_dseq()
+            pq.next_retry = self.ticks + self.delivery.retry_in(pq.retries)
 
     def _dispatch_query(self, pq: PendingQuery) -> bool:
         """Ship one paused frame's retained request to the best-ranked live
@@ -530,7 +571,8 @@ class Runtime:
             ep = self._select_endpoint(pq.client)
         except BrokerError:
             return False
-        pq.client.send_query(pq.request, ep=ep)
+        self._stamp(pq)
+        pq.client.send_query(pq.request, ep=ep, dseq=pq.dseq)
         self._after_send(pq, ep)
         return True
 
@@ -632,11 +674,15 @@ class Runtime:
         round) or parks.  A request the live endpoint's admission shed is
         answered with an error frame (never a silent drop, never a
         failover).  A stream still decoding, or a request a serve budget
-        holds queued, leaves the drain and re-enters next tick; a missing
-        answer from a live endpoint with nothing in flight is a serving bug
-        and raises.  Each
-        round every frame is answered, parked, raised on, or moved to a
-        live endpoint other than its dead one, so the drain ends."""
+        holds queued, leaves the drain and re-enters next tick.  A missing
+        answer from a live endpoint with nothing in flight is lost or held
+        in the network when the delivery layer is on: the request
+        retransmits under its delivery id once its backoff clock is due
+        (the server dedups it and replays a committed answer), else waits
+        a tick; without the delivery layer it is a serving bug and raises.
+        Each round every frame is answered, parked, raised on, deferred,
+        retransmitted once, or moved to a live endpoint other than its dead
+        one, so the drain ends."""
         pending = list(pending)
         while pending:
             for batcher in self._batchers.values():
@@ -645,7 +691,8 @@ class Runtime:
             answered = []
             for run, pq in pending:
                 qc, ep = pq.client, pq.endpoint
-                raw = qc.recv_answer_raw(ep) if ep is not None else None
+                raw = qc.recv_answer_raw(ep, want=pq.dseq) \
+                    if ep is not None else None
                 if raw is None:
                     if ep is not None and ep.alive:
                         b = self._batchers.get(ep.endpoint_id)
@@ -657,6 +704,18 @@ class Runtime:
                             if b.in_flight(qc.client_id):
                                 self._inflight.append((run, pq))
                                 continue
+                        if self.delivery is not None and \
+                                pq.dseq is not None:
+                            if self.ticks >= pq.next_retry:
+                                pq.retries += 1
+                                self.retransmits += 1
+                                if self._dispatch_query(pq):
+                                    nxt.append((run, pq))
+                                else:
+                                    self._park(run, pq)
+                            else:
+                                self._inflight.append((run, pq))
+                            continue
                         raise BrokerError(
                             f"{qc.name}: no answer from {qc.operation!r}")
                     if self._dispatch_query(pq):
@@ -755,6 +814,11 @@ class Runtime:
 
     def tick(self):
         self.ticks += 1
+        if self.fabric is not None:
+            # the fault clock first: frames the network held (delay,
+            # reorder) land before anything runs, and this tick's scripted
+            # partitions take effect
+            self.fabric.step(self.ticks)
         self._ntp_ref.advance(self.tick_ns)
         for dev in self.devices:
             dev.clock.advance(self.tick_ns)
@@ -858,6 +922,27 @@ class Runtime:
                 t["queued"] + t["in_flight"], \
                 f"tenant {tid!r} leaks requests: {t}"
         out["tenants"] = tenants
+        if self.delivery is not None:
+            d = {"retransmits": self.retransmits, "accepted": 0,
+                 "deduped": 0, "rejected_corrupt": 0, "replayed": 0,
+                 "answer_drops": 0, "client_answer_dups": 0,
+                 "client_answer_corrupt": 0, "client_push_drops": 0}
+            for b in self._batchers.values():
+                if b.guard is not None:
+                    for k, v in b.guard.stats().items():
+                        d[k] += v
+            for dev in self.devices:
+                for run in dev.runs:
+                    for e in run.pipe.elements.values():
+                        if isinstance(e, TensorQueryClient):
+                            d["client_answer_dups"] += e.answer_dups
+                            d["client_answer_corrupt"] += e.answer_corrupt
+                            d["client_push_drops"] += e.push_drops
+                        elif getattr(e, "is_query_sink", False):
+                            d["answer_drops"] += e.answer_drops
+            out["delivery"] = d
+        if self.fabric is not None:
+            out["netfault"] = self.fabric.stats()
         if self.autoscalers:
             out["autoscale"] = [s.stats() for s in self.autoscalers]
         return out

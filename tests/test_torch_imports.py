@@ -69,6 +69,15 @@ def test_the_scan_covers_the_qos_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: the lossy network's modules: the delivery layer and the edge clients
+NET_MODULES = ("core/netfault.py", "edge/__init__.py", "edge/edge.py")
+
+
+def test_the_scan_covers_the_delivery_modules():
+    for rel in NET_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -82,7 +91,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.runtime, repro_torch.core.compression, "
             "repro_torch.kernels.ops, repro_torch.core.elements, "
             "repro_torch.models.rglru, repro_torch.kernels.rglru_scan, "
-            "repro_torch.configs.recurrentgemma_9b; "
+            "repro_torch.configs.recurrentgemma_9b, "
+            "repro_torch.core.netfault, repro_torch.edge; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -149,6 +159,13 @@ def test_later_slices_raise_naming_their_roadmap_item(kw, item):
         # tenant QoS is ported: the runtime keeps the policy it is given
         qos = ms.three_tier_qos()
         assert Runtime(device="cpu", qos=qos).qos is qos
+        return
+    if item == "M10":
+        # the delivery layer is ported: the runtime keeps the policy
+        from repro_torch.core.netfault import DeliveryPolicy
+        pol = DeliveryPolicy()
+        rt = Runtime(device="cpu", delivery=pol)
+        assert rt.delivery is pol and rt.fabric is None
         return
     with pytest.raises(NotImplementedError, match=item):
         Runtime(device="cpu", **kw)

@@ -14,8 +14,10 @@ the whole ``failover``, ``reconfig``, ``query_batching`` and ``tenants``
 stats dicts and the harness logs.  The toy servers compute
 ``float32(x) @ W`` with W of quarters, exact in both packages; the model
 soaks serve the JAX package's weights (``params_from_numpy``), a hot
-swap's new weights included.  The lossy soak waits for the delivery layer
-(ROADMAP M10).
+swap's new weights included.  The lossy soak (``tests/test_netfault.py``'s
+``TestLossySoak``) runs both packages' delivery layers over the same fault
+schedule: sink logs, the ``delivery`` and ``netfault`` blocks (every link
+ledger, the message conservation law exact on each) equal.
 """
 import jax
 import jax.numpy as jnp
@@ -373,3 +375,66 @@ def test_staged_soak_per_stage_conservation_twin(stage_weights):
                     slot=key[2], device="cpu")
             assert np.asarray(b.tensor).tolist() == refs[key], \
                 f"client {i} answer {j}"
+
+
+# ---------------------------------------------------------------------------
+# tests/test_netfault.py
+# ---------------------------------------------------------------------------
+
+def _lossy_soak(pkg, weights, with_faults=True):
+    """The 200-tick lossy soak: 5% drop, 2% dup and delay jitter on a plain
+    query server (its request plane partitioned for ticks 80-100) and on a
+    streaming server, both live in one runtime with the delivery layer.
+    ``pkg`` is ``test_torch_netfault``'s P or J."""
+    from chaoslib import lossy_endpoint
+    from test_torch_netfault import J, clients, lm_client, policy, server
+    lossy = dict(seed=51, drop=0.05, dup=0.02, delay=0.05,
+                 delay_ticks=(1, 3))
+    rt = pkg.runtime(query_batch=8, lease_ticks=4,
+                     delivery=pkg.nf.DeliveryPolicy())
+    _, _, ssrc = server(pkg, rt, name="hub")
+    plain = clients(pkg, rt, 4)
+    lmdev = pkg.device("lmhub")
+    lmps = (jax_ms if pkg is J else ms).serve_pipeline(slots=8,
+                                                       max_seq=MAX_SEQ)
+    lmrun = lmdev.add_pipeline(lmps, jit=False)
+    lmrun.params["lm"] = weights[0 if pkg is J else 1]
+    rt.add_device(lmdev)
+    lm = [lm_client(pkg, rt, i) for i in range(2)]
+    fabric = None
+    if with_faults:
+        fabric = pkg.nf.FaultFabric()
+        rt.fabric = fabric
+        lossy_endpoint(fabric, ssrc.endpoint,
+                       policy(pkg, {**lossy, "partitions": ((80, 100),)}),
+                       policy(pkg, lossy), name="hub")
+        lossy_endpoint(fabric, lmps.elements["ssrc"].endpoint,
+                       policy(pkg, lossy), policy(pkg, lossy), name="lm")
+    rt.run(TICKS)
+    return rt, plain + lm, dict(fabric=fabric, plain=plain, lm=lm)
+
+
+def test_200_tick_lossy_soak_conserves_everything_twin(smoke_weights):
+    from test_torch_netfault import (P, assert_prefix_bitwise, check_twin,
+                                     register_models, streaming_batcher,
+                                     token_streams, twin)
+    register_models()
+    port, jax_ = twin(_lossy_soak, weights=smoke_weights)
+    check_twin(port, jax_)
+    rt, _, ex = port
+    _, _, ref = _lossy_soak(P, smoke_weights, with_faults=False)
+    # every client keeps answering well past the heal at tick 100
+    assert_prefix_bitwise(ref["plain"], ex["plain"], min_answers=100)
+    for r, g in zip(ref["lm"], ex["lm"]):
+        a, b = token_streams(r), token_streams(g)
+        assert len(b) >= len(a) // 2
+        assert b == a[:len(b)]
+    ex["fabric"].assert_conservation()
+    st = rt.stats()
+    d = st["delivery"]
+    assert d["retransmits"] > 0 and d["deduped"] > 0
+    assert sum(link["dropped_by_fault"]
+               for link in st["netfault"].values()) > 0
+    bs = streaming_batcher(rt).stats()
+    assert bs["tokens_generated"] == bs["tokens_delivered"] + \
+        bs["tokens_dropped"] + bs["tokens_in_flight"]
