@@ -177,10 +177,10 @@ Phases, one result line each (any failure exits non-zero):
    with fixed seeds and pinned client ids (the fault schedule is the one
    the CPU rehearsal saw).  13d first: phase 4's graphed serve with
    delivery on over zero-rate links against delivery off, in turns (off,
-   on, on, off): answers bitwise (and phase 4's), the device-to-host
-   copies the profiler counts in ticks 6–59 of the first pair equal (the
-   CRC reads no CUDA tensor), the median ticks of the unprofiled pair
-   side by side.  13a: phase 4's clients and server, every
+   on, on, off): answers bitwise (and phase 4's), the memcpy calls the
+   host issues in ticks 6–59 of the first pair equal under the profiler
+   (the CRC reads no CUDA tensor; the device-to-host records print
+   beside them), the median ticks of the unprofiled pair side by side.  13a: phase 4's clients and server, every
    link dropping, duplicating, corrupting, delaying and reordering
    (0.05/0.12/0.05/0.05/0.05): every stream bitwise its twin's where it
    was served in the twin's slot, else ``sequential_decode`` in its slot;
@@ -198,6 +198,39 @@ Phases, one result line each (any failure exits non-zero):
    tick, launches == 11a's.  13e: an ``EdgeSensor``'s numpy frames reach
    a subscriber pipeline on the card, ``EdgeQueryClient.infer`` round
    trips through a server there, bitwise the model.
+
+14. the attention and MoE decoder zoo — 14a, K5 (bf16 on the tensor
+   cores, fp32 on the tiled SIMT kernel) and K6 at the shapes 14b's and
+   14c's serve phases give them (``_zoo_kernel_shapes``): K5 at
+   granite-20b's [48, L, 128] (MQA, kv_groups 48), L = 128, 512, 1024, and
+   gemma3-4b's [8, L, 256] (kv_groups 2), L = 128, 512, 1024, 2000 (the
+   longest prompt) and 2048; K6 at granite's 8 slots x 48 heads over its
+   [8, 1024, 1, 128] serve cache and gemma3's 8 x 8 over [8, 4096, 4,
+   256], positions up to max_seq - 1; each dtype against its plain version
+   (the bf16 and fp32 limits above), timed beside SDPA and the bounds,
+   with ptxas's registers and spills (phase 3b's rows, same code).  14b, granite-20b whole
+   (52 layers, bf16, ``granite-20b-flash``) behind ``serve_pipeline(slots=
+   8, max_seq=1024)``, phase 4's client schedule with prompts of 128–512
+   tokens; 14c, gemma3-4b whole (``gemma3-4b-flash``, 34 layers LLLLLG)
+   at ``max_seq=4096`` with prompts of 128–2000 tokens, so the 1024
+   window binds on the local layers; 14d, mixtral-8x22b at full width and
+   8 of 56 layers; 14e, deepseek-v2-236b at full width, the dense first
+   layer and 3 MoE layers (MLA latent cache, 160 experts top-6, 2
+   shared).  Each: every answer bitwise ``sequential_decode`` in its slot,
+   token conservation, K5/K6 launches by head dim (one a global layer a
+   prefill and a decode tick), the (token, expert) choices capacity
+   dropped in each prefill and none at decode (per-row capacity); prints
+   prefill ms per request, graphed decode ms per tick, tokens/s, weight
+   GB and peak memory.  Each model is freed before the next loads.  14f,
+   fp32 on the card == the port's CPU path (logits): every zoo smoke
+   preset (qwen, granite, gemma3, mixtral, deepseek, internvl2 through
+   ``Model.prefill`` with patches, the int8 KV cache) and granite-20b at 2
+   layers and gemma3-4b at 6 (LLLLLG) at full width, so K5/K6 fp32 run at
+   128 and 256 on a model path, within 3e-5 of the largest logit; then
+   each case again with TF32 on in the card's matmuls, which must read
+   more than that limit.
+
+Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
 f32 FMAs) at f32 [32, L, 64], L = 128, 512 and 1024, and at L = 512 with
@@ -274,6 +307,17 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def _excess(out, ref):
+    """-> (excess over the tolerance's slack, the tolerance) of a kernel's
+    output against its f32 plain version ``ref``: atol = rtol = FP32_TOL
+    for fp32, one bf16 ulp + BF16_ATOL for bf16."""
+    import torch
+    if out.dtype == torch.float32:
+        return ((out - ref).abs() - FP32_TOL * ref.abs()).max().item(), \
+            FP32_TOL
+    return bf16_excess(out, ref), BF16_ATOL
+
+
 def bf16_excess(out, ref):
     """Largest amount by which |out - ref| exceeds one bf16 ulp of ref (8
     significant bits); the bf16 tolerance is an excess of at most
@@ -282,6 +326,162 @@ def bf16_excess(out, ref):
     mag = ref.abs().clamp_min(2.0 ** -100)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return ((out.float() - ref).abs() - ulp).max().item()
+
+
+def _bound(nbytes, flops, peak):
+    """-> dict of the byte and operation bounds (ms) on the card's
+    published peaks, the larger (``bound_ms``) and what it is."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return dict(bytes_bound_ms=t_b, ops_bound_ms=t_f, bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def _ptxas_regs(ptxas, lib, kernel, *tags):
+    """'<registers> registers, spill <stores>/<loads> B' of the kernel
+    instantiation whose template tags (phase 2's names) include ``tags``."""
+    for r in ptxas.get(lib, []):
+        name = r["kernel"]
+        if name.startswith(kernel + "<") and \
+                all(t in name[len(kernel):].strip("<>").split(",")
+                    for t in tags):
+            return (f"{r.get('registers', '?')} registers, spill "
+                    f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')}"
+                    f" B")
+    return "not in this run's build report"
+
+
+#: 3b's full-width shapes, stablelm-1.6b's (32 heads of 64), by row name:
+#: K5 as (BH, kv_groups, head dim, L, dtype, model), K6 as (slots, heads,
+#: kv heads, head dim, max_seq, dtype, model)
+K5_FULL = {
+    **{f"K5 L={L}": (32, 1, 64, L, "bfloat16", "stablelm-1.6b")
+       for L in (128, 512, 1024)},
+    **{f"K5 fp32 L={L}": (32, 1, 64, L, "float32", "stablelm-1.6b")
+       for L in (128, 512, 1024)},
+    "K5 fp32 L=512 gqa4": (32, 4, 64, 512, "float32", "stablelm-1.6b")}
+K6_FULL = {"K6 S=8 max_seq=1024": (8, 32, 32, 64, 1024, "bfloat16",
+                                   "stablelm-1.6b")}
+
+
+def _k5_row(rn, bh, grp, d, L, dtype, ptxas):
+    """K5 (causal) at [bh, L, d] with ``grp`` kv groups on fresh inputs,
+    held to its plain version (fp32 within FP32_TOL, bf16 within one ulp +
+    BF16_ATOL), timed beside it and SDPA (for fp32, with the kernel SDPA's
+    backend ran), with its bounds and ptxas line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    dt = getattr(torch, dtype)
+    q = rn(bh, L, d, dtype=dt)
+    k, v = (rn(bh // grp, L, d, dtype=dt) for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal=True, kv_groups=grp)
+    r = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=True, kv_groups=grp)
+    torch.cuda.synchronize()
+    err, tol = _excess(o, r)
+    check(err <= tol, f"K5 {dtype} [{bh},{L},{d}] g{grp}: excess {err} "
+                      f"over the tolerance's slack {tol}")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True,
+            **({"enable_gqa": True} if grp > 1 else {}))
+    row = dict(shape=[bh, L, d], kv_groups=grp,
+               max_abs_err=(o.float() - r).abs().max().item(), excess=err,
+               ms=cuda_ms(lambda: fa.flash_attention(
+                   q, k, v, causal=True, kv_groups=grp)),
+               plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                   q, k, v, causal=True, kv_groups=grp), iters=5),
+               library_ms=cuda_ms(sdpa),
+               **_bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                        4 * bh * d * L * (L + 1) / 2,
+                        BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS))
+    if dt == torch.bfloat16:
+        row["ptxas"] = _ptxas_regs(ptxas, "flash_prefill_sm90",
+                                   "flash_prefill_sm90_kernel", f"D={d}")
+    else:
+        _, _, prof = _profile(sdpa)
+        row["library_kernel"] = prof[0][0] if prof else "not traced"
+        row["ptxas"] = _ptxas_regs(ptxas, "flash_prefill",
+                                   "flash_prefill_f32_kernel", "cp.async") \
+            if d == 64 else _ptxas_regs(ptxas, "flash_prefill",
+                                        "flash_prefill_f32_wide_kernel",
+                                        "cp.async", f"D={d}")
+    return row
+
+
+def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
+    """K6 for S slots of H heads over a [S, smax, kv, d] cache on fresh
+    inputs, positions drawn from [128, smax) with the first slot at 0 and
+    the last at smax - 1, held to its plain version and timed beside it
+    and SDPA (boolean mask), with its bounds (the rows up to each position)
+    and ptxas line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    q = rn(S * H, d, dtype=dt)
+    kc, vc = (rn(S, smax, kv, d, dtype=dt) for _ in range(2))
+    pos_np = rng.integers(128, smax, S).astype(np.int32)
+    pos_np[0], pos_np[-1] = 0, smax - 1
+    pos = torch.as_tensor(pos_np, device=dev)
+    o = fa.flash_decode(q, kc, vc, pos, kv_groups=H // kv)
+    r = fa.flash_decode_plain(q.float(), kc.float(), vc.float(), pos,
+                              kv_groups=H // kv)
+    torch.cuda.synchronize()
+    err, tol = _excess(o, r)
+    check(err <= tol, f"K6 {dtype} S{S} H{H} kv{kv} d{d} max_seq {smax}: "
+                      f"excess {err} over the tolerance's slack {tol}")
+    q4 = q.reshape(S, H, 1, d)
+    k4, v4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    mask = (torch.arange(smax, device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    n_rows = int((pos_np.astype(np.int64) + 1).sum())
+    return dict(
+        cache=[S, smax, kv, d], heads=H, pos=pos_np.tolist(),
+        max_abs_err=(o.float() - r).abs().max().item(), excess=err,
+        ms=cuda_ms(lambda: fa.flash_decode(q, kc, vc, pos,
+                                           kv_groups=H // kv)),
+        plain_ms=cuda_ms(lambda: fa.flash_decode_plain(
+            q, kc, vc, pos, kv_groups=H // kv), iters=5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask,
+            **({"enable_gqa": True} if H > kv else {}))),
+        **_bound(2 * q.numel() * q.element_size() + S * 4 +
+                 n_rows * kv * d * 2 * q.element_size(), 4 * n_rows * H * d,
+                 BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS),
+        ptxas=_ptxas_regs(ptxas, "flash_decode", "flash_decode_partial_kernel",
+                          f"D={d}", "bf16" if dt == torch.bfloat16 else "f32"))
+
+
+def _kernel_rows(phase, k5, k6, g, rng, ptxas):
+    """K5 and K6 at each shape of the tables ``k5`` and ``k6`` (see
+    K5_FULL): held to their plain versions, timed, printed -> rows by
+    name."""
+    def rn(*shape, dtype):
+        import torch
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    rows = {}
+    for name, (*shape, model) in k5.items():
+        rows[name] = dict(model=model, dtype=shape[-1],
+                          **_k5_row(rn, *shape, ptxas))
+    for name, (*shape, model) in k6.items():
+        rows[name] = dict(model=model, dtype=shape[-1],
+                          **_k6_row(rn, rng, *shape, ptxas))
+    for name, row in rows.items():
+        print(f"phase {phase} {name} ({row['model']}): max abs err "
+              f"{row['max_abs_err']:.3e} (excess over "
+              f"{'atol=rtol' if row['dtype'] == 'float32' else '1 ulp'} "
+              f"{row['excess']:.1e}), kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+              f"bounds bytes {row['bytes_bound_ms']:.5f} / operations "
+              f"{row['ops_bound_ms']:.5f} ms ({row['bound_by']} bound, "
+              f"{row['bound_ms'] / row['ms']:.0%} of it); ptxas "
+              f"{row['ptxas']}"
+              + (f"; sdpa ran {row['library_kernel'][:90]}"
+                 if "library_kernel" in row else ""))
+    return rows
 
 
 def phase_env():
@@ -308,8 +508,13 @@ def _kernel_name(mangled):
         "f32" if "kernelIf" in mangled else ""
     if "sparse_enc_kernel" in mangled and "Lb1E" in mangled:
         tag += ",scalar loads"          # K3's kScalar instantiation
-    if "flash_prefill_f32_kernel" in mangled:   # K5 fp32's kVec
+    if "flash_prefill_f32_kernel" in mangled or \
+            "flash_prefill_f32_wide_kernel" in mangled:   # K5 fp32's kVec
         tag = "cp.async" if "Lb1E" in mangled else "4-byte loads"
+    m = re.search(r"(?:sm90|wide|decode_\w+)_kernelI(?:13__nv_bfloat16|f)?"
+                  r"Li(\d+)E", mangled)
+    if m:                                       # K5/K6's head dim
+        tag += f"{',' if tag else ''}D={m.group(1)}"
     m = re.search(r"rglru_scan_kernelILb([01])E", mangled)
     if m:                                       # S1's kVec
         tag = f"{'16' if m.group(1) == '1' else '4'} B copies"
@@ -361,9 +566,8 @@ def phase_build():
     return secs, report
 
 
-def phase_kernels(seed):
+def phase_kernels(seed, ptxas):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -371,13 +575,6 @@ def phase_kernels(seed):
 
     def rn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
-
-    def excess(o, r, dt):
-        """-> (excess over the tolerance's slack, the tolerance) of kernel
-        output o against the f32 plain version r"""
-        if dt == torch.float32:
-            return ((o - r).abs() - FP32_TOL * r.abs()).max().item(), FP32_TOL
-        return bf16_excess(o, r), BF16_ATOL
 
     # -- smoke shapes, fp32 (SIMT K5) and bf16 (tensor-core K5) ---------------
     worst = {}
@@ -396,7 +593,7 @@ def phase_kernels(seed):
             r = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                          causal=causal, kv_groups=grp)
             torch.cuda.synchronize()
-            err, tol = excess(o, r, dt)
+            err, tol = _excess(o, r)
             check(err <= tol, f"K5 {tag} {bh}x{sq}x{sk} g{grp} "
                               f"causal={causal}: error {err}")
             w = max(w, err)
@@ -409,7 +606,7 @@ def phase_kernels(seed):
             r = fa.flash_decode_plain(q.float(), kc.float(), vc.float(), pos,
                                       kv_groups=H // KV)
             torch.cuda.synchronize()
-            err, tol = excess(o, r, dt)
+            err, tol = _excess(o, r)
             check(err <= tol, f"K6 {tag} S{S} H{H} KV{KV} Smax{smax}: "
                               f"error {err}")
             w = max(w, err)
@@ -437,7 +634,7 @@ def phase_kernels(seed):
     for causal in (True, False):
         o = fa.flash_attention(q2, k2, v2, causal=causal)
         r = fa.flash_attention_plain(q2, k2, v2, causal=causal)
-        err, _ = excess(o, r, torch.float32)
+        err, _ = _excess(o, r)
         check(err <= FP32_TOL, f"K5 fp32 misaligned view causal={causal}: "
                                f"error {err}")
         worst["float32"] = max(worst["float32"], err)
@@ -447,97 +644,7 @@ def phase_kernels(seed):
           f"serve view included; a misaligned bf16 view raises, a misaligned "
           f"fp32 view passes")
 
-    # -- bf16 at the full-width shapes ----------------------------------------
-    table = {}
-    for L in (128, 512, 1024):
-        q, k, v = (rn(32, L, 64, dtype=torch.bfloat16) for _ in range(3))
-        o = fa.flash_attention(q, k, v, causal=True)
-        r = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                     causal=True)
-        excess = bf16_excess(o, r)
-        check(excess <= BF16_ATOL, f"K5 bf16 [32,{L},64]: {excess} beyond "
-                                   f"one ulp")
-        kern = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                         causal=True))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True))
-        nbytes = 4 * q.numel() * 2
-        flops = 4 * 32 * 64 * L * (L + 1) / 2
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        table[f"K5 L={L}"] = dict(
-            max_abs_err=(o.float() - r).abs().max().item(), excess=excess,
-            ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-            flops / BF16_FLOPS else "operations")
-    # K5's fp32 route (csrc/flash_prefill.cu, register-tiled f32 FMAs on the
-    # CUDA cores): bound by float32 operations outside the tensor cores;
-    # fp32 SDPA beside it, with the kernel its backend ran
-    for L, grp in ((128, 1), (512, 1), (1024, 1), (512, 4)):
-        q, k, v = rn(32, L, 64), rn(32 // grp, L, 64), rn(32 // grp, L, 64)
-        o = fa.flash_attention(q, k, v, causal=True, kv_groups=grp)
-        r = fa.flash_attention_plain(q, k, v, causal=True, kv_groups=grp)
-        err = ((o - r).abs() - FP32_TOL * r.abs()).max().item()
-        check(err <= FP32_TOL, f"K5 fp32 [32,{L},64] g{grp}: error {err}")
-
-        def sdpa(q=q, k=k, v=v, grp=grp):
-            return F.scaled_dot_product_attention(
-                q[None], k[None], v[None], is_causal=True,
-                **({"enable_gqa": True} if grp > 1 else {}))
-        _, _, prof = _profile(sdpa)
-        nbytes = (2 * q.numel() + 2 * k.numel()) * 4
-        flops = 4 * 32 * 64 * L * (L + 1) / 2
-        table[f"K5 fp32 L={L}" + (f" gqa{grp}" if grp > 1 else "")] = dict(
-            max_abs_err=(o - r).abs().max().item(), excess=err,
-            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                  kv_groups=grp)),
-            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, kv_groups=grp)),
-            library_ms=cuda_ms(sdpa),
-            library_kernel=prof[0][0] if prof else "not traced",
-            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-            bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-            else "operations")
-    S, H, smax = 8, 32, 1024
-    q = rn(S * H, 64, dtype=torch.bfloat16)
-    kc, vc = (rn(S, smax, H, 64, dtype=torch.bfloat16) for _ in range(2))
-    pos_np = rng.integers(128, smax, S).astype(np.int32)
-    pos_np[0], pos_np[-1] = 0, smax - 1
-    pos = torch.as_tensor(pos_np, device=dev)
-    o = fa.flash_decode(q, kc, vc, pos)
-    r = fa.flash_decode_plain(q.float(), kc.float(), vc.float(), pos)
-    excess = bf16_excess(o, r)
-    check(excess <= BF16_ATOL, f"K6 bf16 [8*32,64] x [8,1024,32,64]: "
-                               f"{excess} beyond one ulp")
-    kern = cuda_ms(lambda: fa.flash_decode(q, kc, vc, pos))
-    plain = cuda_ms(lambda: fa.flash_decode_plain(q, kc, vc, pos))
-    q4 = q.reshape(S, H, 1, 64)
-    k4, v4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
-    mask = (torch.arange(smax, device=dev)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                         attn_mask=mask))
-    rows = int((pos_np.astype(np.int64) + 1).sum())
-    nbytes = 2 * q.numel() * 2 + S * 4 + rows * H * 64 * 2 * 2
-    flops = 4 * rows * H * 64
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    table["K6 S=8 max_seq=1024"] = dict(
-        max_abs_err=(o.float() - r).abs().max().item(), excess=excess, ms=kern,
-        plain_ms=plain, library_ms=lib, bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-        else "operations", pos=pos_np.tolist())
-    for name, row in table.items():
-        what = ("(excess over atol=rtol" if "fp32" in name
-                else "bf16 (excess over 1 ulp")
-        print(f"phase 3b {name}: max abs err {row['max_abs_err']:.3e} "
-              f"{what} {row['excess']:.1e}), kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} of it)"
-              + (f"; sdpa ran {row['library_kernel'][:90]}"
-                 if "library_kernel" in row else ""))
-    return table
+    return _kernel_rows("3b", K5_FULL, K6_FULL, g, rng, ptxas)
 
 
 def _bits(t):
@@ -3825,7 +3932,7 @@ FAULT_COUNTERS = {"drop": "dropped_by_fault", "dup": "injected_dups",
 LOSSY_SEEDS = {"13a": 133, "13b": 135, "13c": 133}
 #: the first query client id of each lossy run (see _pin_client_ids)
 CLIENT_ID_BASE = {"13a": 1_000_000, "13b": 1_001_000, "13c": 1_002_000}
-#: 13d: the ticks whose device-to-host copies the profiler counts, after
+#: 13d: the ticks whose memcpy calls the profiler counts, after
 #: the decode graph's capture and through every join and most answers
 CLEAN_WINDOW = (6, 60)
 
@@ -3881,20 +3988,27 @@ def _unprofiled(tick_ms):
     return [ms for t, ms in enumerate(tick_ms, 1) if not lo <= t < hi]
 
 
-def _d2h_copies(prof):
-    """Device-to-host copies the profiler recorded."""
-    return sum(e.count for e in prof.key_averages()
-               if "Memcpy DtoH" in e.key)
+def _copies(prof):
+    """-> (memcpy calls the host issued: the CUDA runtime API records;
+    device-to-host copies the device recorded).  A host read of a CUDA
+    tensor is one more API call.  The device's own records are not a
+    count: CUPTI drops some under load (PR 23: with the same 702 API
+    calls, one run recorded 603 device-to-device copies and another 873,
+    and 52 or 54 device-to-host ones)."""
+    rows = prof.key_averages()
+    return (sum(e.count for e in rows if e.key.startswith("cudaMemcpy")),
+            sum(e.count for e in rows if "Memcpy DtoH" in e.key))
 
 
 def _phase_clean_overhead(seed, serve4, model="stablelm-1.6b-flash",
                           device=None):
     """13d: phase 4's graphed serve with the delivery layer on over
     zero-rate links, against delivery off, in turns (off, on, on, off):
-    answers bitwise; the first pair counts the device-to-host copies of
-    ticks 6-59 under the profiler (equal: the CRC never reads a CUDA
-    tensor), the second pair is timed without it (median tick side by
-    side)."""
+    answers bitwise; the first pair counts the memcpy calls the host
+    issues in ticks 6-59 under the profiler (equal: the CRC never reads a
+    CUDA tensor, which would be one more call; the device-to-host records
+    print beside them), the second pair is timed without it (median tick
+    side by side)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.netfault import DeliveryPolicy
@@ -3947,7 +4061,8 @@ def _phase_clean_overhead(seed, serve4, model="stablelm-1.6b-flash",
                 _unprofiled(tick_ms) if profiled else tick_ms)),
             prefills=qb["prefills"], decode_ticks=qb["decode_ticks"],
             tokens=qb["tokens_generated"], launches=launches,
-            d2h_copies=None if prof is None else _d2h_copies(prof))
+            memcpy_calls=None if prof is None else _copies(prof)[0],
+            d2h_copies=None if prof is None else _copies(prof)[1])
         if on:
             d = rt.stats()["delivery"]
             check(d["retransmits"] == d["deduped"] == d["replayed"] ==
@@ -3972,18 +4087,20 @@ def _phase_clean_overhead(seed, serve4, model="stablelm-1.6b-flash",
           [a[2:] for a in serve4["answers"]],
           "13d: the delivery-off twin's answers or slots != phase 4's")
     if cuda:
-        check(off["d2h_copies"] > 0,
-              "13d: the profiler saw no device-to-host copy at all")
-        check(rows["on"]["d2h_copies"] == off["d2h_copies"],
-              f"13d: device-to-host copies {rows['on']['d2h_copies']} "
-              f"with delivery on != {off['d2h_copies']} off")
+        check(off["memcpy_calls"] > 0 and off["d2h_copies"] > 0,
+              "13d: the profiler saw no host-issued or device-to-host "
+              "copy at all")
+        check(rows["on"]["memcpy_calls"] == off["memcpy_calls"],
+              f"13d: memcpy calls {rows['on']['memcpy_calls']} with "
+              f"delivery on != {off['memcpy_calls']} off")
     med = {k: rows[k]["tick_ms_median"] for k in rows}
     print(f"phase 13d clean-link overhead, phase 4's graphed serve "
           f"({len(answers['off'])} streams, {off['ticks']} ticks), run "
           f"off, on, on, off: answers bitwise in all four and == phase 4; "
-          f"device-to-host copies in ticks {CLEAN_WINDOW[0]}.."
-          f"{CLEAN_WINDOW[1] - 1} (profiled pair): "
-          f"{rows['on']['d2h_copies']} on, {off['d2h_copies']} off; median "
+          f"memcpy calls in ticks {CLEAN_WINDOW[0]}..{CLEAN_WINDOW[1] - 1} "
+          f"(profiled pair): {rows['on']['memcpy_calls']} on, "
+          f"{off['memcpy_calls']} off (device-to-host records "
+          f"{rows['on']['d2h_copies']} / {off['d2h_copies']}); median "
           f"tick ms, profiled pair outside the window: on "
           f"{med['on']:.3f} / off {med['off']:.3f}; unprofiled pair, every "
           f"tick: on {med['on2']:.3f} / off {med['off2']:.3f}; delivery "
@@ -4307,6 +4424,347 @@ def phase_lossy(seed, serve4, answers6, staged):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the attention and MoE decoder zoo
+# ---------------------------------------------------------------------------
+
+#: 14a's prompt lengths: these, each serve phase's longest prompt and
+#: that rounded up to a power of two
+ZOO_K5_L = (128, 512, 1024)
+#: 14b–14e: serve preset, max_seq and the prompt lengths' range
+ZOO_SERVE = {
+    "14b": ("granite-20b-flash", 1024, (128, 513)),
+    "14c": ("gemma3-4b-flash", 4096, (128, 2001)),
+    "14d": ("mixtral-8x22b-8l", 1024, (128, 513)),
+    "14e": ("deepseek-v2-236b-4l", 1024, (128, 513)),
+}
+#: 14f: the card against the port's CPU path, fp32 logits within this
+#: share of the largest |logit| (f32 sums in another order on each: sound
+#: runs read 8.7e-7 to 2.8e-6 on an H100); each case's TF32 control run
+#: must read more than this, or the limit could not see a lower precision
+ZOO_CPU_TOL = 3e-5
+ZOO_SMOKE = ("qwen1.5-smoke", "granite-smoke", "gemma3-smoke",
+             "mixtral-smoke", "deepseek-smoke", "internvl2-smoke",
+             "granite-int8kv-smoke")
+
+
+def _flash_layers(cfg):
+    """-> how many of ``cfg``'s layers run K5/K6 (its global layers, when
+    the flash gate is on and attention is not MLA)."""
+    if not cfg.use_flash_attn or cfg.mla:
+        return 0
+    return sum(cfg.kind(i) == "G" for i in range(cfg.n_layers))
+
+
+def _zoo_kernel_shapes():
+    """14a's K5 and K6 tables (see K5_FULL), from the serve phases that run
+    K5/K6: K5 at each head count, kv groups and head dim at the lengths
+    ZOO_K5_L, the phase's longest prompt and that rounded up to a power of
+    two; K6 over the phase's serve cache (8 slots, its max_seq)."""
+    from repro_torch.launch import model_serve as ms
+    k5, k6 = {}, {}
+    for preset, max_seq, (_, hi) in ZOO_SERVE.values():
+        cfg = ms.SERVE_MODELS[preset]()
+        if not _flash_layers(cfg):
+            continue
+        model = preset.removesuffix("-flash")
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        longest = hi - 1
+        lengths = sorted({*ZOO_K5_L, longest,
+                          1 << (longest - 1).bit_length()})
+        for dtype, tag in (("bfloat16", "bf16"), ("float32", "fp32")):
+            for L in lengths:
+                k5[f"K5 {tag} d={d} L={L}"] = (h, h // kv, d, L, dtype, model)
+            k6[f"K6 {tag} d={d} S=8 max_seq={max_seq}"] = (
+                8, h, kv, d, max_seq, dtype, model)
+    return k5, k6
+
+
+def _phase_zoo_kernels(seed, ptxas):
+    """14a: K5 and K6 at head dims 128 and 256 on each route, at the
+    shapes granite-20b's and gemma3-4b's serve phases give them, against
+    their plain versions; times beside SDPA's and the bounds."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    return _kernel_rows("14a", *_zoo_kernel_shapes(), g,
+                        np.random.default_rng(seed + 14), ptxas)
+
+
+def _zoo_clients(seed, vocab, prompt_range):
+    """Phase 4's client schedule (8 clients joining 2 ticks apart, 12
+    streams) with prompts drawn from ``prompt_range``."""
+    rng = np.random.default_rng(seed + 14)
+    clients = []
+    for i in range(8):
+        n_req = 2 if i < 4 else 1
+        prompts = [rng.integers(0, vocab, int(rng.integers(*prompt_range)))
+                   .tolist() for _ in range(n_req)]
+        gens = [int(rng.integers(16, 65)) for _ in range(n_req)]
+        clients.append((2 * i, prompts, gens))
+    return clients
+
+
+#: 14b–14e's profiled prefill length and decode position (gemma3's past
+#: its 1024 window, so the local layers read a full ring)
+ZOO_PROFILE_AT = {"14b": 512, "14c": 1500, "14d": 512, "14e": 512}
+
+
+def _zoo_profile(tag, elem, params, cfg, seed):
+    """One prefill and one eager decode tick with all 8 slots active,
+    under the profiler: host wall, device busy and the top kernels (the
+    graphed tick replays the same kernels without the host's launches)."""
+    import torch
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.models import transformer
+    n = ZOO_PROFILE_AT[tag]
+    prompt = np.random.default_rng(seed + 16).integers(0, cfg.vocab, n)
+    res = {f"prefill L={n}": _profile(lambda: elem.host_prefill(params,
+                                                                prompt))}
+    _, c1 = elem.host_prefill(params, prompt)
+    cache = transformer.cache_init(cfg, 8, elem.max_seq)
+    for d, s_ in zip(tree_flatten(cache["layers"])[0],
+                     tree_flatten(c1["layers"])[0]):
+        d.copy_(s_.expand_as(d))
+    del c1
+    token = torch.zeros(8, dtype=torch.int32, device="cuda")
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+
+    def tick():
+        cache["pos"].fill_(n)
+        transformer.serve_decode_step(params, cfg, cache, token, active)
+    res["decode tick S=8"] = _profile(tick)
+    out = {}
+    for name, (wall, busy, rows) in res.items():
+        top = ", ".join(f"{k[:48]} {ms_:.3f} ms x{c}" for k, ms_, c in
+                        rows[:8])
+        print(f"phase {tag} profile {name}: host wall {wall:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall:.0f}%); top: {top}")
+        out[name] = {"wall_ms": wall, "device_ms": busy,
+                     "top": [list(r) for r in rows[:15]]}
+    del cache
+    return out
+
+
+def _free_card():
+    import torch
+    from repro_torch.core import clear_executable_cache
+    clear_executable_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _phase_zoo_serve(tag, seed):
+    """14b–14e: one zoo preset at full width behind ``serve_pipeline``
+    (slots 8), 12 streams; every answer bitwise ``sequential_decode`` in
+    its slot; K5/K6 launches by head dim; MoE drops by the prefill and 0
+    at decode."""
+    import torch
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models import moe as MOE
+    preset, max_seq, prange = ZOO_SERVE[tag]
+    cfg = ms.SERVE_MODELS[preset]()
+    clients = _zoo_clients(seed, cfg.vocab, prange)
+    _free_card()
+    _reset_launches()
+    mark = _graph_mark()
+    t0 = time.perf_counter()
+    rt, srv, runs, wall = _serve(None, preset, 8, max_seq, clients, seed,
+                                 max_ticks=800)
+    graph = _graph_since(mark)
+    launches = dict(fa.LAUNCHES)
+    by_dim = {k: v for k, v in fa.HEAD_DIM_LAUNCHES.items() if v}
+    answers = _check_answers(runs, clients, cfg.vocab, 8)
+    qb = rt.stats()["query_batching"]
+    check(qb["tokens_generated"] == qb["tokens_delivered"] +
+          qb["tokens_dropped"] + qb["tokens_in_flight"],
+          f"{tag} token conservation broken: {qb}")
+    n_flash = _flash_layers(cfg)
+    d = cfg.resolved_head_dim
+    want = {f"flash_attention/{d}": n_flash * qb["prefills"],
+            f"flash_decode/{d}": n_flash * qb["decode_ticks"]} \
+        if n_flash else {}
+    check(by_dim == want, f"{tag} {preset}: K5/K6 launches by head dim "
+                          f"{by_dim}, expected {want}")
+    params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in tree_flatten(params)[0]) / 1e9
+    ticks_ms = sorted(1e3 * x for x in _serve_batcher(rt).decode_times)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = dict(preset=preset, layers=cfg.n_layers, d_model=cfg.d_model,
+               head_dim=d, max_seq=max_seq, ticks=rt.ticks, wall_s=wall,
+               prefills=qb["prefills"], decode_ticks=qb["decode_ticks"],
+               tokens=qb["tokens_generated"],
+               prefill_ms_per_request=1e3 * qb["prefill_seconds"] /
+               qb["prefills"],
+               decode_ms_per_tick=1e3 * qb["decode_seconds"] /
+               qb["decode_ticks"],
+               mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
+               tokens_per_s=qb["tokens_generated"] / wall,
+               decode_ms_min_median_max=[ticks_ms[0],
+                                         ticks_ms[len(ticks_ms) // 2],
+                                         ticks_ms[-1]],
+               weight_gb=weight_gb, peak_gib=peak_gib, launches=launches,
+               launches_by_head_dim=by_dim,
+               prompt_lengths=[len(a[0]) for a in answers], **graph)
+    print(f"phase {tag} serve {preset} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, head dim {d}, {cfg.dtype}) slots 8 max_seq "
+          f"{max_seq}: "
+          f"{len(answers)} answers in {rt.ticks} ticks, {wall:.2f} s; "
+          f"prefill {row['prefill_ms_per_request']:.2f} ms/request, decode "
+          f"{row['decode_ms_per_tick']:.2f} ms/tick (mean; graphed ticks "
+          f"min/median/max {ticks_ms[0]:.2f}/{ticks_ms[len(ticks_ms) // 2]:.2f}"
+          f"/{ticks_ms[-1]:.2f}; mean {row['mean_active_slots']:.2f} active "
+          f"slots), "
+          f"{row['tokens_per_s']:.1f} tokens/s; weights {weight_gb:.2f} GB,"
+          f" peak {peak_gib:.2f} GiB; {graph['graphs']} graphs; K5/K6 "
+          f"launches by head dim {by_dim}")
+    row["profile"] = _zoo_profile(tag, srv.pipe.elements["lm"], params, ecfg,
+                                  seed)
+    drops = []
+    decode_drops = 0
+    for prompt, gen, got, slot in answers:
+        with MOE.drop_log() as log:
+            ref = ms.sequential_decode(params, ecfg, prompt, gen, max_seq,
+                                       slots=8, slot=slot)
+        check(got == ref, f"{tag}: continuous != sequential for a "
+                          f"{len(prompt)}-token prompt in slot {slot}")
+        if ecfg.n_experts:
+            drops.append(sum(int(n) for r, _, n in log if not r))
+            decode_drops += sum(int(n) for r, _, n in log if r)
+    if ecfg.n_experts:
+        check(decode_drops == 0, f"{tag}: {decode_drops} (token, expert) "
+                                 f"choices dropped at decode")
+        row["prefill_drops"] = drops
+        row["decode_drops"] = decode_drops
+    print(f"phase {tag} continuous == sequential decode: {len(answers)} "
+          f"streams bitwise in their slots"
+          + (f"; (token, expert) choices dropped by capacity in each "
+             f"prefill {drops}, at decode {decode_drops}"
+             if ecfg.n_experts else ""))
+    row["phase_s"] = time.perf_counter() - t0
+    del rt, srv, runs, params
+    _free_card()
+    return row
+
+
+def _zoo_vs_cpu(name, cfg, seed, batch, steps, tol, device="cuda"):
+    """One fp32 model on the card and on the CPU (the card's weights
+    copied over): prefill and ``steps`` teacher-forced decode steps (the
+    card's greedy tokens, fed to both), logits within ``tol`` of the
+    largest |logit| (``tol=None``: measured only).  -> the worst share."""
+    import torch
+    from repro_torch.device import make_generator
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tt
+    m = build_model(cfg)
+    dev = torch.device(device)
+    params = m.init(make_generator(seed, dev), dev)
+    cpu_params = tt.params_from_numpy(_to_numpy(params), cfg, "cpu")
+    gpu_b = {k: v.to(dev) for k, v in batch.items()}
+    max_seq = batch["tokens"].shape[1] + cfg.n_patches + steps + 1
+    worst = 0.0
+    lg, cg = m.prefill(params, gpu_b, max_seq)
+    lc, cc = m.prefill(cpu_params, batch, max_seq)
+    for step in range(steps + 1):
+        scale = lc.abs().max().item() + 1e-6
+        err = (lg.cpu() - lc).abs().max().item() / scale
+        check(tol is None or err <= tol, f"14f {name}: card vs CPU logits "
+                                         f"differ by {err:.2e} of the "
+                                         f"largest at step {step}")
+        worst = max(worst, err)
+        if step == steps:
+            break
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        lg, cg = m.decode_step(params, tok, cg)
+        lc, cc = m.decode_step(cpu_params, tok.cpu(), cc)
+    del params, cpu_params, cg, cc
+    return worst
+
+
+def _phase_zoo_cpu(seed):
+    """14f: fp32 on the card == the port's CPU path: every zoo smoke
+    preset (internvl2 through Model.prefill with patches, the int8 KV
+    cache), granite-20b at 2 layers and gemma3-4b at 6 (LLLLLG), fp32 at
+    full width, so K5/K6 fp32 at 128 and 256 run on a model path.  Then
+    each case again with TF32 on in the card's matmuls, as a control that
+    the limit sees a lower precision."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import model_serve as ms
+    _free_card()
+    rng = np.random.default_rng(seed + 15)
+    _reset_launches()
+    cases = [(k, ms.SERVE_MODELS[k](), 12, 4) for k in ZOO_SMOKE]
+    cases += [("granite-20b fp32 2 layers", dataclasses.replace(
+        get_config("granite-20b"), n_layers=2, dtype="float32",
+        use_flash_attn=True), 64, 3),
+        ("gemma3-4b fp32 6 layers", dataclasses.replace(
+            get_config("gemma3-4b"), n_layers=6, dtype="float32",
+            use_flash_attn=True), 64, 3)]
+    batches = []
+    for name, cfg, seq, steps in cases:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (2, seq)).astype(np.int32))}
+        if cfg.frontend == "vision":
+            batch["patches"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        batches.append(batch)
+    out = {}
+    for (name, cfg, _, steps), batch in zip(cases, batches):
+        out[name] = _zoo_vs_cpu(name, cfg, seed, batch, steps, ZOO_CPU_TOL)
+        _free_card()
+    by_dim = {k: v for k, v in fa.HEAD_DIM_LAUNCHES.items() if v}
+    routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
+    launches = dict(fa.LAUNCHES)
+    for d in (128, 256):
+        check(by_dim.get(f"flash_attention/{d}", 0) > 0 and
+              by_dim.get(f"flash_decode/{d}", 0) > 0,
+              f"14f: K5/K6 fp32 never ran at head dim {d}: {by_dim}")
+    check(routes["sm90"] == 0, f"14f is fp32: K5 routes {routes}")
+    control = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for (name, cfg, _, steps), batch in zip(cases, batches):
+            control[name] = _zoo_vs_cpu(name, cfg, seed, batch, steps, None)
+            _free_card()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"phase 14f fp32 card == CPU (logits within {ZOO_CPU_TOL:g} of "
+          f"the largest; sound / TF32 control): " +
+          ", ".join(f"{k} {v:.1e} / {control[k]:.1e}"
+                    for k, v in out.items()) +
+          f"; K5/K6 launches by head dim {by_dim}")
+    for name, v in control.items():
+        check(v > ZOO_CPU_TOL, f"14f {name}: the TF32 control reads {v:.2e},"
+                               f" inside the limit {ZOO_CPU_TOL:g}")
+    return dict(worst=out, tf32_control=control, launches_by_head_dim=by_dim,
+                launches=launches)
+
+
+def phase_zoo(seed, ptxas):
+    """Phase 14: the attention and MoE decoder zoo (module docstring)."""
+    rows = {}
+    t0 = time.perf_counter()
+    rows["14a"] = _phase_zoo_kernels(seed, ptxas)
+    print(f"phase 14a wall {time.perf_counter() - t0:.1f} s")
+    for tag in ZOO_SERVE:
+        rows[tag] = _phase_zoo_serve(tag, seed)
+        print(f"phase {tag} wall {rows[tag]['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    rows["14f"] = _phase_zoo_cpu(seed)
+    print(f"phase 14f wall {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for tag in ZOO_SERVE:
+        for k, v in rows[tag]["launches_by_head_dim"].items():
+            counts[k] = counts.get(k, 0) + v
+    rows["launches_by_head_dim"] = counts
+    return rows
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
@@ -4329,24 +4787,45 @@ def main(argv=None):
 
     import repro_torch  # noqa: F401  (fails at once outside a checkout)
     import torch
+    from repro_torch.kernels import flash_attn as fa
+    clock = [time.perf_counter()]
+
+    def wall(what):
+        now = time.perf_counter()
+        print(f"phase {what} wall {now - clock[0]:.1f} s")
+        clock[0] = now
+
     smi = phase_env()
     build_s, ptxas = phase_build()
-    table = phase_kernels(args.seed)
+    wall("1-2")
+    table = phase_kernels(args.seed, ptxas)
     codec_table = phase_codec_kernels(args.seed)
     scan = phase_scan_kernel(args.seed)
+    wall("3")
     serve, srv, serve4 = phase_serve(args.seed)
     profile = phase_profile(srv, args.seed) if args.profile else None
+    wall("4-5")
     offload, answers6 = phase_offload(args.seed, profile=args.profile)
+    wall("6")
     pubsub = phase_pubsub(args.seed, answers6["quant8"],
                           profile=args.profile)
     del srv                         # phase 8 needs the card's memory
+    wall("7")
     rglru = phase_rglru_serve(args.seed, profile=args.profile)
+    wall("8")
     graphs = phase_graphs(args.seed, {**serve4, **serve}, offload, answers6)
+    wall("9")
     failover = phase_failover(args.seed)
+    wall("10")
     staged = phase_staged(args.seed, serve4)
+    wall("11")
     qos = phase_qos(args.seed)
+    wall("12")
     lossy = phase_lossy(args.seed, serve4, answers6, staged)
     del answers6
+    wall("13")
+    zoo = phase_zoo(args.seed, ptxas)
+    wall("14")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -4399,6 +4878,19 @@ def main(argv=None):
     # lossy hops and the clean-link twins (13a, 13c, 13d)
     for row in kernels[:6]:
         row["launches_phase13"] = lossy["launches"][row["name"]]
+    # K5/K6 at head dims 128 (granite-20b) and 256 (gemma3-4b's global
+    # layers): phase 14's launches by dim (14b-14e) and 14a's timings
+    for row in kernels[4:6]:
+        row["head_dims"] = list(fa.KERNEL_HEAD_DIMS)
+        row["launches_phase14"] = {
+            k.partition("/")[2]: v for k, v in
+            zoo["launches_by_head_dim"].items()
+            if k.startswith(row["name"] + "/")}
+        row["by_head_dim"] = {
+            name: {k: r[k] for k in timed + ("ptxas",)}
+            for name, r in zoo["14a"].items()
+            if name.startswith("K5" if row["name"] == "flash_attention"
+                               else "K6")}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -4413,7 +4905,7 @@ def main(argv=None):
                                    "graphs": graphs,
                                    "failover": failover,
                                    "staged": staged, "qos": qos,
-                                   "lossy": lossy},
+                                   "lossy": lossy, "zoo": zoo},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -177,7 +177,7 @@ def _counters() -> List[Dict[str, int]]:
     from ..kernels import (flash_attn, quant8, rglru_scan, sparse_dec,
                            sparse_enc)
     return [flash_attn.LAUNCHES, flash_attn.PREFILL_ROUTE_LAUNCHES,
-            quant8.LAUNCHES, sparse_enc.LAUNCHES,
+            flash_attn.HEAD_DIM_LAUNCHES, quant8.LAUNCHES, sparse_enc.LAUNCHES,
             sparse_enc.ENC_ROUTE_LAUNCHES, sparse_dec.LAUNCHES,
             rglru_scan.LAUNCHES]
 

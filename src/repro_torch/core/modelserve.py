@@ -331,7 +331,7 @@ class ModelServeStageElement(ModelServeElement):
         x_in, active = self.admit(st, inputs[0]).tensors
         out, cache = transformer.stage_decode(
             params, self.cfg, self.stage, self.n_stages, x_in, st["cache"],
-            advance=active.to(torch.int32))
+            advance=active.to(torch.int32), per_row=True)
         ctx.set_state(self.name, {"cache": cache})
         return [StreamBuffer(tensors=(self._hop_out(out, active),))]
 
@@ -391,7 +391,7 @@ class ModelServeStageElement(ModelServeElement):
         active[row] = True
         out, _ = transformer.stage_decode(
             params, self.cfg, self.stage, self.n_stages, xs, scr,
-            advance=active.to(torch.int32))
+            advance=active.to(torch.int32), per_row=True)
         cache["pos"].copy_(scr["pos"][row])
         for d, s in zip(src, dst):
             d.copy_(s[row])

@@ -17,14 +17,17 @@
 // host never reads ``pos``; a block whose chunk starts at or past
 // n = min(max(pos, 0), max_seq - 1) + 1 writes the neutral partial
 // (m = -1e30, l = 0, acc = 0) and returns.  Each lane loads 16 bytes (8
-// bf16; 8 lanes cover a 128-byte key row), all 8 of its K and V rows are
-// in flight before the first score; a dot product ends in three shuffles
-// inside its 8-lane group, then a block max and a block sum.  For PV each
-// thread sums 8 output elements over its 8 keys, then the groups of a warp
+// bf16 or f32 values), so D/8 lanes cover a key row: 8 at head dim 64, 16
+// at 128, 32 at 256, and a thread takes 8, 16 or 32 of the block's 128
+// keys.  At 64 all 8 of its K and V rows are in flight before the first
+// score; at 128 and 256 its rows load in chunks of 8 (the scores of all of
+// them stay in registers).  A dot product ends in log2(D/8) shuffles
+// inside its lane group, then a block max and a block sum.  For PV each
+// thread sums 8 output elements over its keys, then the groups of a warp
 // by shuffles and the 4 warps through shared memory, in a fixed order.  The
-// partial (m, l, acc[64]) goes to an f32 scratch [S*H, NSPLIT, 66] that
+// partial (m, l, acc[D]) goes to an f32 scratch [S*H, NSPLIT, D + 2] that
 // the wrapper allocates.
-//   Pass 2, one block of 64 threads per row, combines the splits in order
+//   Pass 2, one block of D threads per row, combines the splits in order
 // 0..NSPLIT-1: m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i
 // e^(m_i - m) / max(l, 1e-30).  No float atomics: the result depends on the
 // shapes and ``pos`` only, so a slot decodes bitwise alike in any batch.
@@ -82,12 +85,17 @@ flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             long long k_sslot, long long k_sseq,
                             long long k_sh, long long v_sslot,
                             long long v_sseq, long long v_sh, float scale) {
-  static_assert(D == 64, "8 lanes of 8 elements cover one key row");
-  constexpr int KEYS = kDecodeSplit / (kDecodeThreads / 8);  // per thread
+  static_assert(D == 64 || D == 128 || D == 256, "head dims 64/128/256");
+  constexpr int LANES = D / 8;     // lanes of 8 elements that cover a key row
+  constexpr int GPW = 32 / LANES;  // keys of a warp in one step
+  constexpr int NW = kDecodeThreads / 32;
+  constexpr int STEP = GPW * NW;   // keys of the block in one step
+  constexpr int KEYS = kDecodeSplit / STEP;  // per thread: 8, 16 or 32
+  constexpr int CHUNK = KEYS < 8 ? KEYS : 8;  // rows a thread has in flight
   constexpr int W = kWords<T>;
-  __shared__ float red_max[kDecodeThreads / 32];
-  __shared__ float red_sum[kDecodeThreads / 32];
-  __shared__ float red_acc[kDecodeThreads / 32][D];
+  __shared__ float red_max[NW];
+  __shared__ float red_sum[NW];
+  __shared__ float red_acc[NW][D];
 
   const int r = blockIdx.x;  // slot * H + head
   const int split = blockIdx.y;
@@ -97,30 +105,33 @@ flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
-  const int grp = lane >> 3;  // key of the warp's 4 in one step
-  const int sub = lane & 7;   // owns elements [8*sub, 8*sub + 8)
+  const int grp = lane / LANES;  // key of the warp's GPW in one step
+  const int sub = lane % LANES;  // owns elements [8*sub, 8*sub + 8)
   // keys [0, pos] are valid; a position past the cache attends to all of it
   const int n = min(max(pos[slot], 0), Smax - 1) + 1;
   const int c0 = split * kDecodeSplit;
   float* out = part + (static_cast<long long>(r) * nsplit + split) * (D + 2);
   if (c0 >= n) {  // no valid key here: the neutral partial
-    if (t < D + 2) out[t] = t == 0 ? kNegInf : 0.f;
+    for (int i = t; i < D + 2; i += kDecodeThreads)
+      out[i] = i == 0 ? kNegInf : 0.f;
     return;
   }
 
-  // key of step i: c0 + 16*i + 4*warp + grp
+  // key of step i: c0 + STEP*i + GPW*warp + grp.  The first CHUNK K and V
+  // rows are all in flight before the first score (at D = 64 that is
+  // every row of the thread); later chunks load as they are reached.
   const T* kb = k + slot * k_sslot + kvh * k_sh + 8 * sub;
   const T* vb = v + slot * v_sslot + kvh * v_sh + 8 * sub;
-  uint4 kw[KEYS][W], vw[KEYS][W];
+  uint4 kw[CHUNK][W], vw[CHUNK][W];
 #pragma unroll
-  for (int i = 0; i < KEYS; ++i) {
-    const int key = c0 + 16 * i + 4 * warp + grp;
+  for (int j = 0; j < CHUNK; ++j) {
+    const int key = c0 + STEP * j + GPW * warp + grp;
     if (key < n) {
-      load8(kb + key * k_sseq, kw[i]);
-      load8(vb + key * v_sseq, vw[i]);
+      load8(kb + key * k_sseq, kw[j]);
+      load8(vb + key * v_sseq, vw[j]);
     } else {
 #pragma unroll
-      for (int w = 0; w < W; ++w) kw[i][w] = vw[i][w] = make_uint4(0, 0, 0, 0);
+      for (int w = 0; w < W; ++w) kw[j][w] = vw[j][w] = make_uint4(0, 0, 0, 0);
     }
   }
   float qv[8];
@@ -131,64 +142,98 @@ flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float s[KEYS];
   float mx = kNegInf;
 #pragma unroll
-  for (int i = 0; i < KEYS; ++i) {
-    float x[8];
-    widen8(kw[i], x);
-    float dot = 0.f;
+  for (int c = 0; c < KEYS / CHUNK; ++c) {
+    if (c > 0) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dot = fmaf(qv[e], x[e], dot);
-    // a butterfly: all 8 lanes of the group end with the same sum
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-    dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-    const int key = c0 + 16 * i + 4 * warp + grp;
-    s[i] = key < n ? dot : kNegInf;
-    mx = fmaxf(mx, s[i]);
+      for (int j = 0; j < CHUNK; ++j) {
+        const int key = c0 + STEP * (c * CHUNK + j) + GPW * warp + grp;
+        if (key < n) {
+          load8(kb + key * k_sseq, kw[j]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < W; ++w) kw[j][w] = make_uint4(0, 0, 0, 0);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int i = c * CHUNK + j;
+      float x[8];
+      widen8(kw[j], x);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = fmaf(qv[e], x[e], dot);
+      // a butterfly: all LANES lanes of the group end with the same sum
+#pragma unroll
+      for (int o = 1; o < LANES; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const int key = c0 + STEP * i + GPW * warp + grp;
+      s[i] = key < n ? dot : kNegInf;
+      mx = fmaxf(mx, s[i]);
+    }
   }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+#pragma unroll
+  for (int o = LANES; o < 32; o <<= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   if (lane == 0) red_max[warp] = mx;
   __syncthreads();
   float m = red_max[0];
 #pragma unroll
-  for (int w = 1; w < kDecodeThreads / 32; ++w) m = fmaxf(m, red_max[w]);
+  for (int w = 1; w < NW; ++w) m = fmaxf(m, red_max[w]);
 
   float lsum = 0.f;  // the group's keys, counted once per lane of the group
   float acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 #pragma unroll
-  for (int i = 0; i < KEYS; ++i) {
-    const int key = c0 + 16 * i + 4 * warp + grp;
-    const float p = key < n ? expf(s[i] - m) : 0.f;
-    lsum += p;
-    float x[8];
-    widen8(vw[i], x);
+  for (int c = 0; c < KEYS / CHUNK; ++c) {
+    if (c > 0) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, x[e], acc[e]);
+      for (int j = 0; j < CHUNK; ++j) {
+        const int key = c0 + STEP * (c * CHUNK + j) + GPW * warp + grp;
+        if (key < n) {
+          load8(vb + key * v_sseq, vw[j]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < W; ++w) vw[j][w] = make_uint4(0, 0, 0, 0);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      const int i = c * CHUNK + j;
+      const int key = c0 + STEP * i + GPW * warp + grp;
+      const float p = key < n ? expf(s[i] - m) : 0.f;
+      lsum += p;
+      float x[8];
+      widen8(vw[j], x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, x[e], acc[e]);
+    }
   }
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 8);
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 16);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], 8);
-    acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], 16);
+  for (int o = LANES; o < 32; o <<= 1) {
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
   if (lane == 0) red_sum[warp] = lsum;
-  if (lane < 8) {
+  if (lane < LANES) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) red_acc[warp][8 * lane + e] = acc[e];
   }
   __syncthreads();
-  if (t < D) {
-    float a = red_acc[0][t];
+  for (int d = t; d < D; d += kDecodeThreads) {
+    float a = red_acc[0][d];
 #pragma unroll
-    for (int w = 1; w < kDecodeThreads / 32; ++w) a += red_acc[w][t];
-    out[2 + t] = a;
-  } else if (t == D) {
+    for (int w = 1; w < NW; ++w) a += red_acc[w][d];
+    out[2 + d] = a;
+  }
+  if (t == 0) {
     float l = red_sum[0];
 #pragma unroll
-    for (int w = 1; w < kDecodeThreads / 32; ++w) l += red_sum[w];
+    for (int w = 1; w < NW; ++w) l += red_sum[w];
     out[0] = m;
     out[1] = l;
   }
@@ -235,7 +280,8 @@ static int launch_decode(const void* q, const void* k, const void* v,
 
 }  // namespace repro
 
-// Instantiated for head dim 64 only, that of every configuration served.
+// Instantiated for head dims 64, 128 and 256 (dk == dv), those of every
+// configuration served.
 // ``part`` is the f32 scratch [S*H, nsplit, D + 2]; the wrapper has checked
 // that k and v are 16-byte aligned with strides of whole 16-byte words.
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
@@ -258,7 +304,13 @@ extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
                        k_sslot, k_sseq, k_sh, v_sslot, v_sseq, v_sh, o_sr,   \
                        scale, st)
   if (dtype == kFloat32 && D == 64) return REPRO_DECODE(float, 64);
+  if (dtype == kFloat32 && D == 128) return REPRO_DECODE(float, 128);
+  if (dtype == kFloat32 && D == 256) return REPRO_DECODE(float, 256);
   if (dtype == kBFloat16 && D == 64) return REPRO_DECODE(__nv_bfloat16, 64);
+  if (dtype == kBFloat16 && D == 128)
+    return REPRO_DECODE(__nv_bfloat16, 128);
+  if (dtype == kBFloat16 && D == 256)
+    return REPRO_DECODE(__nv_bfloat16, 256);
 #undef REPRO_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }

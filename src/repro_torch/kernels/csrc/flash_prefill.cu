@@ -1,6 +1,8 @@
 // Flash-attention prefill for Hopper (sm_90a), fp32 route: the port of the
 // TPU kernel ``flash_attention`` in src/repro/kernels/flash_attn.py (body
-// ``_flash_kernel``).  This file serves float32 only; bfloat16 (the serve
+// ``_flash_kernel``).  Head dim 64 runs the persistent kernel described
+// below; 128 and 256 a plain tiled one (``flash_prefill_f32_wide_kernel``,
+// further down).  This file serves float32 only; bfloat16 (the serve
 // path) runs on the tensor cores in flash_prefill_sm90.cu.  fp32 runs on the
 // CUDA cores in IEEE f32 FMAs: tensor cores would mean TF32 (10-bit
 // mantissas), which the fp32 check (atol = rtol = 2e-5 against the plain
@@ -409,6 +411,236 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims 128 and 256: a plain tiled kernel, one block per (bh, 32-row
+// query tile), heaviest tiles first.  The persistent kernel above keeps a
+// 4 x 4 output tile in registers at 128 a thread; at D = 128 or 256 its
+// tiles no longer fit 227 KB of shared memory nor its 128 registers, so
+// these dims take a simpler shape, right first (speed is later work):
+//  * 8 warps; warp w owns query rows 4w..4w+3 of the tile.  For S = Q K^T
+//    lane j owns key j of a 32-key tile for each of the 4 rows (Q rows are
+//    read as broadcasts, K rows padded to D + 4 floats: conflict-free
+//    128-bit loads); for O += P V lane j owns dims 4j + 128c, c < D/128.
+//  * The row max and sum are full-warp shuffles; P goes through shared
+//    memory (a warp reads only its own rows, so ``__syncwarp`` suffices).
+//  * K/V tiles are double-buffered with cp.async (tile t+1 lands while
+//    tile t is computed); a misaligned view takes 4-byte loads instead.
+//  * Scores in the log2 domain, as above.
+// Shared memory: Q 32 x (D+4), K 2 x 32 x (D+4), V 2 x 32 x D and P 32 x 32
+// floats: 87.5 KB at D = 128, 165.5 KB at 256.
+// ---------------------------------------------------------------------------
+
+constexpr int kWBQ = 32;        // query rows of a block
+constexpr int kWBK = 32;        // keys of a tile
+constexpr int kWWarps = 8;
+constexpr int kWThreads = 32 * kWWarps;
+constexpr int kWR = kWBQ / kWWarps;  // rows a warp owns
+
+template <int D>
+struct WideSmem {
+  float q[kWBQ * (D + 4)];
+  float k[2][kWBK * (D + 4)];
+  float v[2][kWBK * D];
+  float p[kWBQ * kWBK];
+};
+
+// Rows r0..r0+n-1 of a [rows, D] f32 matrix with row stride ``ss`` into
+// ``dst`` (row stride ``ld``), by the block's threads; rows at or past
+// ``nrows`` are zero.
+template <int D, bool kVec>
+__device__ __forceinline__ void load_rows_wide(float* dst, int ld,
+                                               const float* src, long long ss,
+                                               int r0, int n, int nrows) {
+  if (kVec) {
+    for (int c = threadIdx.x; c < n * (D / 4); c += kWThreads) {
+      const int r = c / (D / 4);
+      const int col = (c % (D / 4)) * 4;
+      const bool ok = r0 + r < nrows;
+      cp_async16(dst + r * ld + col,
+                 ok ? src + (long long)(r0 + r) * ss + col : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * D; e += kWThreads) {
+      const int r = e / D;
+      const int col = e % D;
+      dst[r * ld + col] =
+          r0 + r < nrows ? src[(long long)(r0 + r) * ss + col] : 0.f;
+    }
+  }
+}
+
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_prefill_f32_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ o, int Sq, int Sk,
+                              int groups, int causal, long long q_sbh,
+                              long long q_ss, long long k_sbh, long long k_ss,
+                              long long v_sbh, long long v_ss,
+                              long long o_sbh, long long o_ss,
+                              float scale_log2) {
+  constexpr int LDQ = D + 4;
+  constexpr int NCH = D / 128;   // float4 groups of output dims a lane owns
+  extern __shared__ float4 smem_raw[];
+  WideSmem<D>& sm = *reinterpret_cast<WideSmem<D>*>(smem_raw);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWBQ;  // heaviest first
+  const int kvh = bh / groups;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* kp = k + kvh * k_sbh;
+  const float* vp = v + kvh * v_sbh;
+  const int q_last = min(q0 + kWBQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int nt = (k_end + kWBK - 1) / kWBK;
+
+  load_rows_wide<D, kVec>(sm.q, LDQ, q + bh * q_sbh, q_ss, q0, kWBQ, Sq);
+  if (nt > 0) {
+    load_rows_wide<D, kVec>(sm.k[0], LDQ, kp, k_ss, 0, kWBK, Sk);
+    load_rows_wide<D, kVec>(sm.v[0], D, vp, v_ss, 0, kWBK, Sk);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[kWR][NCH][4];
+  float m[kWR], l[kWR];
+#pragma unroll
+  for (int i = 0; i < kWR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][c][j] = 0.f;
+  }
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) {  // the next tile lands while this one is computed
+      load_rows_wide<D, kVec>(sm.k[buf ^ 1], LDQ, kp, k_ss, (t + 1) * kWBK,
+                              kWBK, Sk);
+      load_rows_wide<D, kVec>(sm.v[buf ^ 1], D, vp, v_ss, (t + 1) * kWBK,
+                              kWBK, Sk);
+    }
+    cp_async_commit();
+    const float* ks = sm.k[buf];
+    const float* vs = sm.v[buf];
+    const int k0 = t * kWBK;
+
+    float s[kWR];
+#pragma unroll
+    for (int i = 0; i < kWR; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 kv = ld4(ks + lane * LDQ + d);
+#pragma unroll
+      for (int i = 0; i < kWR; ++i) {
+        const float4 qv = ld4(sm.q + (warp * kWR + i) * LDQ + d);
+        float a = s[i];
+        a = fmaf(qv.x, kv.x, a);
+        a = fmaf(qv.y, kv.y, a);
+        a = fmaf(qv.z, kv.z, a);
+        a = fmaf(qv.w, kv.w, a);
+        s[i] = a;
+      }
+    }
+    const bool masked = k0 + kWBK > Sk || (causal && k0 + kWBK - 1 > q0);
+    const int kr = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kWR; ++i) {
+      const int row = q0 + warp * kWR + i;
+      const bool ok = !masked || (kr < Sk && !(causal && kr > row));
+      const float x = ok ? s[i] * scale_log2 : kNegInf;
+      float mt = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[i], mt);
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      const float p = ok ? exp2f(x - m_new) : 0.f;
+      float ps = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * alpha + ps;
+      sm.p[(warp * kWR + i) * kWBK + lane] = p;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][c][j] *= alpha;
+    }
+    __syncwarp();  // this warp's rows of P are written
+
+#pragma unroll 2
+    for (int kk = 0; kk < kWBK; kk += 4) {
+      float4 pv[kWR];
+#pragma unroll
+      for (int i = 0; i < kWR; ++i)
+        pv[i] = ld4(sm.p + (warp * kWR + i) * kWBK + kk);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const float4 vv = ld4(vs + (kk + cc) * D + 4 * lane + 128 * c);
+#pragma unroll
+          for (int i = 0; i < kWR; ++i) {
+            const float pc = comp(pv[i], cc);
+            acc[i][c][0] = fmaf(pc, vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pc, vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pc, vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pc, vv.w, acc[i][c][3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile t+1 landed; every warp is done with tile t
+  }
+
+#pragma unroll
+  for (int i = 0; i < kWR; ++i) {
+    const int row = q0 + warp * kWR + i;
+    if (row >= Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    float* op = o + bh * o_sbh + (long long)row * o_ss + 4 * lane;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const float4 r4 = make_float4(acc[i][c][0] / lc, acc[i][c][1] / lc,
+                                    acc[i][c][2] / lc, acc[i][c][3] / lc);
+      if (kVec) {
+        *reinterpret_cast<float4*>(op + 128 * c) = r4;
+      } else {
+        op[128 * c] = r4.x;
+        op[128 * c + 1] = r4.y;
+        op[128 * c + 2] = r4.z;
+        op[128 * c + 3] = r4.w;
+      }
+    }
+  }
+}
+
+template <int D, bool kVec>
+int launch_wide(const float* q, const float* k, const float* v, float* o,
+                int BH, int Sq, int Sk, int groups, int causal,
+                long long q_sbh, long long q_ss, long long k_sbh,
+                long long k_ss, long long v_sbh, long long v_ss,
+                long long o_sbh, long long o_ss, float scale,
+                cudaStream_t stream) {
+  const cudaError_t err = allow_smem<flash_prefill_f32_wide_kernel<D, kVec>>(
+      static_cast<int>(sizeof(WideSmem<D>)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (Sq + kWBQ - 1) / kWBQ;
+  if (n_qt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_prefill_f32_wide_kernel<D, kVec>
+      <<<dim3(BH, n_qt), kWThreads, sizeof(WideSmem<D>), stream>>>(
+          q, k, v, o, Sq, Sk, groups, causal, q_sbh, q_ss, k_sbh, k_ss,
+          v_sbh, v_ss, o_sbh, o_ss, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p, long long s0, long long s1) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 4 == 0 &&
          s1 % 4 == 0;
@@ -439,7 +671,8 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH,
 }  // namespace
 }  // namespace repro
 
-// float32, head dim 64 only (that of every configuration served).
+// float32, head dims 64 (the persistent kernel), 128 and 256 (the tiled
+// one): those of every configuration served.
 extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int BH, int Sq,
                                    int Sk, int D, int groups, int causal,
@@ -449,7 +682,8 @@ extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                                    long long o_sbh, long long o_ss,
                                    float scale, void* stream) {
   using namespace repro;
-  if (dtype != kFloat32 || D != kD || BH <= 0 || Sq <= 0 || Sk < 0 ||
+  if (dtype != kFloat32 || (D != kD && D != 128 && D != 256) || BH <= 0 ||
+      Sq <= 0 || Sk < 0 ||
       groups <= 0 || BH % groups != 0 ||
       (long long)BH * ((Sq + kBQ - 1) / kBQ) > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -460,6 +694,12 @@ extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(q, q_sbh, q_ss) && aligned16(k, k_sbh, k_ss) &&
                    aligned16(v, v_sbh, v_ss) && aligned16(o, o_sbh, o_ss);
+#define REPRO_WIDE(DD, V)                                                 \
+  launch_wide<DD, V>(fq, fk, fv, fo, BH, Sq, Sk, groups, causal, q_sbh,   \
+                     q_ss, k_sbh, k_ss, v_sbh, v_ss, o_sbh, o_ss, scale, st)
+  if (D == 128) return vec ? REPRO_WIDE(128, true) : REPRO_WIDE(128, false);
+  if (D == 256) return vec ? REPRO_WIDE(256, true) : REPRO_WIDE(256, false);
+#undef REPRO_WIDE
   return vec ? launch<true>(fq, fk, fv, fo, BH, Sq, Sk, groups, causal,
                             q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, o_sbh,
                             o_ss, scale, st)

@@ -13,10 +13,13 @@
 // Thread 0 loads the Q tile once and 64-key K/V tiles into a two-stage ring
 // with TMA (3-D tensor maps over the caller's strides, 128-byte swizzle: a
 // 64-element bf16 row is exactly 128 bytes), completion on mbarriers; tile
-// j+2 is requested as soon as tile j has been consumed.
-//   S = Q K^T is four wgmma m64n64k16 (bf16 in, f32 out), both operands
-// K-major in shared memory.  bf16 x bf16 products are exact in f32 and the
-// scale 2^-3 is a power of two, so scaling S equals scaling q first.
+// j+2 is requested as soon as tile j has been consumed.  Head dims 128 and
+// 256 cut every tile into D/64 column chunks of 64 x 64 (one TMA box and
+// one swizzle atom each), so each chunk is laid out as a whole tile at 64.
+//   S = Q K^T is D/16 wgmma m64n64k16 (bf16 in, f32 out), both operands
+// K-major in shared memory; k-step kk reads chunk kk/4 at column 16(kk%4).
+// bf16 x bf16 products are exact in f32; the scale D^-0.5 multiplies S
+// (an exact power of two at 64 and 256, one f32 rounding at 128).
 //   The online softmax works on the accumulator fragment: a thread holds
 // 16 scores of each of two rows, a row lives on a quad of lanes, so row
 // max/sum are two quad shuffles.  Tiles wholly below the diagonal skip the
@@ -26,9 +29,11 @@
 //   O += P V keeps f32 accuracy with bf16 tensor cores by splitting P into
 // p_hi = bf16(p) and p_lo = bf16(p - p_hi): two register-A wgmma (the
 // accumulator layout of S is the A-fragment layout) against the V tile,
-// which is MN-major ([keys, d] as stored), so B is transposed.  A single
-// bf16 P would miss the one-ulp check against the f32 plain version by
-// ~2e-3; hi/lo leaves ~1e-6.
+// which is MN-major ([keys, d] as stored), so B is transposed; one
+// m64n64k16 per 64-column chunk of V, each into its own accumulator
+// (acc[D/64][32]: 128 registers a thread at D = 256).  A single bf16 P
+// would miss the one-ulp check against the f32 plain version by ~2e-3;
+// hi/lo leaves ~1e-6.
 //
 // Bound.  At the main path's shape (q/k/v [32, L, 64] bf16, causal) the
 // bytes (4*BH*L*D*2; 8.4 MB at L = 512, ~2.5 us at 3.35 TB/s) bound it
@@ -45,17 +50,19 @@
 namespace repro {
 namespace {
 
-constexpr int D = 64;          // head dim (dk == dv)
+constexpr int DC = 64;         // columns of a chunk: one 128-byte row
 constexpr int BQ = 64;         // query rows per block: one wgmma M
 constexpr int BK = 64;         // keys per tile
 constexpr int STAGES = 2;      // K/V ring depth
 constexpr int NT = 128;        // one warpgroup
-constexpr uint32_t TILE_BYTES = BQ * D * 2;   // 64 rows of 128 B
+constexpr int CHUNK = BQ * DC;  // elements of a 64 x 64 chunk (8 KB)
 
-struct Smem {  // at a 1024-B aligned base: every tile is 1024-B aligned
-  __nv_bfloat16 q[BQ * D];
-  __nv_bfloat16 k[STAGES][BK * D];
-  __nv_bfloat16 v[STAGES][BK * D];
+template <int D>
+struct Smem {  // at a 1024-B aligned base: every chunk is 1024-B aligned
+  static constexpr int NC = D / DC;
+  __nv_bfloat16 q[NC][CHUNK];
+  __nv_bfloat16 k[STAGES][NC][CHUNK];
+  __nv_bfloat16 v[STAGES][NC][CHUNK];
   uint64_t bar_q;
   uint64_t bar_k[STAGES];
   uint64_t bar_v[STAGES];
@@ -184,6 +191,7 @@ __device__ __forceinline__ Coord coord(int row, int head, int swap) {
   return swap ? Coord{head, row} : Coord{row, head};
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
@@ -194,7 +202,9 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+  constexpr int NC = D / DC;
+  constexpr uint32_t TILE_BYTES = BQ * D * 2;   // 64 rows of 2D bytes
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
@@ -213,9 +223,11 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const Coord ck = coord(j * BK, kvh, swap_k);
     const Coord cv = coord(j * BK, kvh, swap_v);
     mbar_expect_tx(&sm.bar_k[s], TILE_BYTES);
-    tma_load(sm.k[s], &mk, &sm.bar_k[s], 0, ck.c1, ck.c2);
+    for (int c = 0; c < NC; ++c)
+      tma_load(sm.k[s][c], &mk, &sm.bar_k[s], DC * c, ck.c1, ck.c2);
     mbar_expect_tx(&sm.bar_v[s], TILE_BYTES);
-    tma_load(sm.v[s], &mv, &sm.bar_v[s], 0, cv.c1, cv.c2);
+    for (int c = 0; c < NC; ++c)
+      tma_load(sm.v[s][c], &mv, &sm.bar_v[s], DC * c, cv.c1, cv.c2);
   };
 
   if (t == 0) {
@@ -230,13 +242,16 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   if (t == 0) {
     const Coord cq = coord(q0, bh, swap_q);
     mbar_expect_tx(&sm.bar_q, TILE_BYTES);
-    tma_load(sm.q, &mq, &sm.bar_q, 0, cq.c1, cq.c2);
+    for (int c = 0; c < NC; ++c)
+      tma_load(sm.q[c], &mq, &sm.bar_q, DC * c, cq.c1, cq.c2);
     for (int j = 0; j < STAGES && j < n_kt; ++j) load_kv(j);
   }
 
-  float acc[32];
+  float acc[NC][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
   mbar_wait(&sm.bar_q, 0);
@@ -254,8 +269,8 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, sw128_desc(sm.q + kk * 16), sw128_desc(sm.k[s] + kk * 16),
-               kk > 0);
+      wgmma_ss(sc, sw128_desc(sm.q[kk / 4] + (kk % 4) * 16),
+               sw128_desc(sm.k[s][kk / 4] + (kk % 4) * 16), kk > 0);
     wg_commit();
     wg_wait_all();
 
@@ -304,7 +319,9 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       m[h] = m_new[h];
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
 
     // -- O += P_hi V + P_lo V: the S fragment of keys [16kk, 16kk+16) is
     //    the A fragment of k-step kk ------------------------------------------
@@ -322,9 +339,12 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = sw128_desc(sm.v[s] + kk * 16 * D);
-      wgmma_rs(acc, a_hi + 4 * kk, dv);
-      wgmma_rs(acc, a_lo + 4 * kk, dv);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const uint64_t dv = sw128_desc(sm.v[s][c] + kk * 16 * DC);
+        wgmma_rs(acc[c], a_hi + 4 * kk, dv);
+        wgmma_rs(acc[c], a_lo + 4 * kk, dv);
+      }
     }
     wg_commit();
     wg_wait_all();
@@ -341,11 +361,13 @@ flash_prefill_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     const float lc = fmaxf(l[h], 1e-30f);
     __nv_bfloat16* op = o + bh * o_sbh + static_cast<long long>(row) * o_ss;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = 4 * c + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(op + 8 * c + c_lo) =
-          __floats2bfloat162_rn(acc[i] / lc, acc[i + 1] / lc);
-    }
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int i = 4 * c + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(op + DC * cc + 8 * c + c_lo) =
+            __floats2bfloat162_rn(acc[cc][i] / lc, acc[cc][i + 1] / lc);
+      }
   }
 }
 
@@ -376,12 +398,12 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map of 64x64 boxes over a bf16 [heads, rows, 64] tensor with element
-// strides (s_head, s_row, 1), 128-byte swizzle, zero fill out of bounds.
-// The two outer dims go in ascending stride order; ``swap`` says that
-// heads come before rows.
+// A map of 64x64 boxes over a bf16 [heads, rows, D] tensor with element
+// strides (s_head, s_row, 1), 128-byte swizzle, zero fill out of bounds; a
+// row of D > 64 is D/64 boxes side by side.  The two outer dims go in
+// ascending stride order; ``swap`` says that heads come before rows.
 bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* base,
-                int heads, int rows, long long s_head, long long s_row,
+                int D, int heads, int rows, long long s_head, long long s_row,
                 int* swap) {
   *swap = s_head < s_row;
   const cuuint64_t dims[3] = {
@@ -391,7 +413,7 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* base,
   const cuuint64_t strides[2] = {
       static_cast<cuuint64_t>((*swap ? s_head : s_row) * 2),
       static_cast<cuuint64_t>((*swap ? s_row : s_head) * 2)};
-  const cuuint32_t box[3] = {D, *swap ? 1u : 64u, *swap ? 64u : 1u};
+  const cuuint32_t box[3] = {DC, *swap ? 1u : 64u, *swap ? 64u : 1u};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -399,15 +421,45 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int D>
+int launch(const EncodeTiledFn enc, const void* q, const void* k,
+           const void* v, void* o, int BH, int Sq, int Sk, int groups,
+           int causal, long long q_sbh, long long q_ss, long long k_sbh,
+           long long k_ss, long long v_sbh, long long v_ss, long long o_sbh,
+           long long o_ss, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  memset(&mq, 0, sizeof(mq));
+  memset(&mk, 0, sizeof(mk));
+  memset(&mv, 0, sizeof(mv));
+  int swap_q = 0, swap_k = 0, swap_v = 0;
+  if (!encode_map(enc, &mq, q, D, BH, Sq, q_sbh, q_ss, &swap_q))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // With Sk == 0 no K/V tile is ever requested, so those maps stay empty.
+  if (Sk > 0 &&
+      (!encode_map(enc, &mk, k, D, BH / groups, Sk, k_sbh, k_ss, &swap_k) ||
+       !encode_map(enc, &mv, v, D, BH / groups, Sk, v_sbh, v_ss, &swap_v)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(BH, n_qt);
+  const int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + alignment
+  const cudaError_t err = allow_smem<flash_prefill_sm90_kernel<D>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_prefill_sm90_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk, groups, causal,
+      swap_q, swap_k, swap_v, o_sbh, o_ss, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro
 
-// bf16, head dim 64 (dk == dv).  The wrapper has checked TMA's conditions:
-// 16-byte aligned bases, strides (in elements) whose byte size is a
-// multiple of 16, a contiguous last dim.
+// bf16, head dims 64, 128 and 256 (dk == dv).  The wrapper has checked
+// TMA's conditions: 16-byte aligned bases, strides (in elements) whose byte
+// size is a multiple of 16, a contiguous last dim.
 extern "C" int repro_flash_prefill_sm90(const void* q, const void* k,
                                         const void* v, void* o, int BH,
-                                        int Sq, int Sk, int groups,
+                                        int Sq, int Sk, int D, int groups,
                                         int causal, long long q_sbh,
                                         long long q_ss, long long k_sbh,
                                         long long k_ss, long long v_sbh,
@@ -419,25 +471,13 @@ extern "C" int repro_flash_prefill_sm90(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap mq, mk, mv;
-  memset(&mq, 0, sizeof(mq));
-  memset(&mk, 0, sizeof(mk));
-  memset(&mv, 0, sizeof(mv));
-  int swap_q = 0, swap_k = 0, swap_v = 0;
-  if (!encode_map(enc, &mq, q, BH, Sq, q_sbh, q_ss, &swap_q))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // With Sk == 0 no K/V tile is ever requested, so those maps stay empty.
-  if (Sk > 0 &&
-      (!encode_map(enc, &mk, k, BH / groups, Sk, k_sbh, k_ss, &swap_k) ||
-       !encode_map(enc, &mv, v, BH / groups, Sk, v_sbh, v_ss, &swap_v)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(BH, n_qt);
-  const size_t smem = sizeof(Smem) + 1024;  // + room to align the base
-  flash_prefill_sm90_kernel<<<grid, NT, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk, groups, causal,
-      swap_q, swap_k, swap_v, o_sbh, o_ss, scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_SM90(DD)                                                     \
+  launch<DD>(enc, q, k, v, o, BH, Sq, Sk, groups, causal, q_sbh, q_ss,     \
+             k_sbh, k_ss, v_sbh, v_ss, o_sbh, o_ss, scale, st)
+  if (D == 64) return REPRO_SM90(64);
+  if (D == 128) return REPRO_SM90(128);
+  if (D == 256) return REPRO_SM90(256);
+#undef REPRO_SM90
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,6 +15,8 @@ tensor-core kernel ``flash_prefill_sm90.cu`` (wgmma + TMA), float32 the
 register-tiled SIMT kernel ``flash_prefill.cu`` (IEEE f32 FMAs on the CUDA
 cores; its route keeps the name ``"scalar"``).  K6 is split-KV in
 ``flash_decode.cu`` (a partial pass and a combine pass) for both dtypes.
+Every kernel takes head dims 64, 128 and 256 (``KERNEL_HEAD_DIMS``, dk ==
+dv) and any ``kv_groups`` that divides the heads.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels;
@@ -36,7 +38,8 @@ from .ref import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
            "flash_decode_plain", "LAUNCHES", "PREFILL_ROUTE_LAUNCHES",
-           "reset_launches", "KERNEL_HEAD_DIM", "prefill_route",
+           "HEAD_DIM_LAUNCHES",
+           "reset_launches", "KERNEL_HEAD_DIMS", "prefill_route",
            "tma_aligned", "decode_splits", "decode_scratch_shape"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -44,9 +47,15 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
 #: K5's launches by route (:func:`prefill_route`), counted with LAUNCHES
 PREFILL_ROUTE_LAUNCHES: Dict[str, int] = {"sm90": 0, "scalar": 0}
 
-#: the head dim the CUDA kernels are instantiated for (dk == dv): that of
-#: every configuration the port serves
-KERNEL_HEAD_DIM = 64
+#: the head dims the CUDA kernels are instantiated for (dk == dv): those of
+#: every configuration the port serves (64: stablelm; 128: granite, qwen,
+#: internvl2, mixtral; 256: gemma3).  Any other raises on the card.
+KERNEL_HEAD_DIMS = (64, 128, 256)
+#: K5's and K6's launches by head dim ("flash_attention/128", ...), counted
+#: with LAUNCHES
+HEAD_DIM_LAUNCHES: Dict[str, int] = {
+    f"{name}/{d}": 0 for name in ("flash_attention", "flash_decode")
+    for d in KERNEL_HEAD_DIMS}
 
 #: key-tile widths of the plain versions (K6's is ``flash_decode_step``'s
 #: block; any width gives the same online softmax up to f32 rounding)
@@ -59,14 +68,14 @@ DECODE_SPLIT = 128
 _c = ctypes
 _PREFILL_ARGS = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 6
                  + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
-_PREFILL_SM90_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 5
+_PREFILL_SM90_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6
                       + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 _DECODE_ARGS = ([_c.c_int] + [_c.c_void_p] * 6 + [_c.c_int] * 6
                 + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 
 
 def reset_launches():
-    for counts in (LAUNCHES, PREFILL_ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, PREFILL_ROUTE_LAUNCHES, HEAD_DIM_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -103,9 +112,15 @@ def decode_splits(max_seq: int) -> int:
     return -(-max_seq // DECODE_SPLIT)
 
 
-def decode_scratch_shape(rows: int, max_seq: int, dv: int = KERNEL_HEAD_DIM):
+def decode_scratch_shape(rows: int, max_seq: int, dv: int = 64):
     """K6's f32 scratch: per (slot·head) row and split, (m, l, acc[dv])."""
     return (rows, decode_splits(max_seq), dv + 2)
+
+
+def _check_head_dim(name: str, dk: int, dv: int):
+    if dk != dv or dk not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel: dk == dv in {KERNEL_HEAD_DIMS} "
+                         f"required, got dk={dk} dv={dv}")
 
 
 def _check_cuda(name: str, *ts) -> int:
@@ -140,9 +155,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
                                      kv_groups=kv_groups)
     code = _check_cuda("flash_attention", q, k, v)
     sk, dv = v.shape[1], v.shape[2]
-    if dk != KERNEL_HEAD_DIM or dv != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel: dk == dv == "
-                         f"{KERNEL_HEAD_DIM} required, got dk={dk} dv={dv}")
+    _check_head_dim("flash_attention", dk, dv)
     if bh > 65535:
         raise ValueError(f"flash_attention kernel: {bh} heads exceed the "
                          f"grid's limit of 65535")
@@ -160,8 +173,8 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
             fn = _lib("flash_prefill_sm90", "repro_flash_prefill_sm90",
                       _PREFILL_SM90_ARGS)
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    bh, sq, sk, kv_groups, int(causal), *strides, dk ** -0.5,
-                    stream)
+                    bh, sq, sk, dk, kv_groups, int(causal), *strides,
+                    dk ** -0.5, stream)
         else:
             fn = _lib("flash_prefill", "repro_flash_prefill", _PREFILL_ARGS)
             rc = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -170,6 +183,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
     _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     PREFILL_ROUTE_LAUNCHES[route] += 1
+    HEAD_DIM_LAUNCHES[f"flash_attention/{dk}"] += 1
     return o
 
 
@@ -242,9 +256,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
             not pos.is_contiguous():
         raise ValueError("flash_decode: pos must be a contiguous int32 "
                          "tensor on the cache's device")
-    if dk != KERNEL_HEAD_DIM or dv != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_decode kernel: dk == dv == "
-                         f"{KERNEL_HEAD_DIM} required, got dk={dk} dv={dv}")
+    _check_head_dim("flash_decode", dk, dv)
     _check_aligned("flash_decode", k_cache, v_cache)
     nsplit = decode_splits(smax)
     if smax < 1 or nsplit > 65535:
@@ -266,6 +278,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
                 o.stride(0), dk ** -0.5, stream)
     _raise_on(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
+    HEAD_DIM_LAUNCHES[f"flash_decode/{dk}"] += 1
     return o
 
 

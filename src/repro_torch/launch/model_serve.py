@@ -21,6 +21,10 @@ How the system starts::
     rt.run(12)
     cli.sink_log["res"]     # one StreamBuffer of int32 tokens per answer
 
+The decoder zoo serves the same way: ``model="granite-20b-flash"``,
+``"gemma3-4b-flash"``, ``"mixtral-8x22b-8l"`` or ``"deepseek-v2-236b-4l"``
+on the card, a ``"<family>-smoke"`` preset (``ZOO_PRESETS``) anywhere.
+
 Staged serving replaces the hub with one Device per stage pipeline
 (``staged_serve_pipelines(model="stablelm-smoke-4l", n_stages=2)``), each
 given the monolithic server's generator; clients are unchanged.  Tenants:
@@ -45,7 +49,7 @@ from ..models.config import ModelConfig
 
 __all__ = ["serve_pipeline", "client_pipeline", "sequential_decode",
            "stage_pipeline", "staged_serve_pipelines", "SERVE_MODELS",
-           "register_serve_model", "three_tier_qos"]
+           "register_serve_model", "three_tier_qos", "ZOO_PRESETS"]
 
 
 def _stablelm_smoke_flash() -> ModelConfig:
@@ -79,6 +83,50 @@ register_serve_model("stablelm-smoke-flash", _stablelm_smoke_flash)
 register_serve_model("stablelm-smoke", _stablelm_smoke)
 register_serve_model("recurrentgemma-smoke", _recurrentgemma_smoke)
 register_serve_model("stablelm-smoke-4l", _stablelm_smoke_4l)
+
+
+# ---------------------------------------------------------------------------
+# the attention and MoE decoder zoo: full-width models for the card and fp32
+# smoke variants of each family for the CPU.  Weights are seeded random.
+# ---------------------------------------------------------------------------
+
+def _zoo(arch: str, **over):
+    from ..configs import get_config
+    return lambda: dataclasses.replace(get_config(arch), **over)
+
+
+def _zoo_smoke(arch: str, **over):
+    from ..configs import get_config
+    return lambda: dataclasses.replace(get_config(arch).smoke(), **over)
+
+
+ZOO_PRESETS = {
+    # granite-20b whole (52 layers, MQA, head dim 128): K5/K6 at 128
+    "granite-20b-flash": _zoo("granite-20b", use_flash_attn=True),
+    # gemma3-4b whole (LLLLLG, window 1024, head dim 256): K5/K6 at 256 on
+    # the global layers, the ring caches on the local ones
+    "gemma3-4b-flash": _zoo("gemma3-4b", use_flash_attn=True),
+    # mixtral-8x22b at full width, 8 of 56 layers (8 experts top-2,
+    # window 4096: every layer windowed, so no flash kernel runs)
+    "mixtral-8x22b-8l": _zoo("mixtral-8x22b", n_layers=8,
+                             use_flash_attn=True),
+    # deepseek-v2-236b at full width: the dense first layer and 3 MoE
+    # layers (MLA, 160 experts top-6, 2 shared)
+    "deepseek-v2-236b-4l": _zoo("deepseek-v2-236b", n_layers=4),
+    "qwen1.5-smoke": _zoo_smoke("qwen1.5-110b", use_flash_attn=True),
+    "granite-smoke": _zoo_smoke("granite-20b", use_flash_attn=True),
+    "gemma3-smoke": _zoo_smoke("gemma3-4b", use_flash_attn=True),
+    "mixtral-smoke": _zoo_smoke("mixtral-8x22b"),
+    "deepseek-smoke": _zoo_smoke("deepseek-v2-236b"),
+    # the VLM's decoder served on text prompts (patches enter through
+    # Model.prefill)
+    "internvl2-smoke": _zoo_smoke("internvl2-76b", use_flash_attn=True),
+    # the int8 KV cache (decode attends over the dequantised cache)
+    "granite-int8kv-smoke": _zoo_smoke("granite-20b", kv_cache_quant=True,
+                                       use_flash_attn=True),
+}
+for _key, _fn in ZOO_PRESETS.items():
+    register_serve_model(_key, _fn)
 
 
 def serve_pipeline(operation: str = "lm", model: str = "stablelm-smoke-flash",

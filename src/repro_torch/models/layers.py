@@ -1,11 +1,16 @@
 """Shared layers of the port (plain torch on tensors): norms, partial RoPE,
-GQA attention, global or sliding-window, with the flash gates, float KV
-caches (ring buffers for windowed layers), gated MLP, embedding.
+GQA attention, global or sliding-window, with the flash gates, KV caches
+(float, or int8 with per-(token, kv-head) f32 scales under
+``kv_cache_quant``; ring buffers for windowed layers), gated MLP,
+embedding.
 
-Port of ``src/repro/models/layers.py`` without the int8 KV cache and MLA
-(ROADMAP M12).  Parameters are plain dicts of tensors keyed exactly as in
-the JAX package (``attn/wq``, ``norm1/scale``, ...).  Compute dtype follows
-``cfg.dtype``; norms, RoPE angles and softmax run in f32.
+Port of ``src/repro/models/layers.py`` (MLA lives in ``mla.py``).
+Parameters are plain dicts of tensors keyed exactly as in the JAX package
+(``attn/wq``, ``norm1/scale``, ...).  Compute dtype follows ``cfg.dtype``;
+norms and RoPE angles run in f32, attention logits and softmax in f32
+unless ``attn_f32_logits=False`` (bf16 logits, f32 softmax rounded back to
+bf16, as the JAX ``_sdpa``); ``attn_additive_mask`` adds a -1e30 causal
+bias in place of the boolean select in prefill.
 
 Decode caches hold ``k``/``v`` ``[B, S_cache, kv, hd]`` and are updated IN
 PLACE: a decode step writes each row's new key/value at that row's own
@@ -16,7 +21,14 @@ JAX package returns a fresh cache instead; the values are the same.
 
 The flash kernels (K5, K6) serve global layers only, as in the JAX package
 (``layers.py`` gates them on ``window is None``): windowed layers take the
-plain masked attention.
+plain masked attention, and so does decode over an int8 cache.
+
+The int8 cache: ``{"k", "v"}`` int8 and ``{"k_s", "v_s"}`` f32 ``[B, S,
+kv, 1]``; a key row is stored as ``round_half_even(x / s)`` with ``s =
+amax / 127`` (1 where the row is all zero) and read back as ``(q * s)`` in
+``cfg.dtype``.  A prefill quantises the prompt's rows the same way (the
+JAX package's ``block_prefill`` writes float rows into the int8 cache and
+raises there; its decode path is the one held to).
 """
 from __future__ import annotations
 
@@ -33,14 +45,6 @@ from .config import ModelConfig
 
 def torch_dtype(name: str) -> torch.dtype:
     return TORCH_DTYPES[name]
-
-
-def _float_cache_only(cfg: ModelConfig):
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("int8 KV cache (kv_cache_quant): ROADMAP "
-                                  "M12")
-    if cfg.mla:
-        raise NotImplementedError("MLA attention: ROADMAP M12")
 
 
 # ---------------------------------------------------------------------------
@@ -147,25 +151,56 @@ def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
 
 
 def _sdpa(q, k, v, mask, softcap: Optional[float], n_heads: int,
-          n_kv: int) -> torch.Tensor:
-    """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd]; mask [B,Sq,Sk] bool or None.
-    f32 logits and softmax, output in q's dtype."""
+          n_kv: int, f32_logits: bool = True,
+          additive_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd]; mask [B,Sq,Sk] bool or None;
+    ``additive_mask`` [Sq,Sk] float bias in its place.  Logits in f32, or
+    in bf16 with ``f32_logits=False`` (the softmax then runs in f32 and
+    rounds back to bf16, masked logits at -3e38); output in q's dtype."""
     b, sq, h, hd = q.shape
     groups = h // n_kv
-    qg = q.reshape(b, sq, n_kv, groups, hd).float() * hd ** -0.5
-    logits = torch.einsum("bsngh,btnh->bngst", qg, k.float())
+    acc = torch.float32 if f32_logits else torch.bfloat16
+    qg = q.reshape(b, sq, n_kv, groups, hd).to(acc) * \
+        torch.tensor(hd ** -0.5, dtype=acc)
+    logits = mm_to("bsngh,btnh->bngst", qg, k, acc)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    if mask is not None:
+    if additive_mask is not None:
+        logits = logits + additive_mask.to(logits.dtype)
+    elif mask is not None:
+        neg = NEG_INF if f32_logits else -3e38
         logits = torch.where(mask[:, None, None], logits,
-                             torch.full_like(logits, NEG_INF))
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bngst,btnh->bsngh", w, v.float())
+                             torch.full_like(logits, neg))
+    if f32_logits:
+        w = torch.softmax(logits, dim=-1)
+    else:
+        w = torch.softmax(logits.float(), dim=-1).to(acc)
+    out = mm_to("bngst,btnh->bsngh", w, v.to(acc), acc)
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _flash_ok(cfg: ModelConfig, window: Optional[int]) -> bool:
-    return cfg.use_flash_attn and window is None and not cfg.logit_softcap
+def mm_to(eq: str, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``einsum`` of a and b with f32 products and sums, rounded once to
+    ``dtype``: what a bf16 einsum is in the JAX package (XLA accumulates
+    in f32; a bf16 ``torch.einsum`` on the CPU does not)."""
+    return torch.einsum(eq, a.float(), b.float()).to(dtype)
+
+
+def causal_bias(s: int, window: Optional[int], device) -> torch.Tensor:
+    """The additive causal mask of ``attn_additive_mask``: 0 where query i
+    may attend to key j, -1e30 elsewhere, f32 [s, s]."""
+    idx = torch.arange(s, device=device)
+    ok = causal_mask(idx, idx, window)
+    return torch.where(ok, torch.zeros((), device=device),
+                       torch.full((), NEG_INF, device=device))
+
+
+def _flash_ok(cfg: ModelConfig, window: Optional[int],
+              decode: bool = False) -> bool:
+    """The JAX package's flash gates: global layers without a softcap; in
+    decode also not over an int8 cache."""
+    return cfg.use_flash_attn and window is None and \
+        not cfg.logit_softcap and not (decode and cfg.kv_cache_quant)
 
 
 def causal_mask(pos_q: torch.Tensor, pos_k: torch.Tensor,
@@ -189,7 +224,6 @@ def attn_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     With ``use_flash_attn`` and no window the attention is the K5 kernel
     (``flash_attention``), as ``layers.py:161`` gates the Pallas kernel."""
-    _float_cache_only(cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, cfg, x, pos[None].expand(b, s))
@@ -201,9 +235,14 @@ def attn_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         v2 = v.permute(0, 2, 1, 3).reshape(b * kvh, s, hd)
         o2 = flash_attention(q2, k2, v2, causal=True, kv_groups=h // kvh)
         out = o2.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    elif cfg.attn_additive_mask:
+        out = _sdpa(q, k, v, None, cfg.logit_softcap, h, kvh,
+                    f32_logits=cfg.attn_f32_logits,
+                    additive_mask=causal_bias(s, window, x.device))
     else:
         mask = causal_mask(pos, pos, window)[None].expand(b, s, s)
-        out = _sdpa(q, k, v, mask, cfg.logit_softcap, h, kvh)
+        out = _sdpa(q, k, v, mask, cfg.logit_softcap, h, kvh,
+                    f32_logits=cfg.attn_f32_logits)
     return out.reshape(b, s, h * hd) @ p["wo"], k, v
 
 
@@ -215,13 +254,51 @@ def attn_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                     window: Optional[int], device) -> Dict:
     """Zero K/V of ``max_seq`` rows, or a ring of ``min(window, max_seq)``
-    rows for a windowed layer."""
-    _float_cache_only(cfg)
+    rows for a windowed layer; int8 K/V with unit f32 scales under
+    ``kv_cache_quant``."""
     kv, hd, dt = cfg.n_kv_heads, cfg.resolved_head_dim, torch_dtype(cfg.dtype)
     size = min(window, max_seq) if window is not None else max_seq
     shape = (batch, size, kv, hd)
+    if cfg.kv_cache_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.ones(shape[:3] + (1,), dtype=torch.float32,
+                                  device=device),
+                "v_s": torch.ones(shape[:3] + (1,), dtype=torch.float32,
+                                  device=device)}
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _quant_kv(x: torch.Tensor):
+    """x [..., hd] -> (int8 rows, f32 scales [..., 1]): ``amax / 127.0``
+    (a division, as the JAX ``_quant_kv``; 1 for an all-zero row), values
+    rounded half to even."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return torch.round(xf / scale).to(torch.int8), scale
+
+
+def attn_prefill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                       max_seq: int, window: Optional[int], device) -> Dict:
+    """The decode cache of a prompt's keys/values k, v [B, S, kv, hd]:
+    rows ``0..S-1`` of ``max_seq``, or, for a ring shorter than the
+    prompt, the last ``size`` positions with position p in row ``p %
+    size``; quantised rows under ``kv_cache_quant``."""
+    s = k.shape[1]
+    cache = attn_cache_init(cfg, k.shape[0], max_seq, window, device)
+    size = cache["k"].shape[1]
+    rows = {"k": k, "v": v}
+    if cfg.kv_cache_quant:
+        rows["k"], rows["k_s"] = _quant_kv(k)
+        rows["v"], rows["v_s"] = _quant_kv(v)
+    for name, x in rows.items():
+        if s <= size:
+            cache[name][:, :s] = x
+        else:       # ring: position s - size + j goes to row (s + j) % size
+            cache[name].copy_(torch.roll(x[:, -size:], s % size, dims=1))
+    return cache
 
 
 def attn_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
@@ -238,19 +315,29 @@ def attn_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     row here where JAX vmaps a scalar ``pos``.
 
     With ``use_flash_attn`` and no window the attention is the K6 kernel
-    (``flash_decode``) reading the cache in its stored layout."""
-    _float_cache_only(cfg)
+    (``flash_decode``) reading the cache in its stored layout.  An int8
+    cache stores the new row quantised and attends over the dequantised
+    cache in ``cfg.dtype`` (plain attention, as the JAX flash gate)."""
     b = x.shape[0]
     q, k1, v1 = _qkv(p, cfg, x, pos[:, None])
-    ck, cv = cache["k"], cache["v"]
-    size = ck.shape[1]
+    size = cache["k"].shape[1]
     rows = torch.arange(b, device=x.device)
     p_ = pos.long()
     at = p_ % size if window is not None else p_.clamp(0, size - 1)
-    ck[rows, at] = k1[:, 0]
-    cv[rows, at] = v1[:, 0]
+    if cfg.kv_cache_quant:
+        for name, x1 in (("k", k1), ("v", v1)):
+            q1, s1 = _quant_kv(x1[:, 0])
+            cache[name][rows, at] = q1
+            cache[name + "_s"][rows, at] = s1
+        dt = torch_dtype(cfg.dtype)
+        ck = (cache["k"].float() * cache["k_s"]).to(dt)
+        cv = (cache["v"].float() * cache["v_s"]).to(dt)
+    else:
+        ck, cv = cache["k"], cache["v"]
+        ck[rows, at] = k1[:, 0]
+        cv[rows, at] = v1[:, 0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    if _flash_ok(cfg, window):
+    if _flash_ok(cfg, window, decode=True):
         o2 = flash_decode(q.reshape(b * h, hd), ck, cv, pos,
                           kv_groups=h // kvh)
         out = o2.reshape(b, 1, h, hd)
@@ -262,7 +349,8 @@ def attn_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
         else:
             kpos = p_ - ((p_ - idx) % size)
             valid = (kpos <= p_) & (kpos >= 0) & (p_ - kpos < window)
-        out = _sdpa(q, ck, cv, valid[:, None, :], cfg.logit_softcap, h, kvh)
+        out = _sdpa(q, ck, cv, valid[:, None, :], cfg.logit_softcap, h, kvh,
+                    f32_logits=cfg.attn_f32_logits)
     return out.reshape(b, 1, h * hd) @ p["wo"]
 
 

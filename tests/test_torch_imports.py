@@ -59,6 +59,20 @@ def test_the_scan_covers_the_rglru_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: the attention and MoE decoder zoo's modules
+ZOO_MODULES = ("models/moe.py", "models/mla.py", "models/vlm.py",
+               "models/model.py", "models/__init__.py", "configs/__init__.py",
+               "configs/deepseek_v2_236b.py", "configs/gemma3_4b.py",
+               "configs/granite_20b.py", "configs/internvl2_76b.py",
+               "configs/mixtral_8x22b.py", "configs/qwen1_5_110b.py",
+               "configs/mamba2_130m.py", "configs/whisper_large_v3.py")
+
+
+def test_the_scan_covers_the_zoo_modules():
+    for rel in ZOO_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
 #: tenant QoS and elastic serving's modules
 QOS_MODULES = ("runtime/autoscale.py", "runtime/scheduler.py",
                "core/admission.py", "launch/model_serve.py")
@@ -92,7 +106,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ops, repro_torch.core.elements, "
             "repro_torch.models.rglru, repro_torch.kernels.rglru_scan, "
             "repro_torch.configs.recurrentgemma_9b, "
-            "repro_torch.core.netfault, repro_torch.edge; "
+            "repro_torch.core.netfault, repro_torch.edge, "
+            "repro_torch.models.model, repro_torch.models.moe, "
+            "repro_torch.models.mla, repro_torch.models.vlm, "
+            "repro_torch.configs; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -192,8 +209,9 @@ def test_live_reconfiguration_waits_for_m7():
 
 
 def test_windowed_layers_wait_for_m5():
-    """M5 is ported: windowed ('L') and recurrent ('R') layers run; the
-    Mamba-2 kind 'S' still raises, naming its own item."""
+    """M5 is ported: windowed ('L') and recurrent ('R') layers run, and
+    since M12a MoE, MLA and the int8 KV cache; the Mamba-2 kind 'S' still
+    raises, naming its own item (M12b)."""
     import dataclasses
     g = torch.Generator().manual_seed(0)
     for pattern in ("GL", "RRL"):
@@ -203,7 +221,15 @@ def test_windowed_layers_wait_for_m5():
         params = tt.init_params(cfg, g, "cpu")
         assert len(ms.sequential_decode(params, cfg, [1, 2], 3, 16, slots=2,
                                         device="cpu")) == 3
+    for extra in (dict(n_experts=4, top_k=2, d_ff_expert=64),
+                  dict(mla=True, kv_lora_rank=32, qk_nope_dim=16,
+                       qk_rope_dim=8, v_head_dim=16),
+                  dict(kv_cache_quant=True)):
+        cfg = dataclasses.replace(stablelm_1_6b.config().smoke(), **extra)
+        params = tt.init_params(cfg, g, "cpu")
+        assert len(ms.sequential_decode(params, cfg, [1, 2], 3, 16, slots=2,
+                                        device="cpu")) == 3
     cfg = dataclasses.replace(stablelm_1_6b.config().smoke(),
                               layer_pattern="S")
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(NotImplementedError, match="M12b"):
         tt.init_params(cfg, g, "cpu")
