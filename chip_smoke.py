@@ -230,6 +230,36 @@ Phases, one result line each (any failure exits non-zero):
    each case again with TF32 on in the card's matmuls, which must read
    more than that limit.
 
+15. the rest of the zoo: Mamba-2, ``launch/serve.py``, whisper and the
+   stacked layout — 15a, the SSD kernels against their plain versions:
+   S2 (``ssd_scan.cu``, the inter-chunk state recurrence) bitwise at nc =
+   1, odd chunk counts, a ragged N x hd (its 4-byte route), h0 given and
+   absent, and a row alone vs in a batch of 3; S3 (``ssd_decode.cu``, one
+   token's state update and readout) within atol = rtol = 2e-5 on f32 and
+   bf16 column views of an ``xbc`` row, with and without an active mask
+   (inactive rows keep h bitwise), a row alone bitwise the same row in a
+   batch of 8, and a view with element stride 2 refused; both timed at
+   mamba2-130m's shapes (S2 [1, 16, 24, 128, 64], a 2048-token prompt;
+   S3 at 8 slots [8, 24, 128, 64]) beside their byte bounds, their plain
+   versions and ``ptxas``.  15b, ``launch/serve.py``'s ``LMQueryServer``
+   with the full mamba2-130m (24 layers, bf16) and 8 edge clients at 32-
+   and 2048-token prompts (16 and 64 tokens generated): the graphed
+   server's answers bitwise its ``jit=False`` twin's, S2 once per layer
+   for the batch's prefill and S3 once per layer per step; prefill ms,
+   graphed decode ms a step, tokens/s, weight GB, peak.  15c, mamba2-130m
+   behind ``serve_pipeline(slots=8, max_seq=1024)`` with 14b's schedule,
+   as 14b–14e (every answer bitwise ``sequential_decode`` in its slot,
+   S2/S3 launches per prefill and tick).  15d, whisper-large-v3 at full
+   width (32 + 32 layers, bf16): ``Model.prefill`` of 4 x 1500 frames
+   with 16-token prompts, then 32 decode steps; finite logits, per-row
+   positions; prefill ms, decode ms a step, weight GB, peak.  15e, fp32
+   card == the port's CPU path within 3e-5 of the largest logit:
+   mamba2-smoke, whisper's smoke config, mamba2-130m at 2 layers and
+   whisper at 2 + 2 layers at full width, and the stacked layout of the
+   ``dense_gqa_bias``, ``mla_moe_shared``, ``hybrid_rglru`` and
+   ``ssm_mamba2`` families; each rerun with TF32 on as a control that
+   must read above the limit.
+
 Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
@@ -518,6 +548,9 @@ def _kernel_name(mangled):
     m = re.search(r"rglru_scan_kernelILb([01])E", mangled)
     if m:                                       # S1's kVec
         tag = f"{'16' if m.group(1) == '1' else '4'} B copies"
+    m = re.search(r"ssd_state_scan_kernelILb([01])E", mangled)
+    if m:                                       # S2's kVec
+        tag = "float4" if m.group(1) == "1" else "float"
     names = []   # a length may follow a hex digit of a namespace's hash,
     for i in range(len(mangled)):   # so the shortest identifier wins
         m = re.match(r"\d+", mangled[i:])
@@ -1401,8 +1434,10 @@ def _client_frames(codec, i, ticks, device):
 
 def _kernel_modules():
     from repro_torch.kernels import (flash_attn, quant8, rglru_scan,
-                                     sparse_dec, sparse_enc)
-    return (flash_attn, quant8, sparse_enc, sparse_dec, rglru_scan)
+                                     sparse_dec, sparse_enc, ssd_decode,
+                                     ssd_scan)
+    return (flash_attn, quant8, sparse_enc, sparse_dec, rglru_scan,
+            ssd_scan, ssd_decode)
 
 
 def _launch_counts():
@@ -4506,7 +4541,8 @@ def _zoo_clients(seed, vocab, prompt_range):
 
 #: 14b–14e's profiled prefill length and decode position (gemma3's past
 #: its 1024 window, so the local layers read a full ring)
-ZOO_PROFILE_AT = {"14b": 512, "14c": 1500, "14d": 512, "14e": 512}
+ZOO_PROFILE_AT = {"14b": 512, "14c": 1500, "14d": 512, "14e": 512,
+                  "15c": 512}
 
 
 def _zoo_profile(tag, elem, params, cfg, seed):
@@ -4555,16 +4591,17 @@ def _free_card():
 
 
 def _phase_zoo_serve(tag, seed):
-    """14b–14e: one zoo preset at full width behind ``serve_pipeline``
-    (slots 8), 12 streams; every answer bitwise ``sequential_decode`` in
-    its slot; K5/K6 launches by head dim; MoE drops by the prefill and 0
-    at decode."""
+    """14b–14e and 15c: one zoo preset at full width behind
+    ``serve_pipeline`` (slots 8), 12 streams; every answer bitwise
+    ``sequential_decode`` in its slot; K5/K6 launches by head dim, S2/S3
+    once per SSD layer per prefill / decode tick; MoE drops by the prefill
+    and 0 at decode."""
     import torch
     from repro_torch.core.buffers import tree_flatten
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import model_serve as ms
     from repro_torch.models import moe as MOE
-    preset, max_seq, prange = ZOO_SERVE[tag]
+    preset, max_seq, prange = {**ZOO_SERVE, **SSD_SERVE}[tag]
     cfg = ms.SERVE_MODELS[preset]()
     clients = _zoo_clients(seed, cfg.vocab, prange)
     _free_card()
@@ -4574,7 +4611,7 @@ def _phase_zoo_serve(tag, seed):
     rt, srv, runs, wall = _serve(None, preset, 8, max_seq, clients, seed,
                                  max_ticks=800)
     graph = _graph_since(mark)
-    launches = dict(fa.LAUNCHES)
+    launches = _launch_counts()
     by_dim = {k: v for k, v in fa.HEAD_DIM_LAUNCHES.items() if v}
     answers = _check_answers(runs, clients, cfg.vocab, 8)
     qb = rt.stats()["query_batching"]
@@ -4588,6 +4625,12 @@ def _phase_zoo_serve(tag, seed):
         if n_flash else {}
     check(by_dim == want, f"{tag} {preset}: K5/K6 launches by head dim "
                           f"{by_dim}, expected {want}")
+    n_ssd = _ssd_layers(cfg)
+    ssd = {k: launches[k] for k in ("ssd_state_scan", "ssd_decode")}
+    want = {"ssd_state_scan": n_ssd * qb["prefills"],
+            "ssd_decode": n_ssd * qb["decode_ticks"]}
+    check(ssd == want, f"{tag} {preset}: S2/S3 launches {ssd}, expected "
+                       f"{want}")
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     weight_gb = sum(t.numel() * t.element_size()
                     for t in tree_flatten(params)[0]) / 1e9
@@ -4609,8 +4652,10 @@ def _phase_zoo_serve(tag, seed):
                weight_gb=weight_gb, peak_gib=peak_gib, launches=launches,
                launches_by_head_dim=by_dim,
                prompt_lengths=[len(a[0]) for a in answers], **graph)
+    mixer = f"head dim {d}" if not n_ssd else \
+        f"{n_ssd} SSD layers of state {cfg.ssm_state}"
     print(f"phase {tag} serve {preset} ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, head dim {d}, {cfg.dtype}) slots 8 max_seq "
+          f"{cfg.d_model}, {mixer}, {cfg.dtype}) slots 8 max_seq "
           f"{max_seq}: "
           f"{len(answers)} answers in {rt.ticks} ticks, {wall:.2f} s; "
           f"prefill {row['prefill_ms_per_request']:.2f} ms/request, decode "
@@ -4620,7 +4665,8 @@ def _phase_zoo_serve(tag, seed):
           f"slots), "
           f"{row['tokens_per_s']:.1f} tokens/s; weights {weight_gb:.2f} GB,"
           f" peak {peak_gib:.2f} GiB; {graph['graphs']} graphs; K5/K6 "
-          f"launches by head dim {by_dim}")
+          f"launches by head dim {by_dim}" +
+          (f"; S2/S3 launches {ssd}" if n_ssd else ""))
     row["profile"] = _zoo_profile(tag, srv.pipe.elements["lm"], params, ecfg,
                                   seed)
     drops = []
@@ -4650,24 +4696,29 @@ def _phase_zoo_serve(tag, seed):
     return row
 
 
-def _zoo_vs_cpu(name, cfg, seed, batch, steps, tol, device="cuda"):
+def _zoo_vs_cpu(name, cfg, seed, batch, steps, tol, device="cuda",
+                stacked=False):
     """One fp32 model on the card and on the CPU (the card's weights
     copied over): prefill and ``steps`` teacher-forced decode steps (the
     card's greedy tokens, fed to both), logits within ``tol`` of the
-    largest |logit| (``tol=None``: measured only).  -> the worst share."""
+    largest |logit| (``tol=None``: measured only); ``stacked``: in the
+    stacked layout.  -> the worst share."""
     import torch
     from repro_torch.device import make_generator
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tt
     m = build_model(cfg)
     dev = torch.device(device)
-    params = m.init(make_generator(seed, dev), dev)
+    init = m.init_stacked if stacked else m.init
+    prefill = m.prefill_stacked if stacked else m.prefill
+    decode = m.decode_step_stacked if stacked else m.decode_step
+    params = init(make_generator(seed, dev), dev)
     cpu_params = tt.params_from_numpy(_to_numpy(params), cfg, "cpu")
     gpu_b = {k: v.to(dev) for k, v in batch.items()}
     max_seq = batch["tokens"].shape[1] + cfg.n_patches + steps + 1
     worst = 0.0
-    lg, cg = m.prefill(params, gpu_b, max_seq)
-    lc, cc = m.prefill(cpu_params, batch, max_seq)
+    lg, cg = prefill(params, gpu_b, max_seq)
+    lc, cc = prefill(cpu_params, batch, max_seq)
     for step in range(steps + 1):
         scale = lc.abs().max().item() + 1e-6
         err = (lg.cpu() - lc).abs().max().item() / scale
@@ -4678,8 +4729,8 @@ def _zoo_vs_cpu(name, cfg, seed, batch, steps, tol, device="cuda"):
         if step == steps:
             break
         tok = torch.argmax(lg, -1).to(torch.int32)
-        lg, cg = m.decode_step(params, tok, cg)
-        lc, cc = m.decode_step(cpu_params, tok.cpu(), cc)
+        lg, cg = decode(params, tok, cg)
+        lc, cc = decode(cpu_params, tok.cpu(), cc)
     del params, cpu_params, cg, cc
     return worst
 
@@ -4765,7 +4816,403 @@ def phase_zoo(seed, ptxas):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the model zoo: Mamba-2 with the SSD kernels S2 and
+# S3, launch/serve.py, whisper's encoder-decoder and the stacked layout
+# ---------------------------------------------------------------------------
+
+#: 15a's timed shapes: S2 over mamba2-130m's chunk states of a 2048-token
+#: prompt [B, nc, H, N, hd], S3 over its 8 serve slots' states [B, H, N, hd]
+S2_SHAPE = (1, 16, 24, 128, 64)
+S3_SHAPE = (8, 24, 128, 64)
+#: 15a's smoke shapes: S2 at nc = 1, ragged N * hd (its 4-byte route), odd
+#: chunk counts; S3 at the smoke head dims and a head dim of 256
+S2_SMOKE = [(1, 1, 24, 128, 64), (2, 3, 5, 7, 5), (3, 2, 8, 32, 64),
+            (2, 17, 4, 16, 16)]
+S3_SMOKE = [(3, 8, 32, 64), (2, 4, 16, 16), (1, 2, 5, 256)]
+#: 15b: launch/serve.py's runs, (requests, prompt length, generated tokens):
+#: examples/serve_e2e.py's shape, then 2048-token prompts (S2 at nc = 16)
+MAMBA_LAUNCH = [(8, 32, 16), (8, 2048, 64)]
+#: 15c: mamba2-130m behind serve_pipeline, as 14b-14e
+SSD_SERVE = {"15c": ("mamba2-130m", 1024, (128, 513))}
+#: 15d: whisper-large-v3 at full width, (batch, prompt tokens, decode steps)
+WHISPER_RUN = (4, 16, 32)
+#: 15e: the stacked layout's families (tests/test_models.py's)
+STACKED_FAMILIES = {
+    "dense_gqa_bias": dict(
+        name="t", arch_type="dense", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab=97, qkv_bias=True, layer_pattern="LG",
+        window=8, dtype="float32"),
+    "mla_moe_shared": dict(
+        name="t", arch_type="moe", n_layers=3, d_model=64, n_heads=4,
+        n_kv_heads=4, d_ff=128, vocab=97, mla=True, kv_lora_rank=32,
+        q_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
+        n_experts=4, top_k=2, n_shared_experts=1, d_ff_expert=32,
+        first_dense=1, capacity_factor=2.0, dtype="float32"),
+    "hybrid_rglru": dict(
+        name="t", arch_type="hybrid", n_layers=3, d_model=64, n_heads=4,
+        n_kv_heads=1, d_ff=128, vocab=97, layer_pattern="RRL", window=8,
+        lru_width=64, dtype="float32"),
+    "ssm_mamba2": dict(
+        name="t", arch_type="ssm", n_layers=2, d_model=64, n_heads=0,
+        n_kv_heads=0, d_ff=0, vocab=97, layer_pattern="S", ssm_state=16,
+        ssm_head_dim=16, ssm_chunk=8, dtype="float32"),
+}
+
+
+def _ssd_layers(cfg):
+    return sum(cfg.kind(i) == "S" for i in range(cfg.n_layers))
+
+
+def _s2_inputs(g, shape, h0=False):
+    import torch
+    b, nc, h, n, hd = shape
+    decay = torch.rand((b, nc, h), generator=g, device="cuda") * 0.8 + 0.2
+    states = torch.randn(shape, generator=g, device="cuda")
+    return decay, states, (torch.randn((b, h, n, hd), generator=g,
+                                       device="cuda") if h0 else None)
+
+
+def _s3_inputs(g, shape, dtype):
+    """S3's arguments as the decode step passes them: B, C and x column
+    slices of one conv-output row [B, H * hd + 2N] in the model's dtype."""
+    import torch
+    b, h, n, hd = shape
+    d_inner = h * hd
+    row = torch.randn((b, 1, d_inner + 2 * n), generator=g,
+                      device="cuda").to(dtype)[:, 0]
+    return dict(h=torch.randn(shape, generator=g, device="cuda"),
+                dt=torch.rand((b, h), generator=g, device="cuda") * 2 + 0.01,
+                A=-(torch.rand((h,), generator=g, device="cuda") * 1.5 + 0.5),
+                B=row[:, d_inner:d_inner + n], C=row[:, d_inner + n:],
+                x=row[:, :d_inner],
+                D=torch.randn((h,), generator=g, device="cuda"))
+
+
+def _phase_ssd_kernels(seed, ptxas):
+    """15a: S2 bitwise and S3 within FP32_TOL of their plain versions on the
+    card (smoke shapes, h0 given and absent, f32 and bf16 strided views,
+    an active mask, a row alone vs in a batch, a view with another element
+    stride refused), then both timed at mamba2-130m's shapes beside their
+    byte bounds.  No single PyTorch call computes either, so neither has a
+    library time."""
+    import torch
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    g = torch.Generator(device="cuda").manual_seed(seed + 150)
+    n = 0
+    for shape in S2_SMOKE + [S2_SHAPE]:
+        for h0 in (False, True):
+            decay, states, init = _s2_inputs(g, shape, h0)
+            got = ss.ssd_state_scan(decay, states, init)
+            want = ss.ssd_state_scan_plain(decay, states, init)
+            same_bits(got[0], want[0], f"S2 h_starts {shape} h0={h0}")
+            same_bits(got[1], want[1], f"S2 h_final {shape} h0={h0}")
+            n += 1
+    decay, states, _ = _s2_inputs(g, (3,) + S2_SHAPE[1:])
+    alone = ss.ssd_state_scan(decay[1:2].contiguous(),
+                              states[1:2].contiguous())
+    batch = ss.ssd_state_scan(decay, states)
+    same_bits(alone[0], batch[0][1:2], "S2 row alone vs in a batch of 3")
+    worst = 0.0
+    for shape in S3_SMOKE + [S3_SHAPE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = _s3_inputs(g, shape, dtype)
+            active = torch.rand((shape[0],), generator=g, device="cuda") < 0.7
+            for act in (None, active):
+                hk, yk = sd.ssd_decode_step(**a, active=act)
+                hp, yp = sd.ssd_decode_step_plain(**a, active=act)
+                for got, want, what in ((hk, hp, "h'"), (yk, yp, "y")):
+                    ex, tol = _excess(got, want)
+                    check(ex <= tol, f"S3 {what} {shape} {dtype}: exceeds "
+                                     f"atol = rtol = {FP32_TOL:g} by {ex}")
+                    worst = max(worst, (got - want).abs().max().item())
+                if act is not None:
+                    same_bits(hk[~act], a["h"][~act], "S3 inactive rows")
+                n += 1
+    a = _s3_inputs(g, S3_SHAPE, torch.bfloat16)
+    hb, yb = sd.ssd_decode_step(**a)
+    one = {k: v if k in ("A", "D") else v[3:4] for k, v in a.items()}
+    h1, y1 = sd.ssd_decode_step(**one)
+    same_bits(h1, hb[3:4], "S3 h' of a row alone vs in a batch of 8")
+    same_bits(y1, yb[3:4], "S3 y of a row alone vs in a batch of 8")
+    wide = torch.zeros((S3_SHAPE[0], 2 * S3_SHAPE[2]), dtype=torch.bfloat16,
+                       device="cuda")
+    try:
+        sd.ssd_decode_step(**{**a, "B": wide[:, ::2]})
+        check(False, "S3 took a view with element stride 2")
+    except ValueError:
+        pass
+
+    rows = {}
+    decay, states, _ = _s2_inputs(g, S2_SHAPE)
+    b, nc, h, nn, hd = S2_SHAPE
+    nbytes = 2 * states.numel() * 4 + decay.numel() * 4 + b * h * nn * hd * 4
+    rows["S2"] = dict(
+        shape=list(S2_SHAPE), max_abs_err=0.0, bitwise=True,
+        ms=cuda_ms(lambda: ss.ssd_state_scan(decay, states)),
+        plain_ms=cuda_ms(lambda: ss.ssd_state_scan_plain(decay, states),
+                         iters=5, warmup=1),
+        library_ms=None, nbytes=nbytes,
+        ptxas=_ptxas_regs(ptxas, "ssd_scan", "ssd_state_scan_kernel",
+                          "float4"),
+        **_bound(nbytes, 2 * states.numel(), FP32_FLOPS))
+    a = _s3_inputs(g, S3_SHAPE, torch.bfloat16)
+    hk, yk = sd.ssd_decode_step(**a)
+    hp, yp = sd.ssd_decode_step_plain(**a)
+    b, h, nn, hd = S3_SHAPE
+    nbytes = (2 * a["h"].numel() * 4 + yk.numel() * 4 + a["dt"].numel() * 4
+              + b * (2 * nn + h * hd) * 2 + 2 * h * 4)
+    rows["S3"] = dict(
+        shape=list(S3_SHAPE), dtype="bfloat16",
+        max_abs_err=max((hk - hp).abs().max().item(),
+                        (yk - yp).abs().max().item()),
+        ms=cuda_ms(lambda: sd.ssd_decode_step(**a)),
+        plain_ms=cuda_ms(lambda: sd.ssd_decode_step_plain(**a)),
+        library_ms=None, nbytes=nbytes,
+        ptxas=_ptxas_regs(ptxas, "ssd_decode", "ssd_decode_kernel", "bf16"),
+        **_bound(nbytes, 6 * a["h"].numel(), FP32_FLOPS))
+    for name, r in rows.items():
+        print(f"phase 15a {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.0%} of the byte bound "
+              f"{r['bound_ms']:.5f} ms, {r['nbytes']} B), plain "
+              f"{r['plain_ms']:.4f} ms, max |err| {r['max_abs_err']:.2e}; "
+              f"{r['ptxas']}")
+    print(f"phase 15a: {n} smoke cases, S2 bitwise its plain loop and S3 "
+          f"within atol = rtol = {FP32_TOL:g} (max |err| {worst:.2e}), "
+          f"rows alone == in a batch bitwise, inactive rows kept, a view "
+          f"with element stride 2 refused")
+    return rows
+
+
+def _phase_mamba_launch(seed):
+    """15b: ``launch/serve.py``'s ``LMQueryServer`` with the full
+    mamba2-130m, edge clients as its ``main`` makes them, at
+    MAMBA_LAUNCH's shapes: the graphed server's answers bitwise its
+    ``jit=False`` twin's, S2 once per SSD layer for the batch's prefill and
+    S3 once per SSD layer per decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Broker
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.device import make_generator
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    _free_card()
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, torch.device("cuda")), "cuda")
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in tree_flatten(params)[0]) / 1e9
+    n_ssd = _ssd_layers(cfg)
+    rows, launches = [], {"ssd_state_scan": 0, "ssd_decode": 0}
+    for requests, plen, gen in MAMBA_LAUNCH:
+        answers, walls = {}, {}
+        for jit in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            broker = Broker()
+            srv = serve.LMQueryServer(model, params, broker, "lm/generate",
+                                      max_seq=plen + gen + 1, gen=gen,
+                                      jit=jit)
+            t0 = time.perf_counter()
+            prompts, got = serve.request_all(srv, broker, cfg.vocab,
+                                             requests, plen)
+            torch.cuda.synchronize()
+            walls[jit] = time.perf_counter() - t0
+            answers[jit] = torch.stack(got).cpu()
+            counts = {k: v for k, v in _launch_counts().items()
+                      if k in launches}
+            want = {"ssd_state_scan": n_ssd, "ssd_decode": n_ssd * (gen - 1)}
+            check(counts == want, f"15b {plen}x{gen} jit={jit}: S2/S3 "
+                                  f"launches {counts}, expected {want}")
+            if jit:
+                graphed = srv
+                for k in launches:
+                    launches[k] += counts[k]
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(torch.equal(answers[True], answers[False]),
+              f"15b {plen}x{gen}: graphed answers != jit=False twin's")
+        a = answers[True]
+        check(tuple(a.shape) == (requests, gen) and
+              bool(((a >= 0) & (a < cfg.vocab)).all()),
+              f"15b answers {tuple(a.shape)} outside [0, vocab)")
+        batch = {"tokens": torch.as_tensor(np.stack(prompts)).long().cuda()}
+        prefill_ms = cuda_ms(lambda: graphed._prefill(params, batch),
+                             iters=3, warmup=1)
+        logits, cache = graphed._prefill(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        decode_ms = cuda_ms(lambda: graphed._decode(params, cache, tok),
+                            iters=20, warmup=3)
+        rows.append(dict(requests=requests, prompt_len=plen, gen=gen,
+                         graphed_wall_s=walls[True],
+                         eager_wall_s=walls[False],
+                         prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                         tokens_per_s=requests * gen / walls[True],
+                         peak_gib=peak))
+        print(f"phase 15b launch/serve.py mamba2-130m (24 SSD layers, bf16, "
+              f"{weight_gb:.3f} GB of weights) {requests} requests x {plen} "
+              f"prompt x {gen} tokens: answers bitwise the jit=False twin's; "
+              f"wall {walls[True]:.3f} s graphed (first call eager, second "
+              f"captured) / {walls[False]:.3f} s eager, "
+              f"{rows[-1]['tokens_per_s']:.1f} tokens/s; prefill "
+              f"{prefill_ms:.2f} ms, graphed decode {decode_ms:.3f} ms/step "
+              f"(device, back to back); peak {peak:.2f} GiB; S2 {n_ssd} "
+              f"launches a prefill, S3 {n_ssd} a step")
+        del cache, logits, graphed, srv
+    del params
+    _free_card()
+    return dict(rows=rows, launches=launches, weight_gb=weight_gb)
+
+
+def _phase_whisper(seed):
+    """15d: whisper-large-v3 at full width (32 + 32 layers, bf16, seeded
+    random weights and frames) through ``Model.prefill`` and
+    ``Model.decode_step``: finite logits of the right shape, per-row
+    positions, tokens in the vocabulary; prefill ms, decode ms a step,
+    weight GB and peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.device import make_generator
+    from repro_torch.models import build_model
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-large-v3")
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    g = make_generator(seed + 151, dev)
+    params = model.init(make_generator(seed, dev), dev)
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in tree_flatten(params)[0]) / 1e9
+    b, s, steps = WHISPER_RUN
+    batch = {"frames": torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                   generator=g, device=dev).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device=dev)}
+    max_seq = s + steps + 2             # a warm-up step, then ``steps``
+    model.prefill(params, batch, max_seq)           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_seq)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(logits.shape) == (b, cfg.vocab) and
+          bool(torch.isfinite(logits).all()), "15d prefill logits")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits, cache = model.decode_step(params, tok, cache)      # warm
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    check(bool(torch.isfinite(logits).all()), "15d decode logits")
+    check(cache["pos"].tolist() == [s + steps + 1] * b,
+          f"15d positions {cache['pos'].tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 15d whisper-large-v3 (32 + 32 layers, d 1280, bf16, "
+          f"{weight_gb:.2f} GB of weights) {b} x {cfg.enc_seq} frames, "
+          f"{s}-token prompts: prefill {prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.2f} ms/step (host, eager, over {steps} steps after a "
+          f"warm one), peak "
+          f"{peak:.2f} GiB")
+    del params, cache, logits
+    _free_card()
+    return dict(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                weight_gb=weight_gb, peak_gib=peak, batch=b, prompt_len=s,
+                steps=steps)
+
+
+def _phase_ssd_cpu(seed):
+    """15e: fp32 on the card == the port's CPU path (logits within
+    ZOO_CPU_TOL of the largest): mamba2-smoke and whisper's smoke config,
+    mamba2-130m at 2 layers and whisper at 2 + 2 layers at full width, and
+    the stacked layout of four families.  Then each case with TF32 on in
+    the card's matmuls, a control that must read above the limit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models import ModelConfig
+    _free_card()
+    rng = np.random.default_rng(seed + 152)
+    f32 = dict(dtype="float32")
+    cases = [
+        ("mamba2-smoke", ms.SERVE_MODELS["mamba2-smoke"](), 40, 4, False),
+        ("whisper smoke", get_config("whisper-large-v3").smoke(), 12, 4,
+         False),
+        ("mamba2-130m fp32 2 layers", dataclasses.replace(
+            get_config("mamba2-130m"), n_layers=2, **f32), 300, 3, False),
+        ("whisper-large-v3 fp32 2 + 2 layers", dataclasses.replace(
+            get_config("whisper-large-v3"), n_layers=2, n_enc_layers=2,
+            **f32), 16, 3, False)]
+    cases += [(f"{k} stacked", ModelConfig(**kw), 16, 3, True)
+              for k, kw in STACKED_FAMILIES.items()]
+    batches = []
+    for name, cfg, seq, steps, _ in cases:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (2, seq)).astype(np.int32))}
+        if cfg.enc_dec:
+            batch["frames"] = torch.as_tensor(rng.standard_normal(
+                (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        batches.append(batch)
+    _reset_launches()
+    out = {}
+    for (name, cfg, _, steps, stacked), batch in zip(cases, batches):
+        out[name] = _zoo_vs_cpu(name, cfg, seed, batch, steps, ZOO_CPU_TOL,
+                                stacked=stacked)
+        _free_card()
+    launches = {"ssd_state_scan": ss.LAUNCHES["ssd_state_scan"],
+                "ssd_decode": sd.LAUNCHES["ssd_decode"]}
+    check(all(launches.values()), f"15e: S2/S3 never ran: {launches}")
+    control = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for (name, cfg, _, steps, stacked), batch in zip(cases, batches):
+            control[name] = _zoo_vs_cpu(name, cfg, seed, batch, steps, None,
+                                        stacked=stacked)
+            _free_card()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"phase 15e fp32 card == CPU (logits within {ZOO_CPU_TOL:g} of "
+          f"the largest; sound / TF32 control): " +
+          ", ".join(f"{k} {v:.1e} / {control[k]:.1e}"
+                    for k, v in out.items()) + f"; S2/S3 launches {launches}")
+    for name, v in control.items():
+        check(v > ZOO_CPU_TOL, f"15e {name}: the TF32 control reads {v:.2e},"
+                               f" inside the limit {ZOO_CPU_TOL:g}")
+    return dict(worst=out, tf32_control=control, launches=launches)
+
+
+def phase_ssd(seed, ptxas):
+    """Phase 15: Mamba-2, launch/serve.py, whisper and the stacked layout
+    (module docstring)."""
+    rows = {}
+    t0 = time.perf_counter()
+    rows["15a"] = _phase_ssd_kernels(seed, ptxas)
+    print(f"phase 15a wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["15b"] = _phase_mamba_launch(seed)
+    print(f"phase 15b wall {time.perf_counter() - t0:.1f} s")
+    rows["15c"] = _phase_zoo_serve("15c", seed)
+    print(f"phase 15c wall {rows['15c']['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    rows["15d"] = _phase_whisper(seed)
+    print(f"phase 15d wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["15e"] = _phase_ssd_cpu(seed)
+    print(f"phase 15e wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _to_numpy(tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -4826,6 +5273,8 @@ def main(argv=None):
     wall("13")
     zoo = phase_zoo(args.seed, ptxas)
     wall("14")
+    ssd = phase_ssd(args.seed, ptxas)
+    wall("15")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -4847,6 +5296,13 @@ def main(argv=None):
     ]
     rows.append(("rglru_scan", "rglru_scan.cu",
                  "src/repro/models/rglru.py:85", scan, rglru["launches"]))
+    # S2 and S3 on the main path of phase 15: launch/serve.py (15b)
+    rows.append(("ssd_state_scan", "ssd_scan.cu",
+                 "src/repro/models/ssm.py:123", ssd["15a"]["S2"],
+                 ssd["15b"]["launches"]))
+    rows.append(("ssd_decode", "ssd_decode.cu",
+                 "src/repro/models/ssm.py:181", ssd["15a"]["S3"],
+                 ssd["15b"]["launches"]))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
@@ -4854,6 +5310,17 @@ def main(argv=None):
                for name, src, where, row, launches in rows]
     kernels[6]["note"] = ("new kernel, not a TPU port: takes the place of "
                           "jax.lax.associative_scan")
+    kernels[7]["note"] = ("new kernel, not a TPU port: takes the place of "
+                          "the jax.lax.scan over chunks in _ssd_scan "
+                          "(src/repro/models/ssm.py:115-123)")
+    kernels[8]["note"] = ("new kernel, not a TPU port: fuses ssm_decode's "
+                          "state update and readout "
+                          "(src/repro/models/ssm.py:181-190)")
+    for row, key in ((kernels[7], "S2"), (kernels[8], "S3")):
+        row["ptxas"] = ssd["15a"][key]["ptxas"]
+        row["shape"] = ssd["15a"][key]["shape"]
+        row["launches_phase15c"] = ssd["15c"]["launches"][row["name"]]
+        row["launches_phase15e"] = ssd["15e"]["launches"][row["name"]]
     # K3: the cold-L2 time, one stacked encode, and the passes it absorbed
     for k in ("cold_ms", "stacked_ms", "removed_glue_ms"):
         kernels[2][k] = codec_table["sparse_enc"][k]
@@ -4905,7 +5372,7 @@ def main(argv=None):
                                    "graphs": graphs,
                                    "failover": failover,
                                    "staged": staged, "qos": qos,
-                                   "lossy": lossy, "zoo": zoo},
+                                   "lossy": lossy, "zoo": zoo, "ssd": ssd},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

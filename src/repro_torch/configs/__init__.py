@@ -2,9 +2,8 @@
 
 A copy of the JAX package's ``src/repro/configs`` (the port imports nothing
 of it): each module carries the published spec (cited in its docstring)
-and a reduced ``smoke()`` variant for CPU tests.  Every config loads;
-building mamba2-130m raises naming ROADMAP M12b and whisper-large-v3
-naming M12c.
+and a reduced ``smoke()`` variant for CPU tests.  Every config builds,
+prefills and decodes in the port.
 """
 from __future__ import annotations
 

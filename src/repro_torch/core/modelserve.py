@@ -19,10 +19,11 @@ Differences from the JAX package, same results:
   prefilled cache (kept on the device since its prefill) is copied into its
   slot rows with ``index_copy_``, leaf by leaf (every layer's cache has the
   same keys in the same order wherever it is made: ``{"k", "v"}`` for an
-  attention layer, ``{"h", "conv"}`` for a recurrent one), as are its
+  attention layer, ``{"h", "conv"}`` for a recurrent or SSD one), as are its
   token, budget and active lanes (:meth:`ModelServeElement.admit`), and
   each decode step writes every slot's new K/V row at that slot's own
-  position and advances every slot's recurrent state.  JAX assembles
+  position and advances every slot's RG-LRU state (an SSD layer leaves
+  inactive slots' state as it was).  JAX assembles
   admit bundles on the host and selects ``where(mask, new, old)`` over the
   whole cache.  The batcher admits before the tick, outside the cached
   executable, so the captured tick has one shape.
@@ -393,7 +394,8 @@ class ModelServeStageElement(ModelServeElement):
             params, self.cfg, self.stage, self.n_stages, xs, scr,
             advance=active.to(torch.int32), per_row=True)
         cache["pos"].copy_(scr["pos"][row])
-        for d, s in zip(src, dst):
+        # re-read the scratch's leaves: an SSD layer rebinds its state
+        for d, s in zip(src, tree_flatten(scr["layers"])[0]):
             d.copy_(s[row])
         return self._hop_out(out, active)[row], cache
 

@@ -33,6 +33,8 @@ SOURCES: Dict[str, str] = {
     "sparse_enc": "sparse_enc.cu",
     "sparse_dec": "sparse_dec.cu",
     "rglru_scan": "rglru_scan.cu",
+    "ssd_scan": "ssd_scan.cu",
+    "ssd_decode": "ssd_decode.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

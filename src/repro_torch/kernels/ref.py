@@ -10,6 +10,11 @@
 * The plain version of the RG-LRU scan kernel (``rglru_scan_plain``), a
   step-by-step loop; the kernel is new in the port (the JAX package runs
   ``jax.lax.associative_scan``).
+* The plain versions of the two SSD kernels of Mamba-2, also new in the
+  port: ``ssd_state_scan_plain`` (the inter-chunk state recurrence, an
+  ordered loop over chunks; the JAX package runs ``jax.lax.scan``) and
+  ``ssd_decode_step_plain`` (one token's state update and readout, the
+  reference's einsums in torch).
 * Full-softmax attention (``attn_ref``, ``attn_decode_ref``): they
   materialize the whole score tensor in f32 — the thing the flash kernels
   exist to avoid — and serve as the oracles the flash kernels and their
@@ -164,3 +169,43 @@ def rglru_scan_plain(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
         state = a[:, t] * state + bx[:, t]
         h[:, t] = state
     return h
+
+
+def ssd_state_scan_plain(decay: torch.Tensor, states: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None):
+    """The SSD inter-chunk recurrence h_{c+1} = h_c * decay_c + S_c, in
+    chunk order: decay f32 [B, nc, H], chunk states S_c f32 [B, nc, H, N,
+    hd], h0 f32 [B, H, N, hd] (zeros if None) -> (h_starts f32 [B, nc, H,
+    N, hd], the state entering each chunk; h_final f32 [B, H, N, hd]).  One
+    multiply then one add per step: the kernel's arithmetic."""
+    state = torch.zeros_like(states[:, 0]) if h0 is None else h0
+    h_starts = torch.empty_like(states)
+    for c in range(states.shape[1]):
+        h_starts[:, c] = state
+        state = state * decay[:, c, :, None, None] + states[:, c]
+    return h_starts, state
+
+
+def ssd_decode_step_plain(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, x: torch.Tensor,
+                          D: torch.Tensor,
+                          active: Optional[torch.Tensor] = None):
+    """One token of the SSD recurrence for every row: h f32 [B, H, N, hd];
+    dt f32 [B, H] (softplus'd); A, D f32 [H] (A negative); B, C [B, N] and
+    x [B, H * hd] in f32 or bf16 (widened here) ->
+    (h' f32 [B, H, N, hd], y f32 [B, H, hd]) with
+
+        h' = h * exp(dt A) + (dt B) x,   y = C . h' + D x.
+
+    ``active`` (bool [B]): rows where it is False keep h (h' = h).  h' is
+    a fresh tensor."""
+    b, nh, n, hd = h.shape
+    xh = x.float().reshape(b, nh, hd)
+    dec = torch.exp(dt * A[None, :])                              # [B, H]
+    upd = (dt[:, :, None] * B.float()[:, None, :])[..., None] * \
+        xh[:, :, None, :]                                         # [B,H,N,hd]
+    hnew = h * dec[:, :, None, None] + upd
+    if active is not None:
+        hnew = torch.where(active[:, None, None, None], hnew, h)
+    y = torch.einsum("bn,bhnd->bhd", C.float(), hnew)
+    return hnew, y + D[None, :, None] * xh

@@ -22,8 +22,9 @@ How the system starts::
     cli.sink_log["res"]     # one StreamBuffer of int32 tokens per answer
 
 The decoder zoo serves the same way: ``model="granite-20b-flash"``,
-``"gemma3-4b-flash"``, ``"mixtral-8x22b-8l"`` or ``"deepseek-v2-236b-4l"``
-on the card, a ``"<family>-smoke"`` preset (``ZOO_PRESETS``) anywhere.
+``"gemma3-4b-flash"``, ``"mixtral-8x22b-8l"``, ``"deepseek-v2-236b-4l"``
+or ``"mamba2-130m"`` on the card, a ``"<family>-smoke"`` preset
+(``ZOO_PRESETS``) anywhere.
 
 Staged serving replaces the hub with one Device per stage pipeline
 (``staged_serve_pipelines(model="stablelm-smoke-4l", n_stages=2)``), each
@@ -124,6 +125,10 @@ ZOO_PRESETS = {
     # the int8 KV cache (decode attends over the dequantised cache)
     "granite-int8kv-smoke": _zoo_smoke("granite-20b", kv_cache_quant=True,
                                        use_flash_attn=True),
+    # Mamba-2 whole (24 SSD layers, bf16, no attention): the SSD kernels
+    # S2 (prefill) and S3 (decode), no flash kernel
+    "mamba2-130m": _zoo("mamba2-130m"),
+    "mamba2-smoke": _zoo_smoke("mamba2-130m"),
 }
 for _key, _fn in ZOO_PRESETS.items():
     register_serve_model(_key, _fn)

@@ -1,9 +1,8 @@
 """ModelConfig — one dataclass drives every assigned architecture.
 
 A copy of ``src/repro/models/config.py`` (the port imports nothing of the
-JAX package).  The port's model code implements layer kinds G, L and R
-with MoE, MLA and the int8 KV cache; kind S raises ``NotImplementedError``
-(ROADMAP M12b), and so does an encoder-decoder (M12c).
+JAX package).  The port's model code implements every layer kind (G, L,
+R, S) with MoE, MLA and the int8 KV cache, and the encoder-decoder.
 
 ``layer_pattern`` is a cycled string of per-layer mixer kinds:
   G = global attention, L = local (sliding-window) attention,

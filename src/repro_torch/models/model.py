@@ -10,10 +10,11 @@ Port of ``src/repro/models/model.py``::
     init_cache(batch, max_seq, device) -> cache
     input_specs(mode, batch, seq) -> {name: TensorSpec}
 
-Batches are dicts of tensors: ``tokens`` always, ``patches`` for a VLM.
-There is no backward here (ROADMAP M13).  Building an encoder-decoder
-(whisper) raises naming ROADMAP M12c, a Mamba-2 ('S') pattern M12b, and
-so do the stacked (scanned) layout's methods (M12c).
+Batches are dicts of tensors: ``tokens`` always, ``patches`` for a VLM,
+``frames`` for the encoder-decoder (whisper).  There is no backward here
+(ROADMAP M13).  The ``*_stacked`` methods run the stacked layout of
+``transformer.py`` (the JAX package's scanned one); an encoder-decoder has
+none and takes its list-layout methods, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..device import DeviceLike
+from . import encdec as ED
+from . import layers as L
 from . import transformer as T
 from . import vlm as V
 from .config import ModelConfig
@@ -47,23 +50,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
-def _stacked():
-    raise NotImplementedError("the stacked (scanned) layout: ROADMAP M12c")
-
-
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder (whisper) is ROADMAP M12c")
-        if "S" in cfg.layer_pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba-2 SSD layers ('S') are ROADMAP M12b")
         self.cfg = cfg
 
     # -- params -------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None,
              device: DeviceLike = None) -> Dict:
+        if self.cfg.enc_dec:
+            return ED.init_params(self.cfg, generator, device)
         if self.cfg.frontend == "vision":
             return V.init_params(self.cfg, generator, device)
         return T.init_params(self.cfg, generator, device)
@@ -71,14 +66,15 @@ class Model:
     # -- train (forward only) -----------------------------------------------
     def train_logits(self, params, batch) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
+        if self.cfg.enc_dec:
+            return ED.train(params, self.cfg, batch["frames"],
+                            batch["tokens"])
         if self.cfg.frontend == "vision":
             return V.train(params, self.cfg, batch["patches"],
                            batch["tokens"])
         return T.lm_train(params, self.cfg, batch["tokens"])
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        logits, aux = self.train_logits(params, batch)
-        tokens = batch["tokens"]
+    def _loss(self, logits, aux, tokens) -> Tuple[torch.Tensor, Dict]:
         if self.cfg.frontend == "vision":
             # text token i sits at P + i and is predicted by P + i - 1
             p_len = logits.shape[1] - tokens.shape[1]
@@ -87,42 +83,76 @@ class Model:
             ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
         return ce + aux, {"ce": ce, "aux": aux}
 
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        return self._loss(*self.train_logits(params, batch), batch["tokens"])
+
     # -- serve --------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
                    device: DeviceLike = None) -> Dict:
+        if self.cfg.enc_dec:
+            return ED.cache_init(self.cfg, batch, max_seq, device)
         return T.cache_init(self.cfg, batch, max_seq, device)
 
     def prefill(self, params, batch, max_seq: int):
+        if self.cfg.enc_dec:
+            return ED.prefill(params, self.cfg, batch["frames"],
+                              batch["tokens"], max_seq)
         if self.cfg.frontend == "vision":
             return V.prefill(params, self.cfg, batch["patches"],
                              batch["tokens"], max_seq)
         return T.lm_prefill(params, self.cfg, batch["tokens"], max_seq)
 
     def decode_step(self, params, token, cache):
+        if self.cfg.enc_dec:
+            return ED.decode_step(params, self.cfg, token, cache)
         return T.lm_decode(params, self.cfg, token, cache)
 
-    # -- the stacked layout waits for M12c ----------------------------------
+    # -- the stacked layout (the JAX package's scanned one) -------------------
     @property
     def supports_stacked(self) -> bool:
-        _stacked()
+        return not self.cfg.enc_dec
 
-    def init_stacked(self, *a, **k):
-        _stacked()
+    def init_stacked(self, generator: Optional[torch.Generator] = None,
+                     device: DeviceLike = None) -> Dict:
+        return self.stack_params(self.init(generator, device))
 
-    def stack_params(self, *a, **k):
-        _stacked()
+    def stack_params(self, params) -> Dict:
+        if not self.supports_stacked:
+            return params
+        return T.stack_params(self.cfg, params)
 
-    def loss_stacked(self, *a, **k):
-        _stacked()
+    def loss_stacked(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.cfg
+        if cfg.enc_dec:
+            return self.loss(params, batch)
+        if cfg.frontend == "vision":
+            h, aux = T.backbone_train_stacked(
+                params, cfg, V._embed(params, cfg, batch["patches"],
+                                      batch["tokens"]))
+            logits = L.unembed(params["embed"], cfg, h)
+        else:
+            logits, aux = T.lm_train_stacked(params, cfg, batch["tokens"])
+        return self._loss(logits, aux, batch["tokens"])
 
-    def init_cache_stacked(self, *a, **k):
-        _stacked()
+    def init_cache_stacked(self, batch: int, max_seq: int,
+                           device: DeviceLike = None) -> Dict:
+        if self.cfg.enc_dec:
+            return self.init_cache(batch, max_seq, device)
+        return T.cache_init_stacked(self.cfg, batch, max_seq, device)
 
-    def prefill_stacked(self, *a, **k):
-        _stacked()
+    def prefill_stacked(self, params, batch, max_seq: int):
+        cfg = self.cfg
+        if cfg.enc_dec:
+            return self.prefill(params, batch, max_seq)
+        if cfg.frontend == "vision":
+            x = V._embed(params, cfg, batch["patches"], batch["tokens"])
+            return T.lm_prefill_stacked(params, cfg, None, max_seq, x=x)
+        return T.lm_prefill_stacked(params, cfg, batch["tokens"], max_seq)
 
-    def decode_step_stacked(self, *a, **k):
-        _stacked()
+    def decode_step_stacked(self, params, token, cache):
+        if self.cfg.enc_dec:
+            return self.decode_step(params, token, cache)
+        return T.lm_decode_stacked(params, self.cfg, token, cache)
 
     # -- shape plumbing -----------------------------------------------------
     def clamp_seq(self, seq: int) -> int:
@@ -137,6 +167,10 @@ class Model:
         if mode == "decode":
             return {"token": TensorSpec((batch,), torch.int32)}
         specs = {"tokens": TensorSpec((batch, seq), torch.int32)}
+        if self.cfg.enc_dec:
+            specs["frames"] = TensorSpec(
+                (batch, self.cfg.enc_seq, self.cfg.d_model),
+                torch_dtype(self.cfg.dtype))
         if self.cfg.frontend == "vision":
             specs["patches"] = TensorSpec(
                 (batch, self.cfg.n_patches, self.cfg.d_model),
@@ -173,6 +207,11 @@ class Model:
             if kind == "R":
                 w = cfg.lru_width or d
                 total += d * w * 2 + w * w * 2 + w * d
+            elif kind == "S":
+                d_inner = cfg.ssm_expand * d
+                total += d * (2 * d_inner + 2 * cfg.ssm_state +
+                              d_inner // cfg.ssm_head_dim) + d_inner * d
+                continue                # an SSD block has no MLP
             else:
                 total += attn
             if cfg.is_moe_layer(i):
@@ -181,6 +220,9 @@ class Model:
                 total += d * cfg.n_experts  # router
             else:
                 total += glu * d * cfg.d_ff
+        if cfg.enc_dec:
+            total += cfg.n_enc_layers * (attn + glu * d * cfg.d_ff)
+            total += cfg.n_layers * 4 * d * cfg.n_heads * hd  # cross-attn
         return total
 
 

@@ -1,0 +1,198 @@
+"""Mamba-2 SSD block of the port (state-space duality, arXiv:2405.21060).
+
+Port of ``src/repro/models/ssm.py``.  Chunked SSD: the sequence is split
+into chunks of length Q; within a chunk the dual (attention-like)
+quadratic form runs as matrix products, between chunks a linear state
+recurrence runs (the port's kernel S2, ``kernels/ssd_scan.py``; the JAX
+package uses ``jax.lax.scan``); at decode it is one fused update per token
+(kernel S3, ``kernels/ssd_decode.py``).
+
+    h_t = exp(A·dt_t) h_{t-1} + dt_t · B_t ⊗ x_t        (state [H, N, hd])
+    y_t = C_t · h_t + D ⊙ x_t
+
+The decode state is ``{"h": f32 [B, H, N, hd], "conv": [B, K-1, d_inner +
+2N]}`` (``conv`` in ``cfg.dtype``).  :func:`ssm_decode` returns h' in a
+fresh tensor and rebinds the cache's ``h`` leaf to it (a CUDA graph's
+write-back copies it into the caller's leaf); ``conv`` is updated in place,
+as the other layers update their caches.  Rows where ``active`` is False
+keep both.  :func:`ssm_prefill` returns the output and the decode cache
+from one SSD computation (the JAX package's ``_ssm_prefill_cache``
+recomputes the same state).
+
+The port always runs the single-device path.  The JAX package's
+sequence-parallel variants (``ssm_train_seq_parallel``,
+``_ssm_prefill_seq_parallel``: shard_map code, ROADMAP M11) run only under
+a mesh with a ``model`` axis; without one it takes this same path, even
+for a config with ``ssm_seq_parallel=True`` such as mamba2-130m.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_decode import ssd_decode_step
+from ..kernels.ssd_scan import ssd_state_scan
+from .config import ModelConfig
+from .layers import dense_init, torch_dtype
+
+
+def _dims(cfg: ModelConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def ssm_init(g: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    """Random weights with the JAX package's keys, shapes, scales and
+    dtypes (``A_log``, ``D`` and ``dt_bias`` f32, the rest ``cfg.dtype``);
+    in_proj packs [z (gate), x, B, C, dt] as in mamba2."""
+    d = cfg.d_model
+    d_inner, h, hd, n = _dims(cfg)
+    dt = torch_dtype(cfg.dtype)
+    conv = torch.randn((cfg.ssm_conv, d_inner + 2 * n), generator=g,
+                       device=device)
+    return {
+        "w_in": dense_init(g, d, 2 * d_inner + 2 * n + h, dt, device),
+        "conv": conv.mul_(0.1).to(dt),
+        "A_log": torch.zeros((h,), dtype=torch.float32, device=device),
+        "D": torch.ones((h,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=device),
+        "w_out": dense_init(g, d_inner, d, dt, device),
+    }
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    """-> (z, xbc, dt_raw) column views of in_proj's output."""
+    d_inner, h, hd, n = _dims(cfg)
+    return torch.split(proj, [d_inner, d_inner + 2 * n, h], dim=-1)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d of window K, then SiLU.  xbc [B, S, C]; w
+    [K, C]; ``prev`` [B, K-1, C] the carried state (zeros if None) ->
+    (out [B, S, C], the last K-1 inputs of ``[prev, xbc]``).  The taps are
+    summed in the reference's order, ((t0 + t1) + t2) + t3."""
+    k = w.shape[0]
+    pad = prev if prev is not None else xbc.new_zeros(
+        (xbc.shape[0], k - 1, xbc.shape[2]))
+    xp = torch.cat([pad, xbc], dim=1)                       # [B, S+K-1, C]
+    out = sum(xp[:, i:i + xbc.shape[1]] * w[i] for i in range(k))
+    return F.silu(out), xp[:, -(k - 1):]
+
+
+def _ssd_scan(cfg: ModelConfig, p: Dict, xh, B, C, dt,
+              h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan.  xh [B, S, H, hd]; B, C [B, S, N]; dt f32 [B, S, H]
+    (softplus'd) -> (y f32 [B, S, H, hd] with the D skip, final state f32
+    [B, H, N, hd]).  The chunk is ``q = min(ssm_chunk, S)``; S is padded to
+    a multiple of q with zero dt (decay 1, update 0: state and outputs
+    exact).  The JAX package also returns the running log-decay, which only
+    its sequence-parallel path reads."""
+    b, s, h, hd = xh.shape
+    n = B.shape[-1]
+    q = min(cfg.ssm_chunk, s)
+    pad = (-s) % q
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    s_orig, s = s, s + pad
+    nc = s // q
+    A = -torch.exp(p["A_log"])                              # [H], negative
+    dA = dt * A                                             # [B, S, H]
+    dA_c = dA.reshape(b, nc, q, h)
+    xh_c = xh.reshape(b, nc, q, h, hd).float()
+    B_c = B.reshape(b, nc, q, n).float()
+    C_c = C.reshape(b, nc, q, n).float()
+    dt_c = dt.reshape(b, nc, q, h)
+
+    cum = torch.cumsum(dA_c, dim=2)                         # [B, nc, q, H]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,nc,q,q,H]
+    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
+                    torch.zeros((), device=xh.device))
+
+    # intra-chunk (dual quadratic form): y_intra[i] = Σ_j L[i,j] (C_i·B_j)
+    # dt_j x_j
+    G = torch.einsum("bcin,bcjn->bcij", C_c, B_c)           # [B, nc, q, q]
+    M = G[..., None] * L * dt_c[:, :, None, :, :]           # [B,nc,q,q,H]
+    y_intra = torch.einsum("bcijh,bcjhd->bcihd", M, xh_c)
+
+    # chunk-final states: S_c = Σ_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dt_c           # [B, nc, q, H]
+    S_c = torch.einsum("bcjn,bcjhd->bchnd", B_c, xh_c * w[..., None])
+
+    # inter-chunk recurrence over chunk states (kernel S2)
+    chunk_decay = torch.exp(dA_c.sum(dim=2))                # [B, nc, H]
+    h_starts, h_final = ssd_state_scan(chunk_decay, S_c.contiguous(), h0)
+
+    # inter-chunk contribution: y_inter[i] = C_i · (decay_to_i * h_start)
+    y_inter = torch.einsum("bcin,bchnd->bcihd", C_c, h_starts) * \
+        torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(b, s, h, hd)
+    y = y + p["D"][None, None, :, None] * xh.float()
+    return y[:, :s_orig], h_final
+
+
+def _mixer_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  prev: Optional[torch.Tensor] = None):
+    """in_proj, the causal conv and dt -> (z, conv output xbc [B, S, C],
+    the new conv state, dt f32 [B, S, H])."""
+    proj = x @ p["w_in"]
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc, p["conv"], prev)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    return z, xbc, conv_state, dt
+
+
+def ssm_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Single-pass prefill: x [B, S, d] -> (y [B, S, d], the decode cache:
+    the final SSD state and the conv tail) from one SSD computation."""
+    b, s, _ = x.shape
+    d_inner, h, hd, n = _dims(cfg)
+    z, xbc, conv_state, dt = _mixer_inputs(p, cfg, x)
+    xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
+    y, h_final = _ssd_scan(cfg, p, xs.reshape(b, s, h, hd), B, C, dt)
+    y = (y.to(x.dtype).reshape(b, s, d_inner)) * F.silu(z)
+    return y @ p["w_out"], {"h": h_final, "conv": conv_state.contiguous()}
+
+
+def ssm_train(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return ssm_prefill(p, cfg, x)[0]
+
+
+def ssm_cache_init(cfg: ModelConfig, batch: int, device) -> Dict:
+    d_inner, h, hd, n = _dims(cfg)
+    return {"h": torch.zeros((batch, h, n, hd), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner + 2 * n),
+                                dtype=torch_dtype(cfg.dtype), device=device)}
+
+
+def ssm_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token for B rows: x [B, 1, d] -> y [B, 1, d].  The state update
+    and readout are kernel S3; the cache's ``h`` is rebound to the fresh
+    h', ``conv`` updated in place.  ``active`` (bool [B]): rows where it is
+    False keep their state."""
+    b = x.shape[0]
+    d_inner, h, hd, n = _dims(cfg)
+    z, xbc, conv_state, dt = _mixer_inputs(p, cfg, x, cache["conv"])
+    row = xbc[:, 0]                                         # [B, C]
+    hnew, y = ssd_decode_step(cache["h"], dt[:, 0], -torch.exp(p["A_log"]),
+                              row[:, d_inner:d_inner + n],
+                              row[:, d_inner + n:], row[:, :d_inner],
+                              p["D"], active)
+    if active is not None:
+        conv_state = torch.where(active[:, None, None], conv_state,
+                                 cache["conv"])
+    cache["conv"].copy_(conv_state)
+    cache["h"] = hnew
+    y = y.reshape(b, 1, d_inner).to(x.dtype) * F.silu(z)
+    return y @ p["w_out"]

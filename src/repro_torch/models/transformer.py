@@ -1,14 +1,23 @@
 """Decoder-only LM of the port: init, the weight bridge, the forward
 (train-mode) pass, prefill and decode.
 
-Port of ``src/repro/models/transformer.py`` for the list layout and the
-layer kinds ``G`` (global attention), ``L`` (sliding-window attention with
-a ring-buffer cache) and ``R`` (the RG-LRU recurrent block), with MLA
-attention (``cfg.mla``), MoE MLPs (``cfg.is_moe_layer``: the first
-``first_dense`` layers stay dense) and the int8 KV cache.  Kind ``S``
-(Mamba-2) raises ``NotImplementedError`` naming ROADMAP M12b; the stacked
-(scan) layout waits for M12c.  ``lm_train`` is forward only (no backward:
-ROADMAP M13).
+Port of ``src/repro/models/transformer.py`` for the layer kinds ``G``
+(global attention), ``L`` (sliding-window attention with a ring-buffer
+cache), ``R`` (the RG-LRU recurrent block) and ``S`` (the Mamba-2 SSD
+block, which has no MLP), with MLA attention (``cfg.mla``), MoE MLPs
+(``cfg.is_moe_layer``: the first ``first_dense`` layers stay dense) and
+the int8 KV cache.  ``lm_train`` is forward only (no backward: ROADMAP
+M13).
+
+Two parameter layouts, as in the JAX package:
+
+* list layout: ``params["layers"] = [per-layer dict]``;
+* stacked layout: ``params["prefix"/"stack"/"tail"]`` (:func:`layer_plan`
+  splits the layers), where ``stack[j]`` holds unit position j of every
+  repeat of the layer pattern as one tree of ``[R, ...]`` tensors.  The
+  JAX package scans over the repeats; the port walks them in a Python
+  loop, each block on the row-``r`` views of the stacked tensors, so both
+  layouts run the same per-layer ops.
 
 The parameter tree is a plain nested dict of tensors with the JAX package's
 keys (``embed/tok``, ``embed/head``, ``layers[i]/norm1/scale``,
@@ -18,14 +27,18 @@ so :func:`params_from_numpy` carries a JAX tree across without renaming.
 Caches are ``{"pos": int32 [B], "layers": [...]}`` with ``{"k", "v"}`` for
 an attention layer (plus ``{"k_s", "v_s"}`` under ``kv_cache_quant``),
 ``{"c_kv", "k_rope"}`` for an MLA layer and ``{"h", "conv"}`` for a
-recurrent one, the same keys wherever a cache is made: one position per
-batch row, so a slot-stacked serve cache is simply a batch-S cache and a
-request's prefill cache is a batch-1 cache (the JAX package keeps a
+recurrent or SSD one, the same keys wherever a cache is made: one position
+per batch row, so a slot-stacked serve cache is simply a batch-S cache and
+a request's prefill cache is a batch-1 cache (the JAX package keeps a
 scalar ``pos`` per b=1 cache and vmaps it over slots).  Decode updates
-the cache IN PLACE.  The serve and stage decode steps dispatch MoE tokens
-per batch row (``per_row``), the capacity each slot has under the JAX
-package's vmap; ``lm_decode`` at batch B pools the B tokens, as the
-reference's does.
+the cache IN PLACE, except an SSD layer's ``h``, which it rebinds to the
+fresh state its kernel writes (a caller that holds a cache's leaves across
+a decode step re-reads them after it).  A decode step given ``advance``
+leaves the SSD state of rows whose ``advance`` is 0 untouched (the RG-LRU
+state of such rows advances, unread).  The serve and stage decode steps
+dispatch MoE tokens per batch row (``per_row``), the capacity each slot
+has under the JAX package's vmap; ``lm_decode`` at batch B pools the B
+tokens, as the reference's does.
 
 Ring order after a prefill longer than a windowed layer's ring: position p
 sits in row ``p % size``, the row :func:`layers.attn_decode` reads it from.
@@ -38,7 +51,7 @@ JAX package is right, and the teacher-forced model everywhere.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,15 +61,14 @@ from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
 from . import rglru as RG
+from . import ssm as SSM
 from .config import ModelConfig
 
 
 def _check_kind(cfg: ModelConfig, layer: int) -> str:
     kind = cfg.kind(layer)
-    if kind not in ("G", "L", "R"):
-        raise NotImplementedError(
-            f"layer kind {kind!r}: the port runs 'G', 'L' and 'R' layers; "
-            f"'S' (Mamba-2 SSD) is ROADMAP M12b")
+    if kind not in ("G", "L", "R", "S"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     return kind
 
 
@@ -71,16 +83,21 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict:
     """Random weights with the JAX package's keys, shapes, init scales and
-    per-leaf dtypes (norms, ``rec/lam`` and the MoE router f32, the rest
-    ``cfg.dtype``), not its numbers: ``torch.Generator`` is not
-    ``jax.random``.  Runs on the card unless ``device="cpu"``; the
-    generator must live on the same device (default: seed 0 there)."""
+    per-leaf dtypes (norms, ``rec/lam``, the SSD block's ``A_log``/``D``/
+    ``dt_bias`` and the MoE router f32, the rest ``cfg.dtype``), not its
+    numbers: ``torch.Generator`` is not ``jax.random``.  Runs on the card
+    unless ``device="cpu"``; the generator must live on the same device
+    (default: seed 0 there)."""
     dev = resolve_device(device)
     g = generator if generator is not None else make_generator(0, dev)
     layers = []
     for i in range(cfg.n_layers):
         kind = _check_kind(cfg, i)
         blk = {"norm1": L.norm_init(cfg.d_model, cfg, dev)}
+        if kind == "S":             # a Mamba-2 block has no MLP
+            blk["ssm"] = SSM.ssm_init(g, cfg, dev)
+            layers.append(blk)
+            continue
         if kind == "R":
             blk["rec"] = RG.rglru_init(g, cfg, dev)
         elif cfg.mla:
@@ -113,10 +130,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None):
     leaf in its own dtype: JAX already keeps every leaf in the right one
     (norms, ``rec/lam`` and the MoE router f32, the rest ``cfg.dtype``).
     Every leaf the port knows crosses as it is: MoE experts [E, d, f] and
-    ``shared``, the MLA projections, a VLM's ``vis_norm``."""
+    ``shared``, the MLA projections, the SSD blocks, a VLM's ``vis_norm``,
+    the stacked layout (``stack[j]`` of ``[R, ...]`` leaves, ``None`` for
+    a pattern that does not repeat) and the encoder-decoder's tree."""
     dev = resolve_device(device)
 
     def conv(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -134,6 +155,8 @@ def layer_cache_init(cfg: ModelConfig, layer: int, batch: int, max_seq: int,
     kind = _check_kind(cfg, layer)
     if kind == "R":
         return RG.rglru_cache_init(cfg, batch, device)
+    if kind == "S":
+        return SSM.ssm_cache_init(cfg, batch, device)
     if cfg.mla:
         return MLA.mla_cache_init(cfg, batch, max_seq, device)
     return L.attn_cache_init(cfg, batch, max_seq, _window(cfg, kind), device)
@@ -163,6 +186,8 @@ def _mlp_part(p, cfg: ModelConfig, x, per_row: bool = False
 def _mixer_train(p, cfg: ModelConfig, kind: str, h):
     if kind == "R":
         return RG.rglru_train(p["rec"], cfg, h)
+    if kind == "S":
+        return SSM.ssm_train(p["ssm"], cfg, h)
     if cfg.mla:
         return MLA.mla_train(p["attn"], cfg, h)
     return L.attn_train(p["attn"], cfg, h, _window(cfg, kind))
@@ -172,6 +197,8 @@ def block_train(p, cfg: ModelConfig, kind: str, x
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward of one block -> (x, aux)."""
     x = x + _mixer_train(p, cfg, kind, L.apply_norm(p["norm1"], x, cfg))
+    if kind == "S":
+        return x, 0.0
     return _mlp_part(p, cfg, x)
 
 
@@ -187,6 +214,9 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, max_seq: int
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
     h = L.apply_norm(p["norm1"], x, cfg)
+    if kind == "S":
+        y, cache = SSM.ssm_prefill(p["ssm"], cfg, h)
+        return x + y, cache
     if kind == "R":
         y, cache = RG.rglru_prefill(p["rec"], cfg, h)
     elif cfg.mla:
@@ -200,8 +230,13 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, max_seq: int
 
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos,
-                 per_row: bool = False):
+                 per_row: bool = False,
+                 active: Optional[torch.Tensor] = None):
+    """One token through one block.  ``active`` (bool [B]): an SSD layer
+    leaves the state of rows where it is False untouched."""
     h = L.apply_norm(p["norm1"], x, cfg)
+    if kind == "S":
+        return x + SSM.ssm_decode(p["ssm"], cfg, h, cache, active)
     if kind == "R":
         y = RG.rglru_decode(p["rec"], cfg, h, cache)
     elif cfg.mla:
@@ -257,18 +292,26 @@ def lm_prefill_embedded(params, cfg: ModelConfig, x: torch.Tensor,
     return logits, {"pos": pos, "layers": caches}
 
 
+def _active(advance: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The rows a decode step advances, bool [B], from ``advance`` (int32
+    [B], 0 or 1); None when every row advances."""
+    return None if advance is None else advance != 0
+
+
 def lm_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
               advance: Optional[torch.Tensor] = None, per_row: bool = False
               ) -> Tuple[torch.Tensor, Dict]:
     """token int [B] -> (logits [B, vocab], cache).  Each row decodes at its
     own ``cache["pos"]``; the cache is updated in place and ``pos``
     advances by one, or by ``advance`` (int32 [B], 0 or 1) where given.
-    ``per_row``: MoE capacity per batch row instead of pooled."""
+    ``per_row``: MoE capacity per batch row instead of pooled.  Rows whose
+    ``advance`` is 0 keep their SSD state."""
     pos = cache["pos"]
+    active = _active(advance)
     x = L.embed(params["embed"], cfg, token[:, None])
     for i, p in enumerate(params["layers"]):
         x = block_decode(p, cfg, _check_kind(cfg, i), x, cache["layers"][i],
-                         pos, per_row)
+                         pos, per_row, active)
     h = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], cfg, h)[:, 0]
     cache["pos"] = pos + (1 if advance is None else advance)
@@ -359,11 +402,12 @@ def stage_decode(params, cfg: ModelConfig, stage: int, n_stages: int, x,
     ``per_row`` sets the MoE capacity, as in :func:`lm_decode`."""
     lo, hi = stage_bounds(cfg, stage, n_stages)
     pos = cache["pos"]
+    active = _active(advance)
     if stage == 0:
         x = L.embed(params["embed"], cfg, x[:, None])
     for j, p in enumerate(params["layers"]):
         x = block_decode(p, cfg, _check_kind(cfg, lo + j), x,
-                         cache["layers"][j], pos, per_row)
+                         cache["layers"][j], pos, per_row, active)
     out = x
     if stage == n_stages - 1:
         h = L.apply_norm(params["final_norm"], x, cfg)
@@ -383,8 +427,9 @@ def serve_decode_step(params, cfg: ModelConfig, cache: Dict,
                       ) -> torch.Tensor:
     """One continuous-batching decode tick over every slot of a batch-S
     cache: all S rows are computed (inactive rows on whatever their cache
-    holds, as the JAX package computes them on zero caches; their
-    recurrent state advances too, unread), only active rows advance
+    holds, as the JAX package computes them on zero caches; their RG-LRU
+    state advances too, unread, their SSD state does not), only active
+    rows advance
     ``pos`` and take a new token.  Returns the next token
     lane int32 [S].  The serve element and ``sequential_decode`` both run
     exactly this function at the same S, so every GEMM has one shape and a
@@ -394,3 +439,140 @@ def serve_decode_step(params, cfg: ModelConfig, cache: Dict,
     logits, _ = lm_decode(params, cfg, token, cache,
                           advance=active.to(torch.int32), per_row=True)
     return torch.where(active, greedy(logits), token)
+
+
+# ---------------------------------------------------------------------------
+# the stacked layout: the repeating unit of the layer pattern stacked over
+# its repeats (the JAX package's scanned layout), walked repeat by repeat
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ModelConfig) -> Tuple[List[int], int, int, List[int]]:
+    """-> (prefix layers, period, repeats, tail layers).  Layers
+    ``[0, first_dense)`` are unique (a dense MLP before the MoE ones); the
+    middle is ``repeats`` repeats of the pattern unit; a remainder tail
+    follows."""
+    p = len(cfg.layer_pattern)
+    start = cfg.first_dense
+    repeats = max(0, (cfg.n_layers - start) // p)
+    tail_start = start + repeats * p
+    return list(range(start)), p, repeats, list(range(tail_start,
+                                                      cfg.n_layers))
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts, lists)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def _stack_units(cfg: ModelConfig, per_layer: List
+                 ) -> Tuple[List, List, List]:
+    """Per-layer trees -> (prefix, stack, tail) of the plan, ``stack[j]``
+    the trees of unit position j stacked over the repeats (None when the
+    pattern does not repeat)."""
+    prefix, period, repeats, tail = layer_plan(cfg)
+    stack = [_map(lambda *xs: torch.stack(xs),
+                  *[per_layer[len(prefix) + r * period + j]
+                    for r in range(repeats)]) if repeats else None
+             for j in range(period)]
+    return ([per_layer[i] for i in prefix], stack,
+            [per_layer[i] for i in tail])
+
+
+def stack_params(cfg: ModelConfig, params: Dict) -> Dict:
+    """List layout -> stacked layout (new ``[R, ...]`` tensors; the other
+    leaves are shared with ``params``)."""
+    prefix, stack, tail = _stack_units(cfg, params["layers"])
+    out = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "prefix": prefix, "stack": stack, "tail": tail}
+    if "vis_norm" in params:
+        out["vis_norm"] = params["vis_norm"]
+    return out
+
+
+def init_params_stacked(cfg: ModelConfig,
+                        generator: Optional[torch.Generator] = None,
+                        device: DeviceLike = None) -> Dict:
+    return stack_params(cfg, init_params(cfg, generator, device))
+
+
+def cache_init_stacked(cfg: ModelConfig, batch: int, max_seq: int,
+                       device: DeviceLike = None) -> Dict:
+    """Zero decode cache in the stacked layout: ``{"pos": int32 [batch],
+    "prefix", "groups", "tail"}``, ``groups[j]`` unit position j's caches
+    stacked over the repeats."""
+    dev = resolve_device(device)
+    prefix, stack, tail = _stack_units(
+        cfg, [layer_cache_init(cfg, i, batch, max_seq, dev)
+              for i in range(cfg.n_layers)])
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "prefix": prefix, "groups": stack, "tail": tail}
+
+
+def _row(tree, r: int):
+    """Repeat ``r`` of a stacked tree: views, so in-place writes land in
+    the stacked tensors."""
+    return _map(lambda t: t[r], tree)
+
+
+def _unstack(cfg: ModelConfig, prefix: List, stack: List, tail: List
+             ) -> List:
+    """The inverse of :func:`_stack_units`: the per-layer trees in layer
+    order, the stacked units' as row views."""
+    _, period, repeats, _ = layer_plan(cfg)
+    return list(prefix) + [_row(stack[j], r) for r in range(repeats)
+                           for j in range(period)] + list(tail)
+
+
+def _list_view(params, cfg: ModelConfig) -> Dict:
+    """A stacked tree as a list-layout tree of views, for the list-layout
+    entry points."""
+    out = {k: v for k, v in params.items()
+           if k not in ("prefix", "stack", "tail")}
+    out["layers"] = _unstack(cfg, params["prefix"], params["stack"],
+                             params["tail"])
+    return out
+
+
+def backbone_train_stacked(params, cfg: ModelConfig, x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`backbone_train` over a stacked tree.  Forward only."""
+    return backbone_train(_list_view(params, cfg), cfg, x)
+
+
+def lm_train_stacked(params, cfg: ModelConfig, tokens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return lm_train(_list_view(params, cfg), cfg, tokens)
+
+
+def lm_prefill_stacked(params, cfg: ModelConfig, tokens, max_seq: int,
+                       x: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`lm_prefill` over a stacked tree (over embeddings ``x`` when
+    given) -> (last-position logits, stacked cache)."""
+    if x is None:
+        x = L.embed(params["embed"], cfg, tokens)
+    logits, cache = lm_prefill_embedded(_list_view(params, cfg), cfg, x,
+                                        max_seq)
+    prefix, stack, tail = _stack_units(cfg, cache["layers"])
+    return logits, {"pos": cache["pos"], "prefix": prefix, "groups": stack,
+                    "tail": tail}
+
+
+def lm_decode_stacked(params, cfg: ModelConfig, token: torch.Tensor,
+                      cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """:func:`lm_decode` over a stacked tree and cache, updated in place (a
+    leaf a block rebinds is copied into its place in the stacked cache)."""
+    views = _unstack(cfg, cache["prefix"], cache["groups"], cache["tail"])
+    flat = {"pos": cache["pos"], "layers": [dict(v) for v in views]}
+    logits, flat = lm_decode(_list_view(params, cfg), cfg, token, flat)
+    for view, layer in zip(views, flat["layers"]):
+        for k, t in layer.items():
+            if t is not view[k]:
+                view[k].copy_(t)
+    cache["pos"] = flat["pos"]
+    return logits, cache

@@ -7,8 +7,8 @@ the reference's weights (``init(PRNGKey(0))`` through
 ``params_from_numpy``): one forward (``train_logits`` and the loss) and
 one serve step (``prefill`` then ``decode_step``) agree within atol = rtol
 = 1e-4 (f32, summation orders differ), with the shapes and positions the
-reference test asserts.  Mamba-2 and whisper are ported in later slices:
-building them raises naming ROADMAP M12b and M12c.
+reference test asserts: all ten, Mamba-2 (SSD layers) and whisper (the
+encoder-decoder, on numpy-seeded frames) included.
 """
 import dataclasses
 
@@ -29,7 +29,6 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 SEQ = 16
 BATCH = 2
-LATER = {"mamba2-130m": "M12b", "whisper-large-v3": "M12c"}
 
 
 def _batch(cfg):
@@ -39,6 +38,9 @@ def _batch(cfg):
     if cfg.frontend == "vision":
         batch["patches"] = rng.standard_normal(
             (BATCH, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        batch["frames"] = rng.standard_normal(
+            (BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in batch.items()},
             {k: torch.as_tensor(v) for k, v in batch.items()})
 
@@ -51,7 +53,7 @@ def test_the_registry_is_the_references():
             dataclasses.asdict(jax_config(arch)), arch
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in LATER])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_smoke_forward_and_serve_step_match_jax(arch):
     cfg = get_config(arch).smoke()
     jm, pm = jax_build(jax_config(arch).smoke()), build_model(cfg)
@@ -80,13 +82,6 @@ def test_smoke_forward_and_serve_step_match_jax(arch):
     assert pc["pos"].tolist() == [total + 1] * BATCH
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
-def test_later_slices_raise_naming_their_item(arch):
-    cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match=LATER[arch]):
-        build_model(cfg)
-
-
 def test_input_specs_allocate_nothing():
     m = build_model(get_config("internvl2-76b"))
     specs = m.input_specs("prefill", 2, 64)
@@ -96,3 +91,21 @@ def test_input_specs_allocate_nothing():
     assert m.input_specs("decode", 3, 64)["token"].shape == (3,)
     assert build_model(get_config("granite-20b")).active_param_count() > \
         19e9
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_analytic_param_count_matches_jax(arch):
+    """``active_param_count`` follows the reference's formula for every
+    full config: the SSD branch (no MLP) and the encoder-decoder's encoder
+    and cross-attention terms included."""
+    assert build_model(get_config(arch)).active_param_count() == \
+        jax_build(jax_config(arch)).active_param_count()
+
+
+def test_input_specs_of_the_encoder_decoder():
+    m = build_model(get_config("whisper-large-v3"))
+    specs = m.input_specs("prefill", 2, 1000)
+    assert specs["tokens"].shape == (2, 448)        # the decoder's cap
+    assert specs["frames"] == ((2, 1500, 1280), torch.bfloat16)
+    assert not m.supports_stacked
+    assert build_model(get_config("mamba2-130m")).supports_stacked

@@ -210,8 +210,8 @@ def test_live_reconfiguration_waits_for_m7():
 
 def test_windowed_layers_wait_for_m5():
     """M5 is ported: windowed ('L') and recurrent ('R') layers run, and
-    since M12a MoE, MLA and the int8 KV cache; the Mamba-2 kind 'S' still
-    raises, naming its own item (M12b)."""
+    since M12a MoE, MLA and the int8 KV cache, and since M12b the Mamba-2
+    kind 'S': each serves 3 tokens."""
     import dataclasses
     g = torch.Generator().manual_seed(0)
     for pattern in ("GL", "RRL"):
@@ -230,6 +230,8 @@ def test_windowed_layers_wait_for_m5():
         assert len(ms.sequential_decode(params, cfg, [1, 2], 3, 16, slots=2,
                                         device="cpu")) == 3
     cfg = dataclasses.replace(stablelm_1_6b.config().smoke(),
-                              layer_pattern="S")
-    with pytest.raises(NotImplementedError, match="M12b"):
-        tt.init_params(cfg, g, "cpu")
+                              layer_pattern="S", ssm_state=16)
+    params = tt.init_params(cfg, g, "cpu")
+    assert "ssm" in params["layers"][0] and "mlp" not in params["layers"][0]
+    assert len(ms.sequential_decode(params, cfg, [1, 2], 3, 16, slots=2,
+                                    device="cpu")) == 3

@@ -1,6 +1,6 @@
 """The decoder zoo of the port against the JAX package, on the CPU.
 
-Every family of ``tests/test_models.py`` but Mamba-2 (ROADMAP M12b): the
+Every family of ``tests/test_models.py``, Mamba-2 included: the
 reference's ``Model.init(PRNGKey(0))`` crosses to the port through
 ``params_from_numpy``, the same numpy-seeded tokens (and patches) go to
 both, and ``train_logits``, ``loss`` (ce and the MoE aux), ``prefill`` and
@@ -56,6 +56,10 @@ FAMILIES = {
         name="t", arch_type="hybrid", n_layers=3, d_model=64, n_heads=4,
         n_kv_heads=1, d_ff=128, vocab=97, layer_pattern="RRL", window=8,
         lru_width=64, dtype="float32"),
+    "ssm_mamba2": dict(
+        name="t", arch_type="ssm", n_layers=2, d_model=64, n_heads=0,
+        n_kv_heads=0, d_ff=0, vocab=97, layer_pattern="S", ssm_state=16,
+        ssm_head_dim=16, ssm_chunk=8, dtype="float32"),
     "partial_rope_layernorm": dict(
         name="t", arch_type="dense", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=4, d_ff=128, vocab=97, rope_frac=0.25, norm="layernorm",
