@@ -260,6 +260,30 @@ Phases, one result line each (any failure exits non-zero):
    ``ssm_mamba2`` families; each rerun with TF32 on as a control that
    must read above the limit.
 
+16. training (``launch/train.py``, ``launch/steps.py``, AdamW, the data
+   pipeline and checkpoints) — 16e first: the scans' backward kernels
+   against their plain versions (S1 bitwise at ragged widths and ring-
+   stage edges and at 16c's [2, 2048, 4096]; S2's d_states and d_h0
+   bitwise and d_decay within 1e-5 of the absolute products' sum, at nc =
+   1, a ragged N x hd and 16b's [8, 16, 24, 128, 64]; rows alone == in a
+   batch), timed beside their byte bounds, plain versions and ptxas.  16a,
+   stablelm-1.6b whole (bf16, stacked, per-block remat) through
+   ``launch/train.py`` for 20 steps at 8 x 512: finite losses and grad
+   norms, every parameter moved, the mean loss of the last 5 steps below
+   the first 5's; median ms a step over steps 3-20, tokens/s, the model-
+   FLOP share of the dense bf16 peak, peak GiB, one profiled step and the
+   device ms of forward + backward and of AdamW.  16b, mamba2-130m whole
+   at 8 x 2048 (nc = 16): 5 steps with a checkpoint at step 5 (restored
+   bitwise), then a run to step 10 resumed from it whose first loss is
+   bitwise the step-5 state's loss on batch 0 (a fresh iterator, as the
+   reference's launcher); S2 twice forward (remat) and once backward a
+   layer a step.  16c, recurrentgemma-9b at full width, cut to 6 of 38
+   layers (RRLRRL), 5 steps at 2 x 2048; S1 launches likewise.  16d, fp32
+   card == CPU for two train steps of every smoke preset, list and
+   stacked layouts, at 64 tokens (more than the smoke chunk of 16): loss,
+   grad norm, every gradient leaf, m and v within 1e-4 |cpu| + 2e-5
+   max|cpu leaf|, the parameters within that + 2 lr.
+
 Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
@@ -545,11 +569,11 @@ def _kernel_name(mangled):
                   r"Li(\d+)E", mangled)
     if m:                                       # K5/K6's head dim
         tag += f"{',' if tag else ''}D={m.group(1)}"
-    m = re.search(r"rglru_scan_kernelILb([01])E", mangled)
-    if m:                                       # S1's kVec
+    m = re.search(r"rglru_scan(?:_bwd)?_kernelILb([01])E", mangled)
+    if m:                                       # S1's kVec (and backward's)
         tag = f"{'16' if m.group(1) == '1' else '4'} B copies"
-    m = re.search(r"ssd_state_scan_kernelILb([01])E", mangled)
-    if m:                                       # S2's kVec
+    m = re.search(r"ssd_state_scan(?:_bwd)?_kernelILb([01])E", mangled)
+    if m:                                       # S2's kVec (and backward's)
         tag = "float4" if m.group(1) == "1" else "float"
     names = []   # a length may follow a hex digit of a namespace's hash,
     for i in range(len(mangled)):   # so the shortest identifier wins
@@ -5210,6 +5234,561 @@ def phase_ssd(seed, ptxas):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training (M13): the AdamW train step through launch/train.py,
+# checkpoints and the data pipeline, and the scans' backward kernels
+# ---------------------------------------------------------------------------
+
+#: 16a: stablelm-1.6b whole, bf16, stacked layout (the launcher's pick)
+TRAIN_LM = dict(arch="stablelm-1.6b", steps=20, batch=8, seq=512)
+#: 16b: mamba2-130m whole; a checkpoint at step CKPT_AT, then a resumed run
+TRAIN_SSM = dict(arch="mamba2-130m", steps=10, batch=8, seq=2048)
+CKPT_AT = 5
+#: 16c: recurrentgemma-9b at full width, cut from 38 layers to the first 6
+#: (RRLRRL): 38 would need ~108 GB of weights and AdamW state
+TRAIN_RG = dict(arch="recurrentgemma-9b", layers=6, steps=5, batch=2,
+                seq=2048)
+#: 16d: card == CPU for one train step of each smoke preset: sequence
+#: length (> the smoke ssm_chunk of 16, so S2 spans 4 chunks) and the
+#: tolerance on loss, grad norm, every gradient leaf and m, v: |card - cpu|
+#: <= TRAIN_TOL_REL * |cpu| + TRAIN_TOL_LEAF * max|cpu leaf|
+TRAIN_CPU_SEQ = 64
+TRAIN_TOL_REL = 1e-4
+TRAIN_TOL_LEAF = 2e-5
+#: 16e: the backward kernels' timed shapes (16c's S1 input, 16b's S2 chunk
+#: states) and ragged ones
+S1_BWD_SHAPE = (2, 2048, 4096)
+S2_BWD_SHAPE = (8, 16, 24, 128, 64)
+S2_BWD_SMOKE = [(1, 1, 24, 128, 64), (2, 3, 5, 7, 5), (3, 2, 8, 32, 64)]
+
+
+def _train_argv(run, **extra):
+    """``launch/train.py``'s argv for a run dict (TRAIN_LM, TRAIN_SSM)."""
+    return [f"--{k.replace('_', '-')}={v}"
+            for k, v in {**run, **extra}.items()]
+
+
+def _leaves(tree):
+    from repro_torch.core.buffers import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def _train_row(run, batch, seq, model, what):
+    """Median step ms over steps 3.. (host clock; each step ends in a host
+    read of its loss), tokens/s and the model-FLOP share of the card's
+    dense bf16 peak (6 N_active FLOPs a token)."""
+    ms = float(np.median(run.step_s[2:])) * 1e3
+    tok_s = batch * seq / ms * 1e3
+    mfu = model.model_flops_per_token() * tok_s / BF16_FLOPS
+    return dict(what=what, steps=len(run.losses), step_ms_median=ms,
+                step_ms=[1e3 * x for x in run.step_s], tokens_per_s=tok_s,
+                model_flop_share=mfu, losses=run.losses,
+                grad_norms=run.grad_norms)
+
+
+def _check_trained(run, what, falls=True):
+    check(all(np.isfinite(run.losses)) and all(np.isfinite(run.grad_norms)),
+          f"{what}: loss or grad norm not finite: {run.losses}")
+    if falls:
+        first, last = np.mean(run.losses[:5]), np.mean(run.losses[-5:])
+        check(last < first, f"{what}: mean loss of the last 5 steps {last:.4f}"
+                            f" not below the first 5's {first:.4f}")
+
+
+def _phase_train_lm(seed):
+    """16a: stablelm-1.6b whole (24 layers, bf16) through
+    ``launch/train.py`` (``run``, what ``main`` calls) for 20 steps at 8 x
+    512: finite losses and grad norms, every parameter leaf moved, the
+    mean loss of the last 5 steps below the first 5's; then one more step
+    profiled (device time by kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_train_iterator
+    from repro_torch.device import make_generator
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train.run(_train_argv(TRAIN_LM))
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_trained(run, "16a")
+    cfg = get_config(TRAIN_LM["arch"])
+    model = build_model(cfg)
+    init = model.init_stacked(make_generator(0, torch.device("cuda")), "cuda")
+    moved = [not torch.equal(a, b) for a, b in zip(_leaves(run.params),
+                                                   _leaves(init))]
+    check(all(moved), f"16a: {moved.count(False)} of {len(moved)} "
+                      f"parameter leaves did not move")
+    del init
+    check(not any(launches.values()), f"16a: a kernel ran where none is on "
+                                      f"the path (no flash, no scan): "
+                                      f"{launches}")
+    row = _train_row(run, TRAIN_LM["batch"], TRAIN_LM["seq"], model, "16a")
+    row.update(peak_gib=peak, params=model.param_count(run.params),
+               n_active=model.active_param_count())
+    step = ST.make_train_step(model, total_steps=TRAIN_LM["steps"])
+    tokens = next(make_train_iterator(vocab=cfg.vocab,
+                                      global_batch=TRAIN_LM["batch"],
+                                      seq=TRAIN_LM["seq"]))["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    state = [run.params, run.opt]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+    wall, busy, prof = _profile(one_step)
+    gemm = sum(v for k, v, _ in prof if re.search(
+        r"gemm|xmma|cutlass|cublas|nvjet|sm90_", k))
+    row["profile"] = dict(wall_ms=wall, busy_ms=busy, gemm_ms=gemm,
+                          idle_share=max(0.0, 1 - busy / wall),
+                          top=[(k, v, n) for k, v, n in prof[:12]])
+    # the step's two layers on the device: forward + backward, and AdamW
+    loss_fn = ST.train_loss_fn(model)
+    _, grads = ST.value_and_grad(loss_fn, state[0], batch)
+    row["fwd_bwd_ms"] = cuda_ms(lambda: ST.value_and_grad(
+        loss_fn, state[0], batch), iters=3, warmup=1)
+    row["adamw_ms"] = cuda_ms(lambda: adamw_update(
+        state[0], grads, state[1], lr=1e-6), iters=3, warmup=1)
+    del grads
+    print(f"phase 16a train stablelm-1.6b (24 layers, bf16, stacked, "
+          f"{row['params'] / 1e9:.3f} B params) {TRAIN_LM['steps']} steps x "
+          f"{TRAIN_LM['batch']} x {TRAIN_LM['seq']} through launch/train.py:"
+          f" loss {run.losses[0]:.4f} -> {run.losses[-1]:.4f} (mean of "
+          f"first/last 5: {np.mean(run.losses[:5]):.4f} / "
+          f"{np.mean(run.losses[-5:]):.4f}), grad norm "
+          f"{run.grad_norms[0]:.3f} -> {run.grad_norms[-1]:.3f}; median "
+          f"{row['step_ms_median']:.1f} ms/step (steps 3-20, host clock), "
+          f"{row['tokens_per_s']:.0f} tokens/s, model-FLOP share "
+          f"{row['model_flop_share']:.1%} of 989 TFLOP/s dense bf16 (6 N "
+          f"with N = {row['n_active'] / 1e9:.3f} B), peak {peak:.2f} GiB")
+    print(f"phase 16a profiled step: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle {row['profile']['idle_share']:.1%}, GEMMs "
+          f"{gemm:.1f} ms); forward + backward {row['fwd_bwd_ms']:.1f} ms "
+          f"and AdamW {row['adamw_ms']:.1f} ms (device, back to back); top: "
+          + "; ".join(f"{k[:60]} {v:.2f} ms x{n}" for k, v, n in prof[:8]))
+    del run, state
+    _free_card()
+    return row
+
+
+def _phase_train_ssm(seed):
+    """16b: mamba2-130m whole (24 SSD layers, bf16) through
+    ``launch/train.py`` at 8 x 2048 (nc = 16): 5 steps with a checkpoint
+    at step 5, every restored leaf bitwise the in-memory state; then a run
+    to step 10 that resumes from it, whose first loss (batch 0 again: a
+    fresh iterator, as the reference's launcher) is bitwise a forward pass
+    of the in-memory step-5 state on batch 0.  S2 launches a step: forward
+    twice a layer (the step and remat's recomputation), backward once."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_train_iterator
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    _free_card()
+    cfg = get_config(TRAIN_SSM["arch"])
+    model = build_model(cfg)
+    n_ssd = _ssd_layers(cfg)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        first = train.run(_train_argv(TRAIN_SSM, steps=CKPT_AT,
+                                      ckpt_dir=ckdir, ckpt_every=CKPT_AT))
+        got = {k: v for k, v in _launch_counts().items()
+               if k.startswith("ssd_state_scan")}
+        want = {"ssd_state_scan": 2 * n_ssd * CKPT_AT,
+                "ssd_state_scan_bwd": n_ssd * CKPT_AT}
+        check(got == want, f"16b: S2 launches {got}, expected {want} (2 "
+                           f"forward and 1 backward a layer a step)")
+        _check_trained(first, "16b first run", falls=False)
+        check(latest_step(ckdir) == CKPT_AT, f"16b: no checkpoint at "
+                                             f"{CKPT_AT}")
+        t0 = time.perf_counter()
+        _, restored = load_checkpoint(ckdir, like={"params": first.params,
+                                                   "opt": first.opt})
+        load_s = time.perf_counter() - t0
+        saved = _leaves({"params": first.params, "opt": first.opt})
+        for a, b in zip(_leaves(restored), saved):
+            same_bits(a, b, "16b restored leaf vs the in-memory state")
+        ckpt_gb = sum(f.stat().st_size for f in
+                      (Path(ckdir) / f"step_{CKPT_AT:08d}").iterdir()) / 1e9
+        del restored
+        tokens = next(make_train_iterator(
+            vocab=cfg.vocab, global_batch=TRAIN_SSM["batch"],
+            seq=TRAIN_SSM["seq"]))["tokens"]
+        with torch.no_grad():
+            want_loss = model.loss_stacked(
+                first.params, {"tokens": torch.as_tensor(tokens,
+                                                         device="cuda")})[0]
+        want_loss = float(want_loss)
+        del first
+        _free_card()
+        _reset_launches()
+        second = train.run(_train_argv(TRAIN_SSM, ckpt_dir=ckdir,
+                                       ckpt_every=100))
+        resumed = {k: v for k, v in _launch_counts().items()
+                   if k.startswith("ssd_state_scan")}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    steps2 = TRAIN_SSM["steps"] - CKPT_AT
+    want = {"ssd_state_scan": 2 * n_ssd * steps2,
+            "ssd_state_scan_bwd": n_ssd * steps2}
+    check(resumed == want, f"16b resumed: S2 launches {resumed}, expected "
+                           f"{want}")
+    check(second.start == CKPT_AT and len(second.losses) == steps2,
+          f"16b: resumed at {second.start} with {len(second.losses)} steps")
+    check(second.losses[0] == want_loss,
+          f"16b: the first resumed loss {second.losses[0]!r} != the step-"
+          f"{CKPT_AT} state's loss on batch 0 {want_loss!r}")
+    _check_trained(second, "16b resumed run", falls=False)
+    row = _train_row(second, TRAIN_SSM["batch"], TRAIN_SSM["seq"], model,
+                     "16b")
+    row.update(peak_gib=peak, checkpoint_gb=ckpt_gb, restore_s=load_s,
+               launches=resumed, launches_per_step={
+                   k: v // steps2 for k, v in resumed.items()})
+    print(f"phase 16b train mamba2-130m (24 SSD layers, bf16) "
+          f"{TRAIN_SSM['batch']} x {TRAIN_SSM['seq']} (nc = "
+          f"{TRAIN_SSM['seq'] // cfg.ssm_chunk}): checkpoint at step "
+          f"{CKPT_AT} ({ckpt_gb:.2f} GB, restored in {load_s:.1f} s, every "
+          f"leaf bitwise the in-memory state); resumed run from step "
+          f"{second.start}: first loss {second.losses[0]!r} == the step-"
+          f"{CKPT_AT} state's loss on batch 0, bitwise; S2 {n_ssd * 2} "
+          f"forward + {n_ssd} backward launches a step; median "
+          f"{row['step_ms_median']:.1f} ms/step, {row['tokens_per_s']:.0f} "
+          f"tokens/s, model-FLOP share {row['model_flop_share']:.1%}, peak "
+          f"{peak:.2f} GiB")
+    del second
+    _free_card()
+    return row
+
+
+def _phase_train_rg(seed):
+    """16c: recurrentgemma-9b at full width cut to 6 layers (RRLRRL),
+    bf16, stacked, through ``make_train_step`` at 2 x 2048 for 5 steps:
+    finite losses, S1 launches a step (forward twice a recurrent layer,
+    backward once)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_train_iterator
+    from repro_torch.device import make_generator
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    _free_card()
+    cfg = dataclasses.replace(get_config(TRAIN_RG["arch"]),
+                              n_layers=TRAIN_RG["layers"])
+    kinds = "".join(cfg.kind(i) for i in range(cfg.n_layers))
+    check(kinds == "RRLRRL", f"16c: layer kinds {kinds}")
+    n_rec = kinds.count("R")
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_stacked(make_generator(seed, dev), dev)
+    opt = adamw_init(params)
+    step = ST.make_train_step(model, lr=1e-3, total_steps=TRAIN_RG["steps"])
+    it = make_train_iterator(vocab=cfg.vocab, global_batch=TRAIN_RG["batch"],
+                             seq=TRAIN_RG["seq"])
+    _reset_launches()
+    losses, gnorms, step_s = [], [], []
+    for _ in range(TRAIN_RG["steps"]):
+        t0 = time.perf_counter()
+        batch = {"tokens": torch.as_tensor(next(it)["tokens"], device=dev)}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    got = {k: v for k, v in _launch_counts().items()
+           if k.startswith("rglru_scan")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"rglru_scan": 2 * n_rec * TRAIN_RG["steps"],
+            "rglru_scan_bwd": n_rec * TRAIN_RG["steps"]}
+    check(got == want, f"16c: S1 launches {got}, expected {want}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"16c: loss or grad norm not finite: {losses} {gnorms}")
+    ms = float(np.median(step_s[2:])) * 1e3
+    tok_s = TRAIN_RG["batch"] * TRAIN_RG["seq"] / ms * 1e3
+    row = dict(what="16c", layers=kinds, params=model.param_count(params),
+               step_ms_median=ms, step_ms=[1e3 * x for x in step_s],
+               tokens_per_s=tok_s, model_flop_share=(
+                   model.model_flops_per_token() * tok_s / BF16_FLOPS),
+               losses=losses, grad_norms=gnorms, peak_gib=peak,
+               launches=got, launches_per_step={
+                   k: v // TRAIN_RG["steps"] for k, v in got.items()})
+    print(f"phase 16c train recurrentgemma-9b full width, 6 of 38 layers "
+          f"({kinds}, bf16, {row['params'] / 1e9:.3f} B params) "
+          f"{TRAIN_RG['batch']} x {TRAIN_RG['seq']}, {TRAIN_RG['steps']} "
+          f"steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+          f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}; S1 {2 * n_rec} forward + "
+          f"{n_rec} backward launches a step; median {ms:.1f} ms/step "
+          f"(steps 3-5), {tok_s:.0f} tokens/s, model-FLOP share "
+          f"{row['model_flop_share']:.1%}, peak {peak:.2f} GiB")
+    del params, opt
+    _free_card()
+    return row
+
+
+def _train_excess(card, cpu, what, extra=0.0):
+    """-> the worst |card - cpu| over the tolerance's allowance
+    TRAIN_TOL_REL |cpu| + TRAIN_TOL_LEAF max|cpu leaf| + ``extra`` (<= 0 is
+    within it) of tensors or trees of them."""
+    worst = float("-inf")
+    for a, b in zip(_leaves(card), _leaves(cpu)):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        check(a.shape == b.shape, f"{what}: shapes {a.shape} {b.shape}")
+        if a.numel() == 0:
+            continue
+        allow = TRAIN_TOL_REL * b.abs() + TRAIN_TOL_LEAF * b.abs().max()
+        worst = max(worst, ((a - b).abs() - allow - extra).max().item())
+    return worst
+
+
+def _train_share(card, cpu):
+    """The largest |card - cpu| of a tree's leaves as a share of its
+    leaf's largest |cpu| element."""
+    out = 0.0
+    for a, b in zip(_leaves(card), _leaves(cpu)):
+        b = b.detach().float()
+        if b.numel():
+            out = max(out, (a.detach().float().cpu() - b).abs().max().item()
+                      / max(b.abs().max().item(), 1e-30))
+    return out
+
+
+def _phase_train_cpu(seed, device="cuda"):
+    """16d: fp32 card == CPU for ``make_train_step`` on each of the ten
+    smoke presets (list layout, per-block remat) and on the stacked layout
+    of the nine that have one, from the same weights and batch (2 x 64
+    tokens, numpy-seeded; frames and patches too): two steps each (the
+    first at the warm-up's lr 0, the second moves the weights), the loss,
+    grad norm, m and v after each step, and every gradient leaf of each
+    step (``value_and_grad`` of the step's loss on the state it starts
+    from) within TRAIN_TOL_REL * |cpu| + TRAIN_TOL_LEAF * max|cpu leaf|; the
+    parameters within that plus 2 lr (AdamW's step is ~lr times the sign
+    of m for an element whose gradient is rounding noise, so such an
+    element may move either way; the rest agree to the tolerance).  The
+    gradients on the card are the repair's proof: the R and S layers'
+    parameters get theirs through the scans' backward kernels."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.device import make_generator
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+    rng = np.random.default_rng(seed + 160)
+    dev = torch.device(device)
+    _reset_launches()
+    worst, cases, moved, share = {}, 0, float("-inf"), 0.0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).smoke()
+        model = build_model(cfg)
+        seq = min(TRAIN_CPU_SEQ, cfg.max_seq) if cfg.max_seq else \
+            TRAIN_CPU_SEQ
+        batches = []
+        for _ in range(2):
+            b = {"tokens": rng.integers(0, cfg.vocab, (2, seq)).astype(
+                np.int32)}
+            if cfg.enc_dec:
+                b["frames"] = rng.standard_normal(
+                    (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+            if cfg.frontend == "vision":
+                b["patches"] = rng.standard_normal(
+                    (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+            batches.append({k: torch.as_tensor(v) for k, v in b.items()})
+        for stacked in ((False, True) if model.supports_stacked
+                        else (False,)):
+            init = model.init_stacked if stacked else model.init
+            params = init(make_generator(seed, dev), dev)
+            cpu_params = tt.params_from_numpy(_to_numpy(params), cfg, "cpu")
+            loss_fn = ST.train_loss_fn(model, stacked)
+            # total_steps 10: a warm-up of 2 steps, lr 0 then 5e-4
+            step = ST.make_train_step(model, lr=1e-3, total_steps=10,
+                                      stacked=stacked)
+            states = [(params, adamw_init(params), dev),
+                      (cpu_params, adamw_init(cpu_params), "cpu")]
+            name = f"{arch}{' stacked' if stacked else ''}"
+            w = float("-inf")
+            for k, batch in enumerate(batches):
+                out = []
+                for p, opt, d in states:
+                    b = {key: v.to(d) for key, v in batch.items()}
+                    _, grads = ST.value_and_grad(loss_fn, p, b)
+                    p, opt, m = step(p, opt, b)
+                    out.append(((m["loss"], m["grad_norm"]), grads,
+                                (opt.m, opt.v), p, (p, opt, d)))
+                lr = float(m["lr"])
+                states = [o[4] for o in out]
+                share = max(share, _train_share(out[0][1], out[1][1]))
+                for part, tag, extra in ((0, "loss/grad norm", 0.0),
+                                         (1, "gradients", 0.0),
+                                         (2, "m/v", 0.0),
+                                         (3, "params", 2 * lr)):
+                    ex = _train_excess(out[0][part], out[1][part],
+                                       f"16d {name} step {k}", extra)
+                    check(ex <= 0, f"16d {name} step {k}: {tag} exceed the "
+                                   f"tolerance by {ex:.3e}")
+                    if part < 3:
+                        w = max(w, ex)
+                    else:
+                        moved = max(moved, _train_excess(
+                            out[0][part], out[1][part], name) / max(lr,
+                                                                    1e-30))
+            worst[name] = w
+            cases += 1
+            del params, cpu_params, states, out
+            if dev.type == "cuda":
+                _free_card()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    for k in ("rglru_scan", "rglru_scan_bwd", "ssd_state_scan",
+              "ssd_state_scan_bwd"):
+        check(launches.get(k, 0) > 0 or dev.type == "cpu",
+              f"16d: {k} never ran: {launches}")
+    print(f"phase 16d fp32 card == CPU, {cases} cases (ten smoke presets, "
+          f"list and stacked layouts), 2 train steps each: loss, grad norm, "
+          f"every gradient leaf, m, v within {TRAIN_TOL_REL:g} |cpu| + "
+          f"{TRAIN_TOL_LEAF:g} max|cpu leaf| (largest gradient difference "
+          f"{share:.2e} of its leaf's largest element), params within that "
+          f"+ 2 lr "
+          f"(worst excess over the strict allowance {moved:.2e} lr); kernel "
+          f"launches {launches}")
+    return dict(worst_excess=worst, params_excess_in_lr=moved,
+                grad_share=share,
+                launches=launches, cases=cases)
+
+
+def _phase_scan_bwd_kernels(seed, ptxas):
+    """16e: the scans' backward kernels against their plain versions on
+    the card: S1 bitwise on ragged shapes (w 31/33/257, S at one ring stage
+    - 1, one stage, one stage + 1) and 16c's [2, 2048, 4096]; S2's d_states
+    and d_h0 bitwise and d_decay within 1e-5 of the sum of the absolute
+    products, at nc = 1, a ragged N x hd, and 16b's [8, 16, 24, 128, 64];
+    rows alone == in a batch of 3.  Each timed at the full-width shape
+    beside its byte bound, its plain version and its ptxas line.  No
+    single PyTorch call computes either, so neither has a library time."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssd_scan as ss
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 161)
+
+    def s1_inputs(b, s, w):
+        return (torch.rand((b, s, w), generator=g, device=dev) * 0.5 + 0.5,
+                torch.randn((b, s, w), generator=g, device=dev),
+                torch.randn((b, s, w), generator=g, device=dev))
+
+    ring = rs.ring()
+    n = 0
+    for b, s, w in [(1, ring["positions"] + d, w) for d in (-1, 0, 1)
+                    for w in (31, 33, 257)] + [(3, 7, 4096), S1_BWD_SHAPE]:
+        a, bx, gh = s1_inputs(b, s, w)
+        h = rs.rglru_scan(a, bx)
+        for got, want, what in zip(rs.rglru_scan_bwd(a, h, gh),
+                                   rs.rglru_scan_bwd_plain(a, h, gh),
+                                   ("d_a", "d_bx")):
+            same_bits(got, want, f"S1 backward {what} [{b},{s},{w}]")
+        n += 1
+    a, bx, gh = s1_inputs(3, 300, 512)
+    h = rs.rglru_scan(a, bx)
+    one = rs.rglru_scan_bwd(*(t[1:2].contiguous() for t in (a, h, gh)))
+    for x, y in zip(one, rs.rglru_scan_bwd(a, h, gh)):
+        same_bits(x, y[1:2], "S1 backward row alone vs in a batch of 3")
+
+    def s2_check(shape, with_h0, g_final=True):
+        decay, states, _ = _s2_inputs(g, shape)
+        hs, _ = ss.ssd_state_scan(decay, states)
+        g_s = torch.randn(shape, generator=g, device=dev)
+        g_f = torch.randn((shape[0],) + shape[2:], generator=g,
+                          device=dev) if g_final else None
+        got = ss.ssd_state_scan_bwd(decay, hs, g_s, g_f, with_h0)
+        want = ss.ssd_state_scan_bwd_plain(decay, hs, g_s, g_f, with_h0)
+        same_bits(got[1], want[1], f"S2 backward d_states {shape}")
+        if with_h0:
+            same_bits(got[2], want[2], f"S2 backward d_h0 {shape}")
+        scale = ss.ssd_state_scan_bwd_plain(
+            decay.abs(), hs.abs(), g_s.abs(),
+            None if g_f is None else g_f.abs(), False)[0]
+        err = ((got[0] - want[0]).abs() - 1e-5 * scale).max().item()
+        check(err <= 0, f"S2 backward d_decay {shape}: exceeds 1e-5 of the "
+                        f"absolute products' sum by {err:.3e}")
+        return (got[0] - want[0]).abs().max().item(), \
+            (decay, hs, g_s, g_f)
+
+    s2_err = 0.0
+    for shape in S2_BWD_SMOKE + [S2_BWD_SHAPE]:
+        for with_h0, g_final in ((False, True), (True, False)):
+            s2_err = max(s2_err, s2_check(shape, with_h0, g_final)[0])
+            n += 1
+    decay, states, _ = _s2_inputs(g, (3, 4, 6, 32, 64))
+    hs, _ = ss.ssd_state_scan(decay, states)
+    g_s = torch.randn(hs.shape, generator=g, device=dev)
+    batch = ss.ssd_state_scan_bwd(decay, hs, g_s, None, True)
+    one = ss.ssd_state_scan_bwd(decay[1:2].contiguous(),
+                                hs[1:2].contiguous(),
+                                g_s[1:2].contiguous(), None, True)
+    for x, y in zip(one, batch):
+        same_bits(x, y[1:2], "S2 backward row alone vs in a batch of 3")
+
+    rows = {}
+    a, bx, gh = s1_inputs(*S1_BWD_SHAPE)
+    h = rs.rglru_scan(a, bx)
+    nbytes = 5 * a.numel() * 4          # a, h, gh read; d_a, d_bx written
+    rows["rglru_scan_bwd"] = dict(
+        shape=list(S1_BWD_SHAPE), max_abs_err=0.0, bitwise=True,
+        ms=cuda_ms(lambda: rs.rglru_scan_bwd(a, h, gh)),
+        plain_ms=cuda_ms(lambda: rs.rglru_scan_bwd_plain(a, h, gh),
+                         iters=3, warmup=1),
+        library_ms=None, nbytes=nbytes,
+        ptxas=_ptxas_regs(ptxas, "rglru_scan", "rglru_scan_bwd_kernel",
+                          "16 B copies"),
+        **_bound(nbytes, 3 * a.numel(), FP32_FLOPS))
+    _, (decay, hs, g_s, g_f) = s2_check(S2_BWD_SHAPE, False)
+    rows["ssd_state_scan_bwd"] = dict(
+        shape=list(S2_BWD_SHAPE), max_abs_err=s2_err, bitwise=False,
+        ms=cuda_ms(lambda: ss.ssd_state_scan_bwd(decay, hs, g_s, g_f,
+                                                 False)),
+        plain_ms=cuda_ms(lambda: ss.ssd_state_scan_bwd_plain(
+            decay, hs, g_s, g_f, False), iters=3, warmup=1),
+        library_ms=None,
+        nbytes=(3 * hs.numel() + g_f.numel() + 2 * decay.numel()) * 4,
+        ptxas=_ptxas_regs(ptxas, "ssd_scan", "ssd_state_scan_bwd_kernel",
+                          "float4"),
+        **_bound((3 * hs.numel() + g_f.numel() + 2 * decay.numel()) * 4,
+                 4 * hs.numel(), FP32_FLOPS))
+    for name, r in rows.items():
+        print(f"phase 16e {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.0%} of the byte bound "
+              f"{r['bound_ms']:.5f} ms, {r['nbytes']} B), plain "
+              f"{r['plain_ms']:.4f} ms, max |err| {r['max_abs_err']:.2e}; "
+              f"{r['ptxas']}")
+    print(f"phase 16e: {n} cases, S1 backward bitwise its plain loop, S2 "
+          f"backward d_states/d_h0 bitwise and d_decay within 1e-5 of the "
+          f"absolute products' sum (max |err| {s2_err:.2e}), rows alone == "
+          f"in a batch bitwise; backward ring {ring['bwd_stage_bytes']} B a "
+          f"stage x {ring['stages']}")
+    return rows
+
+
+def phase_train(seed, ptxas):
+    """Phase 16: training (module docstring)."""
+    rows = {}
+    for tag, fn in (("16e", lambda: _phase_scan_bwd_kernels(seed, ptxas)),
+                    ("16a", lambda: _phase_train_lm(seed)),
+                    ("16b", lambda: _phase_train_ssm(seed)),
+                    ("16c", lambda: _phase_train_rg(seed)),
+                    ("16d", lambda: _phase_train_cpu(seed))):
+        t0 = time.perf_counter()
+        rows[tag] = fn()
+        print(f"phase {tag} wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _to_numpy(tree):
     if tree is None:
         return None
@@ -5275,6 +5854,8 @@ def main(argv=None):
     wall("14")
     ssd = phase_ssd(args.seed, ptxas)
     wall("15")
+    trained = phase_train(args.seed, ptxas)
+    wall("16")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -5303,6 +5884,15 @@ def main(argv=None):
     rows.append(("ssd_decode", "ssd_decode.cu",
                  "src/repro/models/ssm.py:181", ssd["15a"]["S3"],
                  ssd["15b"]["launches"]))
+    # the scans' backward kernels on the training path: S1's in 16c, S2's
+    # in 16b (its resumed run)
+    rows.append(("rglru_scan_bwd", "rglru_scan.cu",
+                 "src/repro/models/rglru.py:85",
+                 trained["16e"]["rglru_scan_bwd"], trained["16c"]["launches"]))
+    rows.append(("ssd_state_scan_bwd", "ssd_scan.cu",
+                 "src/repro/models/ssm.py:123",
+                 trained["16e"]["ssd_state_scan_bwd"],
+                 trained["16b"]["launches"]))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
@@ -5316,6 +5906,19 @@ def main(argv=None):
     kernels[8]["note"] = ("new kernel, not a TPU port: fuses ssm_decode's "
                           "state update and readout "
                           "(src/repro/models/ssm.py:181-190)")
+    kernels[9]["note"] = ("new kernel, not a TPU port: the backward of "
+                          "rglru_scan, where the JAX package differentiates "
+                          "its associative_scan")
+    kernels[10]["note"] = ("new kernel, not a TPU port: the backward of "
+                           "ssd_state_scan, where the JAX package "
+                           "differentiates its lax.scan")
+    for row in kernels[9:]:
+        row["ptxas"] = trained["16e"][row["name"]]["ptxas"]
+        row["shape"] = trained["16e"][row["name"]]["shape"]
+    # the forward scans run on the training path too: 16c's and 16b's counts
+    kernels[6]["launches_phase16"] = trained["16c"]["launches"]["rglru_scan"]
+    kernels[7]["launches_phase16"] = trained["16b"]["launches"][
+        "ssd_state_scan"]
     for row, key in ((kernels[7], "S2"), (kernels[8], "S3")):
         row["ptxas"] = ssd["15a"][key]["ptxas"]
         row["shape"] = ssd["15a"][key]["shape"]
@@ -5372,7 +5975,8 @@ def main(argv=None):
                                    "graphs": graphs,
                                    "failover": failover,
                                    "staged": staged, "qos": qos,
-                                   "lossy": lossy, "zoo": zoo, "ssd": ssd},
+                                   "lossy": lossy, "zoo": zoo, "ssd": ssd,
+                                   "train": trained},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -150,6 +152,20 @@ def route(name: str, device) -> str:
     if device.type == "cuda":
         return "kernel"
     raise ValueError(f"{name}: no kernel or plain version for {device}")
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise when autograd would have to pass a gradient through a kernel
+    that has no backward: grad mode is on and an input requires grad.
+    Without this the kernel's output (written through ctypes) would come
+    back with no ``grad_fn`` and ``backward()`` would skip it silently.
+    ``None`` entries are ignored."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, so it cannot run on "
+            f"inputs that require grad (wrap the call in torch.no_grad() "
+            f"or detach the inputs)")
 
 
 def raise_on(rc: int, name: str):

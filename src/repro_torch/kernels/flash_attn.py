@@ -22,6 +22,12 @@ dv) and any ``kv_groups`` that divides the heads.
 count), so a run can show that its path went through the kernels;
 ``PREFILL_ROUTE_LAUNCHES`` splits K5's count by route.
 
+Neither kernel has a backward.  K6 raises on the card when an input
+requires grad (``build.refuse_grad``); K5 raises on both routes, because
+the JAX package's ``flash_attention`` cannot be differentiated either
+(``jax.grad`` through its ``pallas_call`` fails), so no configuration
+trains with ``use_flash_attn``.
+
 What bounds each kernel on an H100 and what its design does about it is
 written at the top of its CUDA source.
 """
@@ -33,7 +39,7 @@ from typing import Dict
 import torch
 
 from .build import (DTYPE_CODE, dtype_code, entry as _lib,
-                    raise_on as _raise_on, route as _route)
+                    raise_on as _raise_on, refuse_grad, route as _route)
 from .ref import NEG_INF
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
@@ -150,6 +156,7 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
             v.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention: {tuple(q.shape)} q heads vs "
                          f"{tuple(k.shape)} kv heads at kv_groups={kv_groups}")
+    refuse_grad("flash_attention", q, k, v)
     if _route("flash_attention", q.device) == "plain":
         return flash_attention_plain(q, k, v, causal=causal,
                                      kv_groups=kv_groups)
@@ -251,6 +258,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
     if _route("flash_decode", q.device) == "plain":
         return flash_decode_plain(q, k_cache, v_cache, pos,
                                   kv_groups=kv_groups)
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     code = _check_cuda("flash_decode", q, k_cache, v_cache)
     if pos.device != q.device or pos.dtype != torch.int32 or \
             not pos.is_contiguous():

@@ -14,7 +14,7 @@ from typing import Dict
 
 import torch
 
-from .build import entry, raise_on, route
+from .build import entry, raise_on, refuse_grad, route
 from .ref import (QUANT_BM, QUANT_BN, dequantize8_plain, quantize8_plain)
 
 __all__ = ["quantize8", "dequantize8", "LAUNCHES", "reset_launches"]
@@ -57,6 +57,7 @@ def quantize8(x: torch.Tensor):
         raise TypeError(f"quantize8: float32 input required, got {x.dtype}")
     if route("quantize8", x.device) == "plain":
         return quantize8_plain(x)
+    refuse_grad("quantize8", x)
     _check_cuda("quantize8", x)
     m, n = x.shape
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
@@ -81,6 +82,7 @@ def dequantize8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                          f"scales {tuple(scales.shape)}")
     if route("dequantize8", q.device) == "plain":
         return dequantize8_plain(q, scales)
+    refuse_grad("dequantize8", q, scales)
     x = torch.empty((m, n), dtype=torch.float32, device=q.device)
     _check_cuda("dequantize8", x, q, scales)
     fn = entry("quant8", "repro_dequantize8", _QUANT_ARGS)

@@ -15,6 +15,10 @@
   ordered loop over chunks; the JAX package runs ``jax.lax.scan``) and
   ``ssd_decode_step_plain`` (one token's state update and readout, the
   reference's einsums in torch).
+* The plain backward passes of the two scans (``rglru_scan_bwd_plain``,
+  ``ssd_state_scan_bwd_plain``): explicit reverse loops with the backward
+  kernels' arithmetic, where the JAX package differentiates
+  ``associative_scan`` and ``lax.scan`` itself.
 * Full-softmax attention (``attn_ref``, ``attn_decode_ref``): they
   materialize the whole score tensor in f32 — the thing the flash kernels
   exist to avoid — and serve as the oracles the flash kernels and their
@@ -169,6 +173,48 @@ def rglru_scan_plain(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
         state = a[:, t] * state + bx[:, t]
         h[:, t] = state
     return h
+
+
+def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor,
+                         gh: torch.Tensor):
+    """Backward of :func:`rglru_scan_plain`: a, h (its output) and gh, the
+    gradient of h, f32 [B, S, w] -> (d_a, d_bx) f32 [B, S, w].  In reverse
+    order from g_S = 0, g_t = gh_t + a_{t+1} g_{t+1} (a multiply then an
+    add), d_bx_t = g_t and d_a_t = g_t h_{t-1} with h_{-1} = 0: the backward
+    kernel's arithmetic, step for step."""
+    d_a = torch.empty_like(a)
+    d_bx = torch.empty_like(a)
+    g = torch.zeros_like(a[:, 0])
+    a_next = torch.zeros_like(a[:, 0])
+    for t in reversed(range(a.shape[1])):
+        g = a_next * g + gh[:, t]
+        d_bx[:, t] = g
+        d_a[:, t] = g * (h[:, t - 1] if t else torch.zeros_like(g))
+        a_next = a[:, t]
+    return d_a, d_bx
+
+
+def ssd_state_scan_bwd_plain(decay: torch.Tensor, h_starts: torch.Tensor,
+                             g_starts: Optional[torch.Tensor],
+                             g_final: Optional[torch.Tensor],
+                             with_h0: bool = False):
+    """Backward of :func:`ssd_state_scan_plain`: decay f32 [B, nc, H]; its
+    output h_starts f32 [B, nc, H, N, hd]; the gradients of h_starts and
+    h_final (``None`` reads as zeros) -> (d_decay f32 [B, nc, H], d_states
+    f32 [B, nc, H, N, hd], d_h0 f32 [B, H, N, hd] or None).  From gh_nc =
+    g_final, in reverse chunk order: d_states_c = gh_{c+1}, d_decay_c =
+    sum over (N, hd) of gh_{c+1} * h_c, gh_c = g_starts_c + decay_c *
+    gh_{c+1} (a multiply then an add); d_h0 = gh_0 when ``with_h0``."""
+    zeros = torch.zeros_like(h_starts[:, 0])
+    gh = zeros if g_final is None else g_final
+    d_states = torch.empty_like(h_starts)
+    d_decay = torch.empty_like(decay)
+    for c in reversed(range(h_starts.shape[1])):
+        d_states[:, c] = gh
+        d_decay[:, c] = (gh * h_starts[:, c]).sum(dim=(-2, -1))
+        gs = zeros if g_starts is None else g_starts[:, c]
+        gh = gs + decay[:, c, :, None, None] * gh
+    return d_decay, d_states, (gh if with_h0 else None)
 
 
 def ssd_state_scan_plain(decay: torch.Tensor, states: torch.Tensor,

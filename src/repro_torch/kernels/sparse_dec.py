@@ -13,7 +13,7 @@ from typing import Dict
 
 import torch
 
-from .build import dtype_code, entry, raise_on, route
+from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import SPARSE_B, sparse_dec_plain
 
 __all__ = ["sparse_dec", "LAUNCHES", "reset_launches"]
@@ -39,6 +39,7 @@ def sparse_dec(v2: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
                          f"{tuple(i2.shape)} {i2.dtype}")
     if route("sparse_dec", v2.device) == "plain":
         return sparse_dec_plain(v2, i2)
+    refuse_grad("sparse_dec", v2)
     code = dtype_code("sparse_dec", v2.dtype)
     if i2.device != v2.device or not (v2.is_contiguous() and
                                       i2.is_contiguous()):

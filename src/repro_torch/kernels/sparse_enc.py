@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .build import dtype_code, entry, raise_on, route
+from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import SPARSE_B, sparse_enc_plain
 
 __all__ = ["sparse_enc", "enc_route", "LAUNCHES", "ENC_ROUTE_LAUNCHES",
@@ -64,6 +64,7 @@ def sparse_enc(flat: torch.Tensor, *, kb: int, threshold: float = 0.0,
     if route("sparse_enc", flat.device) == "plain":
         return sparse_enc_plain(flat, kb, threshold, frame_blocks=fb,
                                 totals=totals)
+    refuse_grad("sparse_enc", flat)
     code = dtype_code("sparse_enc", flat.dtype)
     if not flat.is_contiguous():
         raise ValueError("sparse_enc kernel: contiguous input required")

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .build import dtype_code, entry, raise_on, route
+from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import ssd_decode_step_plain
 
 __all__ = ["ssd_decode_step", "ssd_decode_step_plain", "LAUNCHES",
@@ -85,6 +85,7 @@ def ssd_decode_step(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(h, dt, A, B, C, x, D, active)
     if route("ssd_decode", h.device) == "plain":
         return ssd_decode_step_plain(h, dt, A, B, C, x, D, active)
+    refuse_grad("ssd_decode", h, dt, A, B, C, x, D)
     code = dtype_code("ssd_decode", B.dtype)
     b, nh, n, hd = h.shape
     if THREADS % hd:

@@ -1,1 +1,1 @@
-"""Launch helpers of the port (model serving)."""
+"""Launch helpers of the port: model serving and training."""

@@ -171,7 +171,7 @@ def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def train(params, cfg: ModelConfig, frames: torch.Tensor,
           tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits [B, S, vocab], aux 0).  Forward only."""
+    """-> (logits [B, S, vocab], aux 0); differentiable (autograd)."""
     logits = decode_train(params, cfg, tokens, encode(params, cfg, frames))
     return logits, torch.zeros((), device=logits.device)
 

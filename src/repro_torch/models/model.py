@@ -3,16 +3,18 @@
 Port of ``src/repro/models/model.py``::
 
     init(generator, device) -> params
-    loss(params, batch) -> (scalar, {"ce", "aux"})     # forward only
-    train_logits(params, batch) -> (logits, aux)
+    loss(params, batch, remat) -> (scalar, {"ce", "aux"})  # differentiable
+    train_logits(params, batch, remat) -> (logits, aux)
     prefill(params, batch, max_seq) -> (logits, cache)
     decode_step(params, token, cache) -> (logits, cache)
     init_cache(batch, max_seq, device) -> cache
     input_specs(mode, batch, seq) -> {name: TensorSpec}
 
 Batches are dicts of tensors: ``tokens`` always, ``patches`` for a VLM,
-``frames`` for the encoder-decoder (whisper).  There is no backward here
-(ROADMAP M13).  The ``*_stacked`` methods run the stacked layout of
+``frames`` for the encoder-decoder (whisper).  ``loss`` is differentiated
+by autograd (``launch/steps.py`` builds the train step on it); ``remat``
+checkpoints each decoder block, as in the JAX package (whose encoder-
+decoder ignores it).  The ``*_stacked`` methods run the stacked layout of
 ``transformer.py`` (the JAX package's scanned one); an encoder-decoder has
 none and takes its list-layout methods, as in the JAX package.
 """
@@ -63,16 +65,16 @@ class Model:
             return V.init_params(self.cfg, generator, device)
         return T.init_params(self.cfg, generator, device)
 
-    # -- train (forward only) -----------------------------------------------
-    def train_logits(self, params, batch) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+    # -- train ----------------------------------------------------------------
+    def train_logits(self, params, batch, remat: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.cfg.enc_dec:
             return ED.train(params, self.cfg, batch["frames"],
                             batch["tokens"])
         if self.cfg.frontend == "vision":
             return V.train(params, self.cfg, batch["patches"],
-                           batch["tokens"])
-        return T.lm_train(params, self.cfg, batch["tokens"])
+                           batch["tokens"], remat=remat)
+        return T.lm_train(params, self.cfg, batch["tokens"], remat=remat)
 
     def _loss(self, logits, aux, tokens) -> Tuple[torch.Tensor, Dict]:
         if self.cfg.frontend == "vision":
@@ -83,8 +85,10 @@ class Model:
             ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
         return ce + aux, {"ce": ce, "aux": aux}
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        return self._loss(*self.train_logits(params, batch), batch["tokens"])
+    def loss(self, params, batch, remat: bool = False
+             ) -> Tuple[torch.Tensor, Dict]:
+        return self._loss(*self.train_logits(params, batch, remat),
+                          batch["tokens"])
 
     # -- serve --------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

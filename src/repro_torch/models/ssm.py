@@ -112,9 +112,14 @@ def _ssd_scan(cfg: ModelConfig, p: Dict, xh, B, C, dt,
 
     cum = torch.cumsum(dA_c, dim=2)                         # [B, nc, q, H]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,nc,q,q,H]
+    # exp of the causal entries only: the masked ones (i < j, seg > 0)
+    # overflow to inf at a 128-token chunk, and where(causal, exp(seg), 0),
+    # the JAX package's form, then back-propagates 0 * inf = NaN (its
+    # gradients are NaN at mamba2-130m's chunk).  exp(-inf) = 0 gives the
+    # same forward values, bitwise, and finite gradients.
     causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                    torch.zeros((), device=xh.device))
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                              torch.full((), -torch.inf, device=xh.device)))
 
     # intra-chunk (dual quadratic form): y_intra[i] = Σ_j L[i,j] (C_i·B_j)
     # dt_j x_j

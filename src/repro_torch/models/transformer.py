@@ -6,8 +6,10 @@ Port of ``src/repro/models/transformer.py`` for the layer kinds ``G``
 cache), ``R`` (the RG-LRU recurrent block) and ``S`` (the Mamba-2 SSD
 block, which has no MLP), with MLA attention (``cfg.mla``), MoE MLPs
 (``cfg.is_moe_layer``: the first ``first_dense`` layers stay dense) and
-the int8 KV cache.  ``lm_train`` is forward only (no backward: ROADMAP
-M13).
+the int8 KV cache.  ``lm_train`` is differentiable (autograd; the
+recurrent and SSD layers' scan kernels have their own backward) and takes
+``remat``: each block under ``torch.utils.checkpoint``, as the JAX package
+wraps it in ``jax.checkpoint``.
 
 Two parameter layouts, as in the JAX package:
 
@@ -55,6 +57,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, make_generator, resolve_device
 from . import layers as L
@@ -250,22 +253,32 @@ def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos,
 # list-layout entry points
 # ---------------------------------------------------------------------------
 
-def backbone_train(params, cfg: ModelConfig, x: torch.Tensor
+def _block_remat(p, cfg: ModelConfig, kind: str, x):
+    """:func:`block_train` under activation checkpointing: only the block's
+    input is kept, its inside is recomputed in the backward (the JAX
+    package's ``jax.checkpoint(block_train)``)."""
+    return checkpoint(block_train, p, cfg, kind, x, use_reentrant=False)
+
+
+def backbone_train(params, cfg: ModelConfig, x: torch.Tensor,
+                   remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedded inputs [B, S, d] through every block and the final norm ->
-    (hidden [B, S, d], summed MoE aux).  Forward only."""
+    (hidden [B, S, d], summed MoE aux); ``remat`` checkpoints each
+    block."""
+    fn = _block_remat if remat else block_train
     aux_total = torch.zeros((), device=x.device)
     for i, p in enumerate(params["layers"]):
-        x, aux = block_train(p, cfg, _check_kind(cfg, i), x)
+        x, aux = fn(p, cfg, _check_kind(cfg, i), x)
         aux_total = aux_total + aux
     return L.apply_norm(params["final_norm"], x, cfg), aux_total
 
 
-def lm_train(params, cfg: ModelConfig, tokens: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def lm_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits [B, S, vocab] and the MoE aux loss."""
     h, aux = backbone_train(params, cfg, L.embed(params["embed"], cfg,
-                                                 tokens))
+                                                 tokens), remat)
     return L.unembed(params["embed"], cfg, h), aux
 
 
@@ -513,10 +526,18 @@ def cache_init_stacked(cfg: ModelConfig, batch: int, max_seq: int,
             "prefix": prefix, "groups": stack, "tail": tail}
 
 
-def _row(tree, r: int):
-    """Repeat ``r`` of a stacked tree: views, so in-place writes land in
-    the stacked tensors."""
-    return _map(lambda t: t[r], tree)
+def _rows(tree, repeats: int) -> List:
+    """Every repeat of a stacked tree, as views (in-place writes land in
+    the stacked tensors), one ``unbind`` a leaf: its backward stacks the
+    rows' gradients in one pass, where indexing each row would add a
+    zero-padded copy of the whole leaf to its gradient per row."""
+    if isinstance(tree, dict):
+        kids = {k: _rows(v, repeats) for k, v in tree.items()}
+        return [{k: kids[k][r] for k in tree} for r in range(repeats)]
+    if isinstance(tree, (list, tuple)):
+        kids = [_rows(v, repeats) for v in tree]
+        return [[k[r] for k in kids] for r in range(repeats)]
+    return list(tree.unbind(0))
 
 
 def _unstack(cfg: ModelConfig, prefix: List, stack: List, tail: List
@@ -524,7 +545,8 @@ def _unstack(cfg: ModelConfig, prefix: List, stack: List, tail: List
     """The inverse of :func:`_stack_units`: the per-layer trees in layer
     order, the stacked units' as row views."""
     _, period, repeats, _ = layer_plan(cfg)
-    return list(prefix) + [_row(stack[j], r) for r in range(repeats)
+    rows = [_rows(unit, repeats) for unit in stack] if repeats else []
+    return list(prefix) + [rows[j][r] for r in range(repeats)
                            for j in range(period)] + list(tail)
 
 
@@ -538,15 +560,20 @@ def _list_view(params, cfg: ModelConfig) -> Dict:
     return out
 
 
-def backbone_train_stacked(params, cfg: ModelConfig, x: torch.Tensor
+def backbone_train_stacked(params, cfg: ModelConfig, x: torch.Tensor,
+                           remat: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`backbone_train` over a stacked tree.  Forward only."""
-    return backbone_train(_list_view(params, cfg), cfg, x)
+    """:func:`backbone_train` over a stacked tree.  ``remat`` (the default,
+    as the JAX package checkpoints its scanned unit) checkpoints every
+    block; the JAX package keeps the prefix and tail blocks outside its
+    checkpoint, which changes what is recomputed, not a value."""
+    return backbone_train(_list_view(params, cfg), cfg, x, remat)
 
 
-def lm_train_stacked(params, cfg: ModelConfig, tokens: torch.Tensor
+def lm_train_stacked(params, cfg: ModelConfig, tokens: torch.Tensor,
+                     remat: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return lm_train(_list_view(params, cfg), cfg, tokens)
+    return lm_train(_list_view(params, cfg), cfg, tokens, remat)
 
 
 def lm_prefill_stacked(params, cfg: ModelConfig, tokens, max_seq: int,

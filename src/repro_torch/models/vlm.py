@@ -33,12 +33,12 @@ def _embed(params, cfg: ModelConfig, patches, tokens) -> torch.Tensor:
     return torch.cat([pe, L.embed(params["embed"], cfg, tokens)], dim=1)
 
 
-def train(params, cfg: ModelConfig, patches, tokens
+def train(params, cfg: ModelConfig, patches, tokens, remat: bool = False
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """patches [B, P, d]; tokens [B, S] -> (logits over the P + S
-    positions, aux).  Forward only."""
+    positions, aux); ``remat`` checkpoints each block."""
     h, aux = T.backbone_train(params, cfg, _embed(params, cfg, patches,
-                                                  tokens))
+                                                  tokens), remat)
     return L.unembed(params["embed"], cfg, h), aux
 
 

@@ -92,6 +92,18 @@ def test_the_scan_covers_the_delivery_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: training's modules (M13)
+TRAIN_MODULES = ("optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+                 "data/__init__.py", "data/pipeline.py",
+                 "checkpoint/__init__.py", "checkpoint/ckpt.py",
+                 "launch/steps.py", "launch/train.py")
+
+
+def test_the_scan_covers_the_training_modules():
+    for rel in TRAIN_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -109,7 +121,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.netfault, repro_torch.edge, "
             "repro_torch.models.model, repro_torch.models.moe, "
             "repro_torch.models.mla, repro_torch.models.vlm, "
-            "repro_torch.configs; "
+            "repro_torch.configs, repro_torch.optim, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.launch.steps, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
