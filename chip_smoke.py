@@ -284,6 +284,40 @@ Phases, one result line each (any failure exits non-zero):
    grad norm, every gradient leaf, m and v within 1e-4 |cpu| + 2e-5
    max|cpu leaf|, the parameters within that + 2 lr.
 
+17. mesh-sharded serving (M11) on slots of the one card (a mesh's slots
+   may share a device; no multi-GPU number exists on a one-card machine)
+   — 17a, phase 6's 8 offload clients (quant8, then sparse:0.15) on
+   ``Runtime(mesh=<8 cuda:0 slots>, shard_mode="always")`` for 4 checked
+   and 32 timed ticks: every answer bitwise the meshless runtime's (fused)
+   and the meshless eager-route twin's (the batcher routes codec groups
+   as under a mesh: one stacked host decode, the single-device serve, the
+   serversink's encode), every frame sharded, K1–K4 launches equal to the
+   eager-route twin's, the mesh-placed params one copy on the card; mixed
+   codecs (groups of 4 that do not tile 8 slots serve fused on one
+   device), ``fused_wire=False`` (one sharded batch) and a mid-batch kill
+   (bitwise the fault-free mesh twin), each against its twin;
+   ``shard_mode="auto"`` probes once and its pick prints; the host ms a
+   tick (median of 32) sharded, single on the same wire route and single
+   fused; ``replicated`` over 4 slots allocates nothing.  17b, the
+   sequence-parallel SSD: mamba2-130m whole (24 layers, bf16) at 8 x 2048
+   on a (data 2, model 4) mesh of cuda:0 slots through
+   ``make_prefill_step(model, mesh)``: logits and every cache leaf within
+   2e-2 of each tensor's largest element of the single-device prefill, the
+   same greedy first token in all 8 rows, S2 once a layer a slot; one
+   train step through ``make_train_step(model, mesh)`` (S2's backward once
+   a layer a slot; the loss within 16d's tolerance of the single-device
+   step's and every bf16 gradient leaf within 5e-2 of its leaf's largest
+   element); fp32 at 2 layers of full width: the prefill within 1e-4 of
+   the largest element and the loss and every gradient leaf within 16d's
+   tolerance; the (1, 1) host mesh of ``launch/train.py`` takes the
+   sequence-parallel path in every layer and is bitwise the single-device
+   step.  17c, one mixtral-8x22b MoE block at full width (bf16, 4.8 GB)
+   on 8 x 512 tokens over a (1, 4) mesh of cuda:0 slots: expert-parallel
+   and ``moe_force_tp`` within 2e-2 of max|y| of ``apply_moe`` without a
+   mesh, the aux loss equal, the split weights views (0 bytes); device ms
+   of the dense block, EP and TP.  17d reruns 17a over distinct GPUs when
+   more than one is visible, and otherwise prints that none is.
+
 Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
@@ -5789,6 +5823,558 @@ def phase_train(seed, ptxas):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: mesh-sharded serving (M11) on one card's slots: Runtime(mesh=)
+# with placement by cost, the sequence-parallel SSD and the expert-parallel
+# MoE
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 8
+#: ticks a 17a run is checked over (launches counted), then timed ticks
+MESH_TICKS, MESH_TIMED_TICKS = 4, 32
+#: 17a's mid-batch kill: the first hub dies on its 3rd request of this tick
+MESH_KILL_TICK = 2
+CODEC_KERNELS = ("quantize8", "dequantize8", "sparse_enc", "sparse_dec")
+#: 17b: mamba2-130m whole (bf16) at 8 x 2048 on a (data 2, model 4) mesh
+SP_MODEL, SP_BATCH, SP_SEQ = 4, 8, 2048
+#: 17b's limits, each a share of the single-device tensor's largest
+#: element: bf16 whole model (logits and every cache leaf), fp32 at 2
+#: layers of full width
+SP_BF16_TOL, SP_FP32_TOL = 2e-2, 1e-4
+#: 17b's bf16 train step: every gradient leaf's largest |mesh - single|
+#: as a share of the leaf's largest |single| (16d's allowance is an fp32
+#: one; the fp32 step at 2 layers is held to it)
+SP_BF16_GRAD_SHARE = 5e-2
+#: 17c: one mixtral-8x22b MoE block at full width on a (1, 4) mesh
+MOE_MODEL, MOE_BATCH, MOE_SEQ = 4, 8, 512
+MOE_TOL = 2e-2                 # bf16, a share of max|y|
+
+
+def _mesh_offload(seed, mesh, codecs, ticks, timed=0, fault=False,
+                  eager_route=False, **rt_kw):
+    """Phase 6's offload: client i sends ``codecs[i]`` f32 [1, 512, 2048]
+    frames to the offload-gate server (two servers from one seed with
+    ``fault``, the first killed mid-batch on its 3rd request of tick
+    ``MESH_KILL_TICK``), ``query_batch=8``, on ``Runtime(mesh=mesh,
+    **rt_kw)``.  ``eager_route``: a meshless twin whose batcher routes
+    codec groups as a mesh runtime does (one stacked host decode, the
+    single-device serve, the serversink's encode per answer).  -> (runtime,
+    client runs, server runs, K1–K4 launches over the ``ticks`` checked
+    ticks, host seconds of the ``timed`` ticks after them, the harness)"""
+    import torch
+    from repro_torch.core import parse_launch
+    from repro_torch.device import make_generator
+    from repro_torch.runtime import Device, Runtime
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from chaoslib import Chaos
+    rt = Runtime(device="cuda", mesh=mesh, query_batch=OFFLOAD_CLIENTS,
+                 **rt_kw)
+    servers = []
+    for name in (("hubA", "hubB") if fault else ("hub",)):
+        hub = Device(name, device="cuda")
+        ps = parse_launch(
+            "tensor_query_serversrc operation=act name=ssrc ! "
+            "tensor_filter model=offload-gate ! "
+            "tensor_query_serversink name=ssink")
+        ps.elements["ssink"].pair_with(ps.elements["ssrc"])
+        run = hub.add_pipeline(ps, generator=make_generator(seed, rt.device))
+        rt.add_device(hub)
+        servers.append((hub, run, ps.elements["ssrc"]))
+    if eager_route:
+        for b in rt._batchers.values():
+            b._mesh_may_take = lambda n: True
+    runs = []
+    for i, codec in enumerate(codecs):
+        opt = OFFLOAD_TRANSFORMS[codec].format(m=1 + i / 8)
+        pc = parse_launch(
+            f"testsrc width={OFFLOAD_L} height=1 channels={OFFLOAD_D} ! "
+            f"tensor_converter ! tensor_transform mode=arithmetic "
+            f"option={opt} ! tensor_query_client operation=act "
+            f"codec={codec} name=qc ! appsink name=res")
+        dev = Device(f"cl{i}", device="cuda")
+        runs.append(dev.add_pipeline(pc))
+        rt.add_device(dev)
+    harness = Chaos(rt)
+    if fault:
+        hub, _, ssrc = servers[0]
+        harness.kill_server_mid_batch(MESH_KILL_TICK, hub, ssrc, after_n=3)
+    _reset_launches()
+    harness.run(ticks)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    launches = {k: counts[k] for k in CODEC_KERNELS}
+    secs = _timed_ticks(rt, timed) if timed else []
+    return rt, runs, servers, launches, secs, harness
+
+
+def _same_answers(a, b, what):
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} clients")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(len(x) == len(y), f"{what}: client {i} {len(x)} vs {len(y)} "
+                                f"answers")
+        for t, (u, v) in enumerate(zip(x, y)):
+            same_bits(u, v, f"{what}: client {i} tick {t}")
+
+
+def _qb(rt):
+    return rt.stats()["query_batching"]
+
+
+def _phase_mesh_offload(seed, devices, tag):
+    """17a (and 17d on distinct GPUs): phase 6's offload on a mesh of
+    ``devices`` slots under ``shard_mode="always"`` against its meshless
+    twins: answers bitwise, every frame sharded, K1–K4 launches equal to
+    the meshless eager-route twin's; mixed codecs (groups of 4 that do not
+    tile 8 slots serve fused on one device), ``fused_wire=False``, a
+    mid-batch kill and ``shard_mode="auto"``.  Prints the host ms per tick
+    (median of MESH_TIMED_TICKS) of the sharded runtime and of the
+    single-device ones."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import replicated
+    mesh = make_host_mesh(devices=devices)
+    n_slots = mesh.size
+    total = MESH_TICKS + MESH_TIMED_TICKS
+    out = {"slots": n_slots, "devices": [str(d) for d in
+                                         mesh.distinct_devices()]}
+    launches = {k: 0 for k in CODEC_KERNELS}
+    for codec in ("quant8", "sparse:0.15"):
+        codecs = [codec] * OFFLOAD_CLIENTS
+        _free_card()
+        rt_m, runs_m, srv_m, l_m, s_m, _ = _mesh_offload(
+            seed, mesh, codecs, MESH_TICKS, MESH_TIMED_TICKS,
+            shard_mode="always")
+        ans_m = _answers(runs_m, total, f"{tag} {codec} mesh")
+        qb = _qb(rt_m)
+        want = OFFLOAD_CLIENTS * total if OFFLOAD_CLIENTS % n_slots == 0 \
+            else 0
+        check(qb["sharded_frames"] == want and qb["batched_frames"] ==
+              OFFLOAD_CLIENTS * total,
+              f"{tag} {codec}: sharded {qb['sharded_frames']} of "
+              f"{qb['batched_frames']} frames, expected {want}")
+        rep = next(iter(rt_m._batchers.values()))._mesh_params
+        check(rep is not None and (len(mesh.distinct_devices()) > 1 or
+                                   rep.nbytes() == 0),
+              f"{tag}: the mesh-placed params copy the weights on one card")
+        for k, v in l_m.items():
+            launches[k] += v
+        del rt_m, runs_m, srv_m
+        _free_card()
+        rt_t, runs_t, _, l_t, s_t, _ = _mesh_offload(
+            seed, None, codecs, MESH_TICKS, MESH_TIMED_TICKS)
+        _same_answers(ans_m, _answers(runs_t, total, f"{tag} {codec} twin"),
+                      f"{tag} {codec} mesh vs meshless twin")
+        check(_qb(rt_t)["fused_frames"] == OFFLOAD_CLIENTS * total,
+              f"{tag} {codec}: the twin did not serve fused")
+        del rt_t, runs_t
+        _free_card()
+        rt_e, runs_e, _, l_e, s_e, _ = _mesh_offload(
+            seed, None, codecs, MESH_TICKS, MESH_TIMED_TICKS,
+            eager_route=True)
+        _same_answers(ans_m, _answers(runs_e, total, f"{tag} {codec} eager"),
+                      f"{tag} {codec} mesh vs the eager-route twin")
+        check(l_m == l_e, f"{tag} {codec}: K1–K4 launches {l_m} on the mesh,"
+                          f" {l_e} on the meshless eager route")
+        del rt_e, runs_e, ans_m
+        med = {k: float(np.median(v)) * 1e3 for k, v in
+               (("sharded", s_m), ("single_same_route", s_e),
+                ("single_fused", s_t))}
+        out[codec] = dict(launches=l_m, twin_fused_launches=l_t,
+                          host_ms_per_tick=med,
+                          sharded_frames=qb["sharded_frames"])
+        print(f"phase {tag} {codec}: {OFFLOAD_CLIENTS} clients x {total} "
+              f"ticks on {n_slots} slots of {out['devices']}, every frame "
+              f"sharded, answers bitwise the meshless twins'; K1–K4 "
+              f"launches {l_m} == the meshless eager route's (fused twin "
+              f"{l_t}); host ms/tick, median of {MESH_TIMED_TICKS} (one "
+              f"card's slots, not a multi-GPU speed): sharded "
+              f"{med['sharded']:.2f}, single on the same wire route "
+              f"{med['single_same_route']:.2f}, single fused "
+              f"{med['single_fused']:.2f}")
+    _free_card()
+    # mixed codecs: groups of 4 serve codec-fused on one device
+    mixed = ["quant8"] * 4 + ["sparse:0.15"] * 4
+    rt_x, runs_x, _, l_x, _, _ = _mesh_offload(seed, mesh, mixed,
+                                                MESH_TICKS,
+                                                shard_mode="always")
+    qb = _qb(rt_x)
+    check(qb["sharded_frames"] == 0 and qb["fused_frames"] ==
+          OFFLOAD_CLIENTS * MESH_TICKS,
+          f"{tag} mixed: sharded {qb['sharded_frames']}, fused "
+          f"{qb['fused_frames']}")
+    ans_x = _answers(runs_x, MESH_TICKS, f"{tag} mixed")
+    del rt_x, runs_x
+    _, runs_xt, _, l_xt, _, _ = _mesh_offload(seed, None, mixed, MESH_TICKS)
+    _same_answers(ans_x, _answers(runs_xt, MESH_TICKS, f"{tag} mixed twin"),
+                  f"{tag} mixed codecs vs the meshless twin")
+    check(l_x == l_xt, f"{tag} mixed: launches {l_x} vs {l_xt}")
+    del runs_xt, ans_x
+    # fused_wire=False: mixed codecs stack into one sharded batch
+    rt_f, runs_f, _, l_f, _, _ = _mesh_offload(
+        seed, mesh, mixed, MESH_TICKS, shard_mode="always", fused_wire=False)
+    check(_qb(rt_f)["sharded_frames"] == (OFFLOAD_CLIENTS * MESH_TICKS
+                                          if OFFLOAD_CLIENTS % n_slots == 0
+                                          else 0),
+          f"{tag} fused_wire=False: sharded {_qb(rt_f)['sharded_frames']}")
+    ans_f = _answers(runs_f, MESH_TICKS, f"{tag} eager wire")
+    del rt_f, runs_f
+    _, runs_ft, _, l_ft, _, _ = _mesh_offload(seed, None, mixed, MESH_TICKS,
+                                              fused_wire=False)
+    _same_answers(ans_f, _answers(runs_ft, MESH_TICKS, f"{tag} eager twin"),
+                  f"{tag} fused_wire=False vs the meshless twin")
+    check(l_f == l_ft, f"{tag} fused_wire=False: launches {l_f} vs {l_ft}")
+    del runs_ft, ans_f
+    _free_card()
+    # the mid-batch kill, against the fault-free mesh twin
+    q8 = ["quant8"] * OFFLOAD_CLIENTS
+    ticks_k = MESH_KILL_TICK + 3
+    rt_k, runs_k, srv_k, _, _, harness = _mesh_offload(
+        seed, mesh, q8, ticks_k, fault=True, shard_mode="always")
+    check(any("mid-batch" in label and "DISARMED" not in label
+              for _, label in harness.log), f"{tag}: the kill never fired")
+    fo, qb = rt_k.stats()["failover"], _qb(rt_k)
+    check(fo["redispatches"] >= 1 and fo["parked_now"] == 0 and
+          qb["sharded_frames"] > 0,
+          f"{tag} kill: redispatches {fo['redispatches']}, parked "
+          f"{fo['parked_now']}, sharded {qb['sharded_frames']}")
+    ans_k = _answers(runs_k, ticks_k, f"{tag} kill")
+    del rt_k, runs_k, srv_k
+    runs_kt = _mesh_offload(seed, mesh, q8, ticks_k, shard_mode="always")[1]
+    _same_answers(ans_k, _answers(runs_kt, ticks_k, f"{tag} kill twin"),
+                  f"{tag} mid-batch kill vs the fault-free mesh twin")
+    del runs_kt, ans_k
+    _free_card()
+    # auto: one probe per batch size, answers bitwise whatever it picks
+    rt_a, runs_a, _, _, _, _ = _mesh_offload(seed, mesh, q8, MESH_TICKS)
+    batcher = next(iter(rt_a._batchers.values()))
+    pick = dict(batcher.placements)
+    check(set(pick) == ({OFFLOAD_CLIENTS} if OFFLOAD_CLIENTS % n_slots == 0
+                        else set()),
+          f"{tag} auto: placements {pick}")
+    _same_answers(_answers(runs_a, MESH_TICKS, f"{tag} auto"),
+                  [a[:MESH_TICKS] for a in
+                   _answers(_mesh_offload(seed, None, q8, MESH_TICKS)[1],
+                            MESH_TICKS, f"{tag} auto twin")],
+                  f"{tag} auto vs the meshless twin")
+    qa = _qb(rt_a)
+    del rt_a, runs_a
+    _free_card()
+    out.update(launches=launches, auto_placement=pick,
+               auto_sharded_frames=qa["sharded_frames"],
+               auto_fused_frames=qa["fused_frames"],
+               kill=dict(redispatches=fo["redispatches"]))
+    print(f"phase {tag}: mixed codecs (groups of 4 on {n_slots} slots) "
+          f"serve fused on one device, fused_wire=False shards them, "
+          f"bitwise and K1–K4 launches equal the meshless twins'; a "
+          f"mid-batch kill at tick {MESH_KILL_TICK} ({fo['redispatches']} "
+          f"re-dispatches) is bitwise the fault-free mesh twin; "
+          f"shard_mode=auto picked {pick} (sharded {qa['sharded_frames']}, "
+          f"fused {qa['fused_frames']} frames), bitwise")
+    return out
+
+
+def _replica_memory():
+    """17a: ``replicated`` over 4 slots on the card allocates nothing."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import replicated
+    w = {"w": torch.randn(OFFLOAD_D, OFFLOAD_D, device="cuda"),
+         "b": [torch.randn(OFFLOAD_D, device="cuda")]}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rep = replicated(make_host_mesh(devices=["cuda:0"] * 4), w)
+    after = torch.cuda.memory_allocated()
+    check(after == before and rep.nbytes() == 0 and
+          rep.on(torch.device("cuda", 0))["w"] is w["w"],
+          f"17a: 4 slots on one card hold {after - before} more bytes")
+    return after - before
+
+
+def _on_cpu(tree):
+    import torch
+    from repro_torch.core.buffers import tree_flatten, tree_unflatten
+    leaves, td = tree_flatten(tree)
+    return tree_unflatten(td, [l.detach().cpu() if isinstance(l, torch.Tensor)
+                               else l for l in leaves])
+
+
+def _tree_share(a, b, what):
+    """The largest |a - b| of each float leaf as a share of the leaf's
+    largest |b| (the worst over the leaves)."""
+    import torch
+    from repro_torch.core.buffers import tree_flatten
+    worst = 0.0
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            continue
+        check(x.shape == y.shape, f"{what}: shapes {x.shape} {y.shape}")
+        y = y.float()
+        worst = max(worst, (x.float() - y).abs().max().item()
+                    / max(y.abs().max().item(), 1e-30))
+    return worst
+
+
+def _phase_mesh_ssd(seed):
+    """17b: the sequence-parallel SSD of mamba2-130m whole (24 S layers,
+    bf16) at 8 x 2048 on a (data 2, model 4) mesh of cuda:0 slots (4
+    chunks of 128 a slot): the prefill through ``make_prefill_step(model,
+    mesh)`` against ``make_prefill_step(model)`` (logits and every cache
+    leaf within SP_BF16_TOL of each tensor's largest, the same greedy
+    first token in all 8 rows, S2 once a layer a slot), one train step
+    through ``make_train_step(model, mesh)`` (loss and every gradient leaf
+    against the single-device step's, S2's backward once a layer a slot);
+    fp32 at 2 layers of full width within SP_FP32_TOL (prefill) and 16d's
+    tolerance (gradients); and the (1, 1) host mesh of ``launch/train.py``
+    bitwise the single-device step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as SSM
+    from repro_torch.optim import adamw_init
+    _free_card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 170)
+    mesh = make_host_mesh(SP_MODEL, devices=["cuda:0"] * MESH_SLOTS)
+    slots = mesh.size
+    out = {}
+    cfg = get_config("mamba2-130m")
+    n_ssd = _ssd_layers(cfg)
+    model = build_model(cfg)
+    params = model.init_stacked(make_generator(seed, dev), dev)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SP_BATCH, SP_SEQ)).astype(np.int32), device=dev)}
+    single_fn = ST.make_prefill_step(model)
+    mesh_fn = ST.make_prefill_step(model, mesh)
+    with torch.no_grad():
+        logits0, cache0 = single_fn(params, batch)
+        _reset_launches()
+        logits1, cache1 = mesh_fn(params, batch)
+        s2 = ss.LAUNCHES["ssd_state_scan"]
+        ms_single = cuda_ms(lambda: single_fn(params, batch), 3, 1)
+        ms_mesh = cuda_ms(lambda: mesh_fn(params, batch), 3, 1)
+    check(s2 == n_ssd * slots, f"17b: S2 launches {s2} in the mesh prefill, "
+                               f"expected {n_ssd} x {slots}")
+    l_share = _tree_share(logits1, logits0, "17b logits")
+    c_share = _tree_share(cache1, cache0, "17b cache")
+    tok0, tok1 = logits0.argmax(-1), logits1.argmax(-1)
+    check(l_share <= SP_BF16_TOL and c_share <= SP_BF16_TOL,
+          f"17b bf16 prefill: logits {l_share:.2e}, cache {c_share:.2e} of "
+          f"the largest, limit {SP_BF16_TOL:g}")
+    check(torch.equal(tok0, tok1), f"17b: greedy first tokens {tok1.tolist()}"
+                                   f" vs {tok0.tolist()}")
+    del logits0, logits1, cache0, cache1
+    # one train step, mesh vs single (the loss and value_and_grad first)
+    loss_fn = ST.train_loss_fn(model)
+    (l0, _), g0 = ST.value_and_grad(loss_fn, params, batch)
+    with ST.step_rules(cfg, mesh):
+        (l1, _), g1 = ST.value_and_grad(loss_fn, params, batch)
+    g0, l0c = _on_cpu(g0), l0.cpu()
+    bf16_grad = _train_excess(g1, g0, "17b bf16 gradients")
+    bf16_loss = _train_excess(l1, l0c, "17b bf16 loss")
+    grad_share = _train_share(g1, g0)
+    leaves0, leaves1 = _leaves(g0), _leaves(g1)
+    shares = [_train_share(a, b) for a, b in zip(leaves1, leaves0)]
+    worst_leaf = int(np.argmax(shares))
+    worst_shape = tuple(leaves0[worst_leaf].shape)
+    check(bf16_loss <= 0 and grad_share <= SP_BF16_GRAD_SHARE,
+          f"17b bf16 train step: loss excess {bf16_loss:.2e}, largest "
+          f"gradient difference {grad_share:.2e} of its leaf's largest "
+          f"(limit {SP_BF16_GRAD_SHARE:g})")
+    del g0, g1, leaves0, leaves1
+    step = ST.make_train_step(model, mesh)
+    opt = adamw_init(params)
+    _reset_launches()
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)
+    loss_step = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    bwd = ss.LAUNCHES["ssd_state_scan_bwd"]
+    check(bwd == n_ssd * slots, f"17b: S2 backward launches {bwd} in the "
+                                f"mesh step, expected {n_ssd} x {slots}")
+    check(np.isfinite(loss_step) and abs(loss_step - float(l1)) <=
+          1e-6 * abs(float(l1)) + 1e-6,
+          f"17b: the mesh step's loss {loss_step} vs {float(l1)}")
+    out["bf16"] = dict(logits_share=l_share, cache_share=c_share,
+                       greedy=tok0.tolist(), s2_launches=s2,
+                       s2_bwd_launches=bwd, prefill_ms_single=ms_single,
+                       prefill_ms_mesh=ms_mesh, loss_excess=bf16_loss,
+                       grad_excess=bf16_grad, grad_share=grad_share,
+                       worst_leaf=worst_leaf, worst_leaf_shape=worst_shape,
+                       step_s=step_s)
+    print(f"phase 17b mamba2-130m (24 SSD layers, bf16) {SP_BATCH} x "
+          f"{SP_SEQ} on a (data 2, model {SP_MODEL}) mesh of cuda:0 slots "
+          f"({SP_SEQ // SP_MODEL // cfg.ssm_chunk} chunks a slot): prefill "
+          f"logits {l_share:.2e}, cache {c_share:.2e} of the largest (limit "
+          f"{SP_BF16_TOL:g}), greedy first tokens equal in all "
+          f"{SP_BATCH} rows, S2 {s2} launches (24 x {slots}); train step: "
+          f"loss within 16d's tolerance ({bf16_loss:.2e}), the largest "
+          f"gradient difference {grad_share:.2e} of its leaf's largest "
+          f"(limit {SP_BF16_GRAD_SHARE:g}; leaf {worst_leaf} of shape "
+          f"{worst_shape}; over 16d's fp32 allowance by {bf16_grad:.2e}), "
+          f"S2 backward {bwd} launches; device ms "
+          f"of a prefill: single {ms_single:.2f}, mesh {ms_mesh:.2f} (one "
+          f"card's slots)")
+    del params, opt, metrics
+    _free_card()
+    # fp32, 2 layers at full width: the hard limits
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    m32 = build_model(cfg32)
+    p32 = m32.init_stacked(make_generator(seed, dev), dev)
+    b32 = {"tokens": batch["tokens"][:, :512]}
+    with torch.no_grad():
+        lg0, c0 = ST.make_prefill_step(m32)(p32, b32)
+        lg1, c1 = ST.make_prefill_step(m32, mesh)(p32, b32)
+    f32_share = max(_tree_share(lg1, lg0, "17b fp32 logits"),
+                    _tree_share(c1, c0, "17b fp32 cache"))
+    check(f32_share <= SP_FP32_TOL, f"17b fp32: {f32_share:.2e} of the "
+                                    f"largest, limit {SP_FP32_TOL:g}")
+    lf32 = ST.train_loss_fn(m32)
+    (fl0, _), fg0 = ST.value_and_grad(lf32, p32, b32)
+    with ST.step_rules(cfg32, mesh):
+        (fl1, _), fg1 = ST.value_and_grad(lf32, p32, b32)
+    f32_grad = max(_train_excess(fg1, _on_cpu(fg0), "17b fp32 gradients"),
+                   _train_excess(fl1, fl0.cpu(), "17b fp32 loss"))
+    check(f32_grad <= 0, f"17b fp32: loss/gradients exceed 16d's tolerance "
+                         f"by {f32_grad:.2e}")
+    del p32, fg0, fg1
+    # the launcher's (1, 1) host mesh: one slot, bitwise
+    host = make_host_mesh(devices=[dev])
+    taken = []
+    orig = SSM._ssm_prefill_seq_parallel
+
+    def spy(*a, **k):
+        taken.append(a[3].shape)
+        return orig(*a, **k)
+    params = model.init_stacked(make_generator(seed, dev), dev)
+    (h0, _), hg0 = ST.value_and_grad(loss_fn, params, batch)
+    SSM._ssm_prefill_seq_parallel = spy
+    try:
+        with ST.step_rules(cfg, host):
+            (h1, _), hg1 = ST.value_and_grad(loss_fn, params, batch)
+    finally:
+        SSM._ssm_prefill_seq_parallel = orig
+    check(len(taken) == 2 * n_ssd and all(s == {"data": 1, "model": 1}
+                                          for s in taken),
+          f"17b: the host-mesh step took the sequence-parallel path "
+          f"{len(taken)} times, expected {2 * n_ssd}")
+    from repro_torch.core.buffers import tree_flatten
+    check(torch.equal(h0, h1) and all(
+        torch.equal(a, b) for a, b in zip(tree_flatten(hg0)[0],
+                                          tree_flatten(hg1)[0])),
+        "17b: the (1, 1) host mesh's step is not bitwise the single-device "
+        "step")
+    del params, hg0, hg1
+    _free_card()
+    out.update(fp32_share=f32_share, fp32_grad_excess=f32_grad,
+               host_mesh_bitwise=True,
+               launches={"ssd_state_scan": s2, "ssd_state_scan_bwd": bwd})
+    print(f"phase 17b fp32 mamba2-130m at 2 layers of full width, 8 x 512: "
+          f"mesh within {f32_share:.2e} of the largest (limit "
+          f"{SP_FP32_TOL:g}), loss and gradients within 16d's tolerance "
+          f"(excess {f32_grad:.2e}); the (1, 1) host mesh of launch/train.py"
+          f" takes the sequence-parallel path (m = 1) in all {n_ssd} layers "
+          f"and its loss and gradients are bitwise the single-device step's")
+    return out
+
+
+def _phase_mesh_moe(seed):
+    """17c: one mixtral-8x22b MoE block at full width (d 6144, 8 experts,
+    f 16384, bf16) on 8 x 512 tokens over a (1, 4) mesh of cuda:0 slots:
+    expert-parallel (8 % 4 == 0) and ``moe_force_tp`` (f split 4 ways),
+    each within MOE_TOL of max|y| of ``apply_moe`` without a mesh, the
+    aux loss equal; the slots' expert weights are views (no device bytes);
+    device ms of each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import P, make_host_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.sharding import sharding_rules
+    _free_card()
+    dev = torch.device("cuda")
+    cfg = get_config("mixtral-8x22b")
+    p = MOE.moe_init(make_generator(seed, dev), cfg, dev)
+    weight_gb = sum(t.numel() * t.element_size() for t in
+                    (p["w_up"], p["w_gate"], p["w_down"])) / 1e9
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model),
+                    generator=make_generator(seed + 17, dev),
+                    device=dev).to(torch.bfloat16)
+    mesh = make_host_mesh(MOE_MODEL, devices=["cuda:0"] * MOE_MODEL)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    parts = [spmd.split(p[k], mesh, spec) for k, spec in
+             (("w_up", P("model", None, None)),
+              ("w_gate", P(None, None, "model")),
+              ("w_down", P(None, "model", None)))]
+    grew = torch.cuda.memory_allocated() - before
+    check(grew == 0, f"17c: splitting the experts over {MOE_MODEL} slots "
+                     f"allocated {grew} bytes")
+    del parts
+    out = {"weight_gb": weight_gb, "split_bytes": grew}
+    with torch.no_grad():
+        y0, a0 = MOE.apply_moe(p, cfg, x)
+        out["dense_ms"] = cuda_ms(lambda: MOE.apply_moe(p, cfg, x), 3, 1)
+        for tag, c in (("EP", cfg),
+                       ("TP", dataclasses.replace(cfg, moe_force_tp=True))):
+            def run(c=c):
+                with sharding_rules(batch="data", __mesh__=mesh):
+                    return MOE.apply_moe(p, c, x)
+            y, a = run()
+            share = _tree_share(y, y0, f"17c {tag}")
+            check(share <= MOE_TOL and torch.isfinite(y.float()).all(),
+                  f"17c {tag}: {share:.2e} of max|y|, limit {MOE_TOL:g}")
+            check(abs(float(a) - float(a0)) <= 1e-6 * abs(float(a0)),
+                  f"17c {tag}: aux {float(a)} vs {float(a0)}")
+            out[tag] = dict(share=share, ms=cuda_ms(run, 3, 1))
+    print(f"phase 17c mixtral-8x22b MoE block (d {cfg.d_model}, "
+          f"{cfg.n_experts} experts, f {cfg.d_ff_expert}, bf16, "
+          f"{weight_gb:.2f} GB) on {MOE_BATCH} x {MOE_SEQ} tokens over a "
+          f"(1, {MOE_MODEL}) mesh of cuda:0 slots: expert-parallel "
+          f"{out['EP']['share']:.2e}, intra-expert TP "
+          f"{out['TP']['share']:.2e} of max|y| (limit {MOE_TOL:g}), aux "
+          f"equal; the slots' weights are views (0 bytes); device ms: dense "
+          f"{out['dense_ms']:.2f}, EP {out['EP']['ms']:.2f}, TP "
+          f"{out['TP']['ms']:.2f} (one card's slots)")
+    del p, x, y0
+    _free_card()
+    return out
+
+
+def phase_mesh(seed):
+    """Phase 17: mesh-sharded serving (module docstring)."""
+    import torch
+    rows = {}
+    t0 = time.perf_counter()
+    rows["17a"] = _phase_mesh_offload(seed, ["cuda:0"] * MESH_SLOTS, "17a")
+    rows["17a"]["replica_bytes"] = _replica_memory()
+    print(f"phase 17a wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["17b"] = _phase_mesh_ssd(seed)
+    print(f"phase 17b wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["17c"] = _phase_mesh_moe(seed)
+    print(f"phase 17c wall {time.perf_counter() - t0:.1f} s")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        rows["17d"] = _phase_mesh_offload(
+            seed, [f"cuda:{i}" for i in range(n)], "17d")
+        print(f"phase 17d wall {time.perf_counter() - t0:.1f} s")
+    else:
+        rows["17d"] = None
+        print("phase 17d: one CUDA device is visible, so no multi-GPU "
+              "number exists on this machine; every phase 17 time is one "
+              "card's slots")
+    rows["launches"] = {**rows["17a"]["launches"], **rows["17b"]["launches"]}
+    return rows
+
+
 def _to_numpy(tree):
     if tree is None:
         return None
@@ -5856,6 +6442,8 @@ def main(argv=None):
     wall("15")
     trained = phase_train(args.seed, ptxas)
     wall("16")
+    meshed = phase_mesh(args.seed)
+    wall("17")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -5961,6 +6549,10 @@ def main(argv=None):
             for name, r in zoo["14a"].items()
             if name.startswith("K5" if row["name"] == "flash_attention"
                                else "K6")}
+    # K1–K4 carry the sharded offload (17a), S2 and its backward the
+    # sequence-parallel prefill and train step (17b)
+    for row in kernels[:4] + [kernels[7], kernels[10]]:
+        row["launches_phase17"] = meshed["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5976,7 +6568,7 @@ def main(argv=None):
                                    "failover": failover,
                                    "staged": staged, "qos": qos,
                                    "lossy": lossy, "zoo": zoo, "ssd": ssd,
-                                   "train": trained},
+                                   "train": trained, "mesh": meshed},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -112,9 +112,21 @@ class QueryBatcher:
     grouping and restored on every answer.  Liveness is re-checked before
     every group: a death that lands mid-flush leaves the groups still in
     the batcher's hands to the orphan ledger (``on_orphans``), never to
-    the dead server.  The mesh placement of the JAX package waits
-    (ROADMAP M11).  A request's numpy tensors (an edge client's frame)
+    the dead server.  A request's numpy tensors (an edge client's frame)
     become tensors on the run's device on ingest.
+
+    Mesh placement (DESIGN.md §4): with a ``mesh``, a group whose size
+    tiles the mesh's data slots on a plan without cross-frame state
+    (``plan.shardable_batch``) may serve through
+    ``plan.compiled_serve_batch(mesh=...)``, one frame slice a data slot;
+    every other group serves single-device, and the answers are bitwise
+    the same either way.  Placement is a cost decision: ``shard_mode=
+    "auto"`` probes both executables once per batch size on the batch at
+    hand and keeps the faster (:attr:`placements`), ``"always"`` and
+    ``"never"`` force it.  A codec group the mesh may take keeps the
+    eager wire path (a stacked host decode, the placed serve, the
+    serversink's encode per answer): codec fusion is single-device.  A
+    batch size whose probe picked ``"single"`` serves codec-fused again.
 
     ``qos`` is the runtime's admission policy: each flush round first
     expires queued requests past their deadline, and a round whose serve
@@ -124,16 +136,29 @@ class QueryBatcher:
     def __init__(self, endpoint: QueryServerEndpoint, run: Any,
                  policy: BatchingPolicy,
                  inline_step: Optional[Callable[[], Any]] = None,
-                 fused: bool = True,
+                 mesh=None, shard_mode: str = "auto", fused: bool = True,
                  on_orphans: Optional[Callable[[int], None]] = None, *,
                  qos: Optional[QoSConfig] = None,
                  clock: Optional[Callable[[], int]] = None):
+        if shard_mode not in ("auto", "always", "never"):
+            raise ValueError(f"shard_mode {shard_mode!r} not in "
+                             f"('auto', 'always', 'never')")
         self.endpoint = endpoint
         self.run = run
         self.policy = policy
         self.inline_step = inline_step
         #: codec-fused serving; False = decode, serve, encode per request
         self.fused = fused
+        #: the mesh batches may be laid out on (None: single-device)
+        self.mesh = mesh
+        #: placement policy (class docstring)
+        self.shard_mode = shard_mode
+        #: batch size -> "sharded" | "single", probed in auto mode
+        self.placements: Dict[int, str] = {}
+        #: the server params on the mesh (one copy per distinct device),
+        #: placed at the first sharded serve and kept: placing them per
+        #: flush would cost more than the serve
+        self._mesh_params = None
         #: called with the number of admitted requests a dying endpoint
         #: abandons (the runtime's orphan ledger; the paused frames
         #: re-dispatch from their PendingQuery records)
@@ -147,6 +172,8 @@ class QueryBatcher:
         self.batches = 0
         self.batched_frames = 0
         self.sequential_frames = 0
+        self.sharded_batches = 0
+        self.sharded_frames = 0
         self.fused_batches = 0
         self.fused_frames = 0
         self.orphaned = 0
@@ -200,8 +227,16 @@ class QueryBatcher:
                     # died mid-flush: the rest was popped, never served
                     self._shed_flush_remainder(recs[idx:])
                     break
-                if codec is None or codec.partition(":")[0] == "none":
-                    self._serve_batched(pairs)    # eager, or nothing to fuse
+                if codec is None:
+                    self._serve_batched(pairs)    # the eager path
+                elif codec.partition(":")[0] == "none" or \
+                        self._mesh_may_take(len(pairs)):
+                    # nothing to fuse, or the mesh may place the group:
+                    # dense frames from one stacked decode (identity for
+                    # none), answers encoded by the serversink
+                    decoded = comp.decode_batch([c for c, _ in pairs], codec)
+                    self._serve_batched([(dec, routing) for dec, (_, routing)
+                                         in zip(decoded, pairs)])
                 else:
                     self._serve_batched_wire(pairs, codec)
                 for rec in recs[idx:idx + len(pairs)]:
@@ -279,10 +314,12 @@ class QueryBatcher:
         return n
 
     def on_reconfig(self):
-        """The served pipeline was hot-swapped under this batcher.  The
-        stateless batcher keeps nothing of the old epoch (its plan and
-        params are always read through ``run``); the JAX package drops its
-        mesh placements here (ROADMAP M11)."""
+        """The served pipeline was hot-swapped under this batcher: the
+        calibrated placements and the mesh-placed params belong to the old
+        plan and params, so the next flush probes and places again (the
+        plan itself is always read through ``run``)."""
+        self.placements.clear()
+        self._mesh_params = None
 
     # -- gather & grouping -----------------------------------------------------
     def _decode(self, raw: StreamBuffer) -> Tuple[StreamBuffer, Dict]:
@@ -358,14 +395,97 @@ class QueryBatcher:
         with its routing restored."""
         run = self.run
         plan = run.pipe.plan
+        n = len(group)
         src = plan.query_sources[0].name
         frames_in = tuple({src: clean} for clean, _ in group)
-        serve = plan.compiled_serve_batch() if run.jit else plan.serve_batch
-        frames_out, run.state = serve(run.params, run.state, frames_in)
+        use_mesh = self._pick_placement(n, frames_in)
+        serve = self._serve_fn(use_mesh)
+        params = self._mesh_placed_params() if use_mesh else run.params
+        frames_out, run.state = serve(params, run.state, frames_in)
         for (_, routing), frame in zip(group, frames_out):
             self._route(frame, routing)
             run.frames += 1
-        self._count(len(group))
+        if use_mesh:
+            self.sharded_batches += 1
+            self.sharded_frames += n
+        self._count(n)
+
+    def _serve_fn(self, use_mesh: bool) -> Callable:
+        """The serve for a group: the cached executable (mesh or single),
+        or the plan's eager ``serve_batch`` for a run added with
+        ``jit=False``."""
+        run = self.run
+        plan = run.pipe.plan
+        mesh = self.mesh if use_mesh else None
+        if run.jit:
+            return plan.compiled_serve_batch(mesh=mesh)
+
+        def serve(params, state, frames):
+            return plan.serve_batch(params, state, frames, mesh=mesh)
+        return serve
+
+    # -- placement -------------------------------------------------------------
+    def _mesh_may_take(self, n: int) -> bool:
+        """Whether mesh placement might claim a group of ``n``: such groups
+        need dense frames (the probe and the sharded serve take them), so
+        they keep the eager wire path.  A size whose probe already said
+        "single" is not claimed: it serves codec-fused."""
+        if self.mesh is None or self.shard_mode == "never":
+            return False
+        if not self.run.pipe.plan.shardable_batch(n, self.run.state,
+                                                  self.mesh):
+            return False
+        return self.shard_mode == "always" or \
+            self.placements.get(n) != "single"
+
+    def _pick_placement(self, n: int, frames_in: Tuple) -> bool:
+        """Whether this group serves through the mesh executable: groups
+        the mesh cannot take serve single-device; the others follow
+        ``shard_mode``, probed once per batch size in auto mode."""
+        if self.mesh is None or not self.run.pipe.plan.shardable_batch(
+                n, self.run.state, self.mesh):
+            return False
+        if self.shard_mode != "auto":
+            return self.shard_mode == "always"
+        dec = self.placements.get(n)
+        if dec is None:
+            dec = self._calibrate(n, frames_in)
+        return dec == "sharded"
+
+    def _mesh_placed_params(self):
+        """The server params replicated on the mesh (one copy per distinct
+        device), placed once and reused by every sharded serve."""
+        if self._mesh_params is None:
+            from ..launch.shardings import replicated
+            self._mesh_params = replicated(self.mesh, self.run.params)
+        return self._mesh_params
+
+    def _calibrate(self, n: int, frames_in: Tuple) -> str:
+        """Serve this very batch through both executables and keep the
+        faster for this size.  Both are bitwise correct and the plan is
+        stateless (shardable), so the probe serves are discarded warm-ups:
+        one untimed call each (it also makes the CUDA graph bindings),
+        then the best of three, each between device synchronizations so
+        the time is the work's, not the launches'."""
+        run = self.run
+        sync = _synchronizer(run.params)
+        best = {}
+        for label, use_mesh, params in (
+                ("sharded", True, self._mesh_placed_params()),
+                ("single", False, run.params)):
+            fn = self._serve_fn(use_mesh)
+            fn(params, run.state, frames_in)
+            ts = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                fn(params, run.state, frames_in)
+                sync()
+                ts.append(time.perf_counter() - t0)
+            best[label] = min(ts)
+        dec = "sharded" if best["sharded"] <= best["single"] else "single"
+        self.placements[n] = dec
+        return dec
 
     def _serve_batched_wire(self, pairs: List[Tuple[StreamBuffer, Dict]],
                             codec: str):
@@ -461,7 +581,8 @@ class QueryBatcher:
         return {"flushes": self.flushes, "batches": self.batches,
                 "batched_frames": self.batched_frames,
                 "sequential_frames": self.sequential_frames,
-                "sharded_batches": 0, "sharded_frames": 0,   # ROADMAP M11
+                "sharded_batches": self.sharded_batches,
+                "sharded_frames": self.sharded_frames,
                 "fused_batches": self.fused_batches,
                 "fused_frames": self.fused_frames,
                 "flush_orphans": self.orphaned,
@@ -472,6 +593,19 @@ class QueryBatcher:
 
     def tenant_stats(self) -> Dict[str, Dict]:
         return self.admission.stats()
+
+
+def _synchronizer(params) -> Callable[[], None]:
+    """A device synchronization for the devices under ``params`` (every
+    CUDA device when one is there), a no-op on the CPU."""
+    from .buffers import tree_flatten
+    if any(isinstance(l, torch.Tensor) and l.is_cuda
+           for l in tree_flatten(params)[0]):
+        def sync():
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        return sync
+    return lambda: None
 
 
 class StreamingQueryBatcher(QueryBatcher):

@@ -406,8 +406,8 @@ class ModelServeStageElement(ModelServeElement):
         already served returns the memoized (out, cache) instead of
         advancing the parked cache a second time.  The memo keeps the last
         64 ids.  ``hop_id=None`` (no delivery id) is a plain
-        :meth:`host_stage_decode`; the port's hops carry no delivery id
-        until the delivery layer (ROADMAP M10)."""
+        :meth:`host_stage_decode`.  A decode hop's delivery id is its
+        ``dseq``, which the stage batcher passes (DESIGN.md §10)."""
         if hop_id is None:
             return self.host_stage_decode(params, x, cache, slot)
         if self._hop_memo is None:

@@ -30,7 +30,19 @@ interpreter (``Pipeline.step_interpreted``):
   :class:`~.graphs.GraphedCallable`: the eager function on the CPU, CUDA
   graphs on the card, where the JAX package jits.  Donation
   (``donate=None``) is on when the card is the default device, as the JAX
-  package donates on gpu/tpu.  Mesh sharding waits (ROADMAP M11).
+  package donates on gpu/tpu.
+
+Mesh sharding (DESIGN.md §4): ``step_n``, ``serve_batch`` and their
+compiled entries take a :class:`~..launch.mesh.Mesh`.  When the frame
+count tiles the mesh's data axes and the plan threads no cross-frame state
+(:meth:`ExecutionPlan.shardable_batch`), each data slot runs the
+single-device ``step_n`` over its own contiguous frame slice (the cached
+single-device entry: one CUDA-graph binding serves every slot of a
+device, each slice copied into its inputs) and the outputs are gathered in
+slot order, so frame ``i`` is bitwise the single-device result.  Anything
+else falls back to the single-device path inside the same callable.  The
+mesh entries are cached under the mesh's fingerprint, so reconnecting with
+the same mesh builds nothing and two meshes never share an entry.
 
 Every path serves the DAG once per frame, at the frame's own shapes, so a
 model sees the same GEMM shapes whether a request was served alone, in a
@@ -38,17 +50,19 @@ batch, fused or eager: that is what makes the paths agree bitwise.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .buffers import (StreamBuffer, stack_buffers, structure_key,
-                      tree_flatten, unstack_buffers)
+                      tree_flatten, tree_unflatten, unstack_buffers)
 from .element import Element, PipelineContext
 from .graphs import GraphedCallable
 
-__all__ = ["ExecutionPlan", "PendingQuery", "PlanOp",
+__all__ = ["ExecutionPlan", "MeshCallable", "PendingQuery", "PlanOp",
            "clear_executable_cache", "executable_cache_info",
            "release_bindings", "tensor_ptrs"]
 
@@ -118,6 +132,75 @@ def executable_cache_info() -> Dict[str, int]:
     fns = [f for e in _EXEC_CACHE.values() for f in e["fns"].values()]
     return {"fingerprints": len(_EXEC_CACHE), "executables": len(fns),
             "graphs": sum(f.graphs() for f in fns)}
+
+
+class MeshCallable:
+    """A mesh entry of the executable registry: a plain function that
+    splits a batch over the data slots and calls the single-device entries
+    (which hold the CUDA graphs), so it holds no graph of its own."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+    def release(self):
+        pass
+
+    def release_on(self, ptrs) -> int:
+        return 0
+
+    def graphs(self) -> int:
+        return 0
+
+
+def _params_of(params):
+    """The params tree itself, for a mesh-replicated copy
+    (``launch.spmd.Replicated``) handed to a single-device path."""
+    return params.tree if hasattr(params, "by_device") else params
+
+
+def _n_frames(stacked) -> int:
+    leaves = tree_flatten(stacked)[0]
+    return int(leaves[0].shape[0]) if leaves else 0
+
+
+def _data_slots(mesh, dp):
+    """(slot's linear index over the data axes, slot index) for the slots
+    at position 0 of every other axis, in data order."""
+    from ..launch.spmd import slots
+    sizes = mesh.shape
+    out = []
+    for idx, pos in slots(mesh):
+        if any(pos[a] for a in mesh.axis_names if a not in dp):
+            continue
+        k = 0
+        for a in dp:
+            k = k * sizes[a] + pos[a]
+        out.append((k, idx))
+    return sorted(out)
+
+
+def _frame_slice(leaf, start: int, n: int, device):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.narrow(0, start, n).to(device)
+    if isinstance(leaf, np.ndarray):
+        return leaf[start:start + n]
+    return leaf
+
+
+def _concat(cols, device):
+    if isinstance(cols[0], torch.Tensor):
+        return torch.cat([c.to(device) if device is not None else c
+                          for c in cols])
+    return np.concatenate([np.asarray(c) for c in cols])
+
+
+def _on(device):
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class ExecutionPlan:
@@ -294,15 +377,24 @@ class ExecutionPlan:
     def step_n(self, params: dict, state: dict,
                inputs: Optional[Dict[str, StreamBuffer]] = None,
                n: Optional[int] = None, hoist_io: bool = False,
-               hoist_queries: bool = False
+               hoist_queries: bool = False, mesh=None
                ) -> Tuple[Dict[str, StreamBuffer], dict]:
         """An N-frame burst.  ``inputs`` maps source names to *stacked*
         buffers (leading frame axis, :func:`stack_buffers`); self-driven
         pipelines pass ``n`` instead.  Runs the frames in order, threading
         state, and returns (stacked outputs, final state): frame ``i`` of
-        the outputs is bitwise the ``i``-th sequential :meth:`run`."""
+        the outputs is bitwise the ``i``-th sequential :meth:`run`.
+
+        With ``mesh``, a burst that :meth:`shardable_batch` admits runs
+        one contiguous frame slice a data slot (:meth:`_step_n_sharded`);
+        anything else runs here unchanged."""
         if inputs is None and n is None:
             raise ValueError("step_n needs stacked `inputs` or a length `n`")
+        if mesh is not None and inputs is not None and \
+                self.shardable_batch(_n_frames(inputs), state, mesh):
+            return self._step_n_sharded(params, state, inputs, mesh,
+                                        hoist_io, hoist_queries, None)
+        params = _params_of(params)
         frames = (unstack_buffers(inputs, n) if inputs is not None
                   else [None] * n)
         outs = []
@@ -312,13 +404,79 @@ class ExecutionPlan:
             outs.append(o)
         return stack_buffers(outs), state
 
+    @staticmethod
+    def shardable_batch(n: int, state: dict, mesh) -> bool:
+        """True when an ``n``-frame burst can be laid out along ``mesh``'s
+        data axes without changing semantics: more than one data slot, a
+        frame count that tiles them evenly, and no cross-frame state (a
+        state with tensor leaves threads through the frames in FIFO order;
+        splitting it would change what frame ``i`` sees)."""
+        if mesh is None or n <= 0:
+            return False
+        if tree_flatten(state)[0]:
+            return False
+        from ..launch.mesh import data_axis_size
+        d = data_axis_size(mesh)
+        return d > 1 and n % d == 0
+
+    def _step_n_sharded(self, params, state: dict, inputs, mesh,
+                        hoist_io: bool, hoist_queries: bool,
+                        donate: Optional[bool]
+                        ) -> Tuple[Dict[str, StreamBuffer], dict]:
+        """One contiguous frame slice a data slot, in slot order: the slice
+        moves to the slot's device, runs the single-device ``step_n`` there
+        (its cached entry when ``donate`` is not None, else the eager
+        method) with that device's copy of the params, and the stacked
+        outputs are gathered back on the inputs' device.  Slots along the
+        other axes hold the same slice, so one of them computes it.  Only
+        called when :meth:`shardable_batch` holds: the state has no
+        leaves, so no carry crosses a slice boundary."""
+        from ..launch.mesh import data_axes
+        from ..launch.spmd import to_device
+        data_slots = _data_slots(mesh, data_axes(mesh))
+        n_local = _n_frames(inputs) // len(data_slots)
+        leaves, td = tree_flatten(inputs)
+        home = next((l.device for l in leaves
+                     if isinstance(l, torch.Tensor)), None)
+        if donate is None:
+            def fn(p, s, local):
+                return self.step_n(p, s, local, hoist_io=hoist_io,
+                                   hoist_queries=hoist_queries)
+        else:
+            fn = self.compiled_step_n(hoist_io=hoist_io,
+                                      hoist_queries=hoist_queries,
+                                      donate=donate)
+        parts = []
+        for k, idx in data_slots:
+            dev = mesh.devices[idx]
+            local = tree_unflatten(td, [_frame_slice(l, k * n_local, n_local,
+                                                     dev) for l in leaves])
+            p = params.on(dev) if hasattr(params, "on") else \
+                to_device(params, dev)
+            with _on(dev):
+                parts.append(fn(p, state, local)[0])
+        flat = [tree_flatten(o) for o in parts]
+        cols = zip(*[lv for lv, _ in flat])
+        gathered = [_concat(c, home) for c in cols]
+        # no state leaves: the carry is pure structure, returned as is
+        return tree_unflatten(flat[0][1], gathered), dict(state)
+
     # -- batched serving -------------------------------------------------------
-    def serve_batch(self, params: dict, state: dict, frames: Tuple
-                    ) -> Tuple[Tuple, dict]:
+    def serve_batch(self, params: dict, state: dict, frames: Tuple,
+                    mesh=None) -> Tuple[Tuple, dict]:
         """Serve N query requests: ``frames`` is a tuple of
         ``{serversrc_name: StreamBuffer}`` dicts; returns (per-frame
         outputs, final state), frame ``i`` being the ``i``-th sequential
-        hoisted ``run``."""
+        hoisted ``run``.  With ``mesh``, a batch that
+        :meth:`shardable_batch` admits is stacked and served through the
+        sharded ``step_n``; every other batch, every stateful plan
+        included, serves here frame by frame."""
+        if self.shardable_batch(len(frames), state, mesh):
+            outs, final = self.step_n(params, state, stack_buffers(frames),
+                                      hoist_io=True, hoist_queries=True,
+                                      mesh=mesh)
+            return tuple(unstack_buffers(outs, len(frames))), final
+        params = _params_of(params)
         outs = []
         for frame in frames:
             o, state = self.run(params, state, frame, hoist_io=True,
@@ -397,27 +555,58 @@ class ExecutionPlan:
         donate = self._resolve_donate(donate)
         return self._entry(("step", donate), lambda: self.run, donate)
 
+    @staticmethod
+    def _mesh_key(mesh):
+        from ..launch.mesh import mesh_fingerprint
+        return mesh_fingerprint(mesh)
+
+    def _mesh_entry(self, key, make_fn: Callable[[], Callable]
+                    ) -> MeshCallable:
+        fns = self._cache()["fns"]
+        if key not in fns:
+            fns[key] = MeshCallable(make_fn())
+        return fns[key]
+
     def compiled_step_n(self, hoist_io: bool = False,
                         hoist_queries: bool = False,
                         donate: Optional[bool] = None, mesh=None
                         ) -> Callable:
         """:meth:`step_n` ``(params, state, inputs=None, n=None) ->
         (stacked outputs, final state)``, cached under ``("step_n",
-        hoist_io, hoist_queries, donate, mesh)``; ``n`` is static, so each
-        burst length is its own binding."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded bursts (mesh=): "
-                                      "ROADMAP M11")
-        donate = self._resolve_donate(donate)
+        hoist_io, hoist_queries, donate, mesh fingerprint)``; ``n`` is
+        static, so each burst length is its own binding.
 
-        def make():
-            def step_n(params, state, inputs=None, n=None, _self=self,
-                       _hoist=hoist_io, _hoistq=hoist_queries):
-                return _self.step_n(params, state, inputs, n=n,
-                                    hoist_io=_hoist, hoist_queries=_hoistq)
-            return step_n
-        return self._entry(("step_n", hoist_io, hoist_queries, donate, None),
-                           make, donate)
+        With ``mesh``, the entry is a :class:`MeshCallable`: a burst that
+        :meth:`shardable_batch` admits runs its data slots' slices through
+        the single-device entry (created here too, as the fallback), any
+        other burst runs the single-device entry whole.  ``params`` may be
+        the tree or its mesh copy (``launch.shardings.replicated``)."""
+        donate = self._resolve_donate(donate)
+        if mesh is None:
+            def make():
+                def step_n(params, state, inputs=None, n=None, _self=self,
+                           _hoist=hoist_io, _hoistq=hoist_queries):
+                    return _self.step_n(params, state, inputs, n=n,
+                                        hoist_io=_hoist,
+                                        hoist_queries=_hoistq)
+                return step_n
+            return self._entry(("step_n", hoist_io, hoist_queries, donate,
+                                None), make, donate)
+        self.compiled_step_n(hoist_io, hoist_queries, donate)
+
+        def make_mesh():
+            def step_n_mesh(params, state, inputs=None, n=None, _self=self):
+                if inputs is not None and _self.shardable_batch(
+                        _n_frames(inputs), state, mesh):
+                    return _self._step_n_sharded(params, state, inputs, mesh,
+                                                 hoist_io, hoist_queries,
+                                                 donate)
+                single = _self.compiled_step_n(hoist_io, hoist_queries,
+                                               donate)
+                return single(_params_of(params), state, inputs, n=n)
+            return step_n_mesh
+        return self._mesh_entry(("step_n", hoist_io, hoist_queries, donate,
+                                 self._mesh_key(mesh)), make_mesh)
 
     def compiled_serve_batch(self, donate: Optional[bool] = None,
                              mesh=None, codec: Optional[str] = None
@@ -426,13 +615,41 @@ class ExecutionPlan:
         outputs, final state)``, or with ``codec`` the fused
         :meth:`serve_batch_wire` ``(params, state, wire_frames) ->
         ((stacked wire answers, stacked app outs, dropped), final)``,
-        cached under ``("serve_batch", donate, mesh, codec)`` so the two
-        kinds, and two codecs, never share an entry.  The batch size lives
-        in the frames' structure: each size is its own binding."""
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving (mesh=): "
-                                      "ROADMAP M11")
+        cached under ``("serve_batch", donate, mesh fingerprint, codec)``
+        so the kinds, two codecs and two meshes never share an entry.  The
+        batch size lives in the frames' structure: each size is its own
+        binding.
+
+        ``mesh`` gives a :class:`MeshCallable`: a batch that
+        :meth:`shardable_batch` admits is stacked, served through
+        ``compiled_step_n(mesh=...)`` and split back per frame; any other
+        batch falls through to the single-device entry, which is created
+        here too.  Codec fusion is single-device: ``codec`` with ``mesh``
+        raises, and the batcher keeps mesh groups on the eager wire
+        path."""
         donate = self._resolve_donate(donate)
+        if codec is not None and mesh is not None:
+            raise ValueError("codec-fused serving is single-device; "
+                             "mesh groups keep the eager wire path")
+        if mesh is not None:
+            self.compiled_serve_batch(donate=donate)
+            self.compiled_step_n(hoist_io=True, hoist_queries=True,
+                                 donate=donate, mesh=mesh)
+
+            def make_mesh():
+                def serve_sharded(params, state, frames, _self=self):
+                    n = len(frames)
+                    if not _self.shardable_batch(n, state, mesh):
+                        single = _self.compiled_serve_batch(donate=donate)
+                        return single(_params_of(params), state, frames)
+                    step = _self.compiled_step_n(
+                        hoist_io=True, hoist_queries=True, donate=donate,
+                        mesh=mesh)
+                    outs, final = step(params, state, stack_buffers(frames))
+                    return tuple(unstack_buffers(outs, n)), final
+                return serve_sharded
+            return self._mesh_entry(("serve_batch", donate,
+                                     self._mesh_key(mesh), None), make_mesh)
         if codec is None:
             def make():
                 def serve_batch(params, state, frames, _self=self):

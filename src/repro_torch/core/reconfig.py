@@ -287,14 +287,21 @@ class Reconfiguration:
             return self
         plan = self.shadow.plan
         plan._cache()
+        # mesh-keyed entries are replicated under their own key (the
+        # runtime's mesh); the meshless ones under theirs
+        mesh = self.runtime.mesh
+        mesh_fp = plan._mesh_key(mesh)
         for key in list(self.run.pipe.plan._cache()["fns"]):
             if key[0] == "step":
                 plan.compiled_step(donate=key[1])
             elif key[0] == "step_n":
-                plan.compiled_step_n(hoist_io=key[1], hoist_queries=key[2],
-                                     donate=key[3])
+                plan.compiled_step_n(
+                    hoist_io=key[1], hoist_queries=key[2], donate=key[3],
+                    mesh=mesh if key[4] == mesh_fp else None)
             elif key[0] == "serve_batch":
-                plan.compiled_serve_batch(donate=key[1], codec=key[3])
+                plan.compiled_serve_batch(
+                    donate=key[1], codec=key[3],
+                    mesh=mesh if key[2] == mesh_fp else None)
             elif key[0] == "serve_tick":
                 # key[-1] is the state's structure: an identical serve
                 # topology re-keys to the same entry
@@ -316,10 +323,18 @@ class Reconfiguration:
         old_pipe, old_params, old_state = run.pipe, run.params, run.state
         shadow = self.shadow
         self.frames_carried += self._count_carried(old_pipe, shadow)
+        # the mesh copies of the old params (the bursts' and the
+        # batchers'), whose bindings retire with them
+        old_copies = [list(m.by_device.values()) for m in
+                      [run.mesh_params] + [b._mesh_params for b in
+                                           rt._batchers.values()
+                                           if b.run is run]
+                      if m is not None]
         run.pipe = shadow
         run.params = self.new_params
         run.state = self._carry_state_from(old_pipe)
-        release_bindings(tensor_ptrs(old_params, old_state) -
+        run.mesh_params = None
+        release_bindings(tensor_ptrs(old_params, old_state, *old_copies) -
                          tensor_ptrs(run.params, run.state))
         # retire what left the topology (unregister events: clients re-bind,
         # orphans are accounted by the same teardown failover uses)

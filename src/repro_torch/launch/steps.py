@@ -5,22 +5,33 @@ Decoder-only archs take the stacked parameter layout, the encoder-decoder
 (whisper) the list layout, as in the JAX package.  The steps run eagerly:
 autograd computes the gradients that ``jax.value_and_grad`` does, and
 :func:`adamw_update` applies them in place (the JAX launcher donates the
-parameters and state to its jitted step).  The mesh argument and the
-sharding plumbing (``eval_*_shape``, ``opt_shardings``, ``input_specs``)
-belong to mesh serving and the analysis tools (ROADMAP M11, M14).
+parameters and state to its jitted step).
+
+Each builder takes the mesh as the JAX package's does and installs
+``{**activation_rules(cfg, mesh), "__mesh__": mesh}`` around the step, so
+the modules with explicit collectives take their mesh paths: the
+expert-parallel MoE and, for a config with ``ssm_seq_parallel``, the
+sequence-parallel SSD (a (1, 1) host mesh has a ``model`` axis, so the
+launcher's step takes them too, as the JAX launcher's does).  ``mesh=None``
+installs nothing: the single-device paths.  The shape helpers of the
+dry-run (``eval_*_shape``, ``input_specs``) belong to the analysis tools
+(ROADMAP M14).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..core.buffers import tree_flatten, tree_unflatten
 from ..models.config import ModelConfig
 from ..models.model import Model
+from ..models.sharding import sharding_rules
 from ..models.transformer import greedy
-from ..optim import adamw_update, linear_warmup_cosine
+from ..optim import OptState, adamw_update, linear_warmup_cosine
+from . import shardings as SH
 
 # input shapes assigned to this paper (brief):
 SHAPES: Dict[str, Dict] = {
@@ -74,45 +85,69 @@ def train_loss_fn(model: Model, stacked: bool = True) -> Callable:
     return functools.partial(model.loss, remat=not model.cfg.enc_dec)
 
 
-def make_train_step(model: Model, lr: float = 3e-4, total_steps: int = 1000,
-                    stacked: bool = True) -> Callable:
+def step_rules(cfg: ModelConfig, mesh, shard_kv_seq: bool = False):
+    """The sharding rules a step installs: the activation rules plus the
+    live mesh, or nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sharding_rules(**SH.activation_rules(cfg, mesh, shard_kv_seq),
+                          __mesh__=mesh)
+
+
+def make_train_step(model: Model, mesh=None, lr: float = 3e-4,
+                    total_steps: int = 1000, stacked: bool = True
+                    ) -> Callable:
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), params and state updated in place; metrics has the JAX
     package's keys (``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``) as
-    device scalars."""
+    device scalars.  ``mesh``: the module docstring."""
     schedule = linear_warmup_cosine(lr, warmup=min(100, total_steps // 10 + 1),
                                     total_steps=total_steps)
     loss_fn = train_loss_fn(model, stacked)
+    cfg = model.cfg
 
     def train_step(params, opt_state, batch):
-        (loss, parts), grads = value_and_grad(loss_fn, params, batch)
-        lr_now = schedule(opt_state.step)
-        params, opt_state, info = adamw_update(params, grads, opt_state,
-                                               lr=lr_now)
+        with step_rules(cfg, mesh):
+            (loss, parts), grads = value_and_grad(loss_fn, params, batch)
+            lr_now = schedule(opt_state.step)
+            params, opt_state, info = adamw_update(params, grads, opt_state,
+                                                   lr=lr_now)
         return params, opt_state, {"loss": loss, **parts, **info,
                                    "lr": lr_now}
 
     return train_step
 
 
-def make_prefill_step(model: Model, max_seq: Optional[int] = None,
+def make_prefill_step(model: Model, mesh=None, max_seq: Optional[int] = None,
                       stacked: bool = True) -> Callable:
     fn = model.prefill_stacked if (stacked and model.supports_stacked) \
         else model.prefill
+    cfg = model.cfg
 
     def prefill_step(params, batch):
-        return fn(params, batch, max_seq or batch["tokens"].shape[1])
+        with step_rules(cfg, mesh):
+            return fn(params, batch, max_seq or batch["tokens"].shape[1])
 
     return prefill_step
 
 
-def make_decode_step(model: Model, stacked: bool = True) -> Callable:
+def make_decode_step(model: Model, mesh=None, shard_kv_seq: bool = False,
+                     stacked: bool = True) -> Callable:
     fn = model.decode_step_stacked if (stacked and model.supports_stacked) \
         else model.decode_step
+    cfg = model.cfg
 
     def serve_step(params, token, cache):
         """ONE new token against a seq_len KV cache (the brief's decode)."""
-        logits, cache = fn(params, token, cache)
-        return greedy(logits), cache
+        with step_rules(cfg, mesh, shard_kv_seq):
+            logits, cache = fn(params, token, cache)
+            return greedy(logits), cache
 
     return serve_step
+
+
+def opt_shardings(mesh, params_sharding, opt_shape) -> Any:
+    """OptState(step, m, v) specs: m and v mirror the params' specs (same
+    tree; the dtype differs), the step is replicated."""
+    return OptState(step=SH.NamedSharding(mesh, SH.P()), m=params_sharding,
+                    v=params_sharding)

@@ -5,10 +5,14 @@ card::
         --steps 20 --batch 8 --seq 512
 
 and on the CPU ``--device cpu`` (the reduced variants with ``--smoke``).
-The flags and printout are the reference's, plus ``--device``; the
-production mesh is mesh serving's (ROADMAP M11) and raises.  Weights are
-random from seed 0 on the training device; encoder frames and vision
-patches of step i come from a generator seeded with i there.
+The flags and printout are the reference's, plus ``--device``.  The step
+runs under a mesh, as the reference's does: a one-slot (1, 1) host mesh on
+the training device, so the MoE and, for a config with
+``ssm_seq_parallel``, the SSD take their mesh paths with one shard; with
+``--production-mesh`` the 16 x 16 pod mesh, which raises with the count
+when fewer CUDA devices are visible.  Weights are random from seed 0 on
+the training device; encoder frames and vision patches of step i come
+from a generator seeded with i there.
 
 A resumed run restores ``{"params", "opt"}`` from the latest checkpoint
 and starts a fresh data iterator, so it trains on batch 0, 1, ... again,
@@ -29,6 +33,7 @@ from ..device import make_generator, resolve_device
 from ..models.model import build_model
 from ..optim import adamw_init
 from . import steps as ST
+from .mesh import make_host_mesh, make_production_mesh, mesh_axis_sizes
 
 
 class TrainRun(NamedTuple):
@@ -55,7 +60,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 pod mesh (mesh serving, ROADMAP M11)")
+                    help="use the 16x16 pod mesh (requires 256 devices)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -64,17 +69,16 @@ def _parser() -> argparse.ArgumentParser:
 
 def run(argv=None) -> TrainRun:
     args = _parser().parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh: the port has no mesh "
-                                  "yet (ROADMAP M11)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)
+    mesh = make_production_mesh() if args.production_mesh else \
+        make_host_mesh(devices=[dev])
     stacked = model.supports_stacked
-    step_fn = ST.make_train_step(model, lr=args.lr, total_steps=args.steps,
-                                 stacked=stacked)
+    step_fn = ST.make_train_step(model, mesh, lr=args.lr,
+                                 total_steps=args.steps, stacked=stacked)
     init = model.init_stacked if stacked else model.init
     params = init(make_generator(0, dev), dev)
     opt = adamw_init(params)
@@ -87,7 +91,8 @@ def run(argv=None) -> TrainRun:
 
     n_params = model.param_count(params)
     print(f"[train] {cfg.name} ({'smoke' if args.smoke else 'full'}) "
-          f"params={n_params / 1e6:.1f}M device={dev}")
+          f"params={n_params / 1e6:.1f}M mesh={mesh_axis_sizes(mesh)} "
+          f"device={dev}")
 
     it = make_train_iterator(vocab=cfg.vocab, global_batch=args.batch,
                              seq=args.seq)

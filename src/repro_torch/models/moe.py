@@ -1,10 +1,22 @@
 """Mixture-of-Experts layer of the port: top-k router, capacity-bounded
 sort+gather dispatch, shared experts (DeepSeek-V2).
 
-Port of the single-device path of ``src/repro/models/moe.py``
-(``_apply_moe_dense``); the expert-parallel shard_map path waits for the
-mesh (ROADMAP M11).  The expert products are plain ``torch.bmm`` over
-``[E, C, d]`` gathers, as the JAX package leaves them to XLA.
+Port of ``src/repro/models/moe.py``: the single-device path
+(``_apply_moe_dense``) and, under a mesh with a ``model`` axis (installed
+as ``"__mesh__"`` in ``models.sharding``'s rules), the expert-parallel one
+(``_apply_moe_shard_map``).  The expert products are plain ``torch.bmm``
+over ``[E, C, d]`` gathers, as the JAX package leaves them to XLA.
+
+The mesh path keeps tokens slot-local and moves none: the batch splits
+over the data axes; the experts split over ``model``, whole experts when E
+% model == 0 and not ``moe_force_tp`` (expert parallelism), else the
+expert hidden dim f (intra-expert TP).  Each slot routes its tokens,
+dispatches those of its own experts and adds their weighted outputs per
+token in ascending expert order; the slots' partials add in slot order
+(``launch.spmd.psum``, in bf16 under ``moe_psum_bf16``), ``aux`` is the
+mean over the data slots, and the shared experts are added after the
+cast to the activations' dtype, as in the JAX package.  The serve path's
+``per_row=True`` always takes the single-device path.
 
 Three places where the port must say exactly what the reference does:
 
@@ -101,26 +113,44 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """x [B, S, d] -> (y [B, S, d], aux f32 scalar).  One dispatch group
     of all B·S tokens, or with ``per_row`` one group per batch row (S
     tokens each, capacity from S).  ``aux`` is the Switch load-balance
-    loss over all tokens."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    xg = x.reshape(1, b * s, d) if not per_row else x
-    n_g, t = xg.shape[:2]
-    dev = x.device
+    loss over all tokens.  Under a mesh with a ``model`` axis (and not
+    ``per_row``), the expert-parallel path (module docstring)."""
+    if not per_row:
+        from .sharding import current_rules
+        mesh = current_rules().get("__mesh__")
+        if mesh is not None and "model" in getattr(mesh, "axis_names", ()):
+            return _apply_moe_shard_map(p, cfg, x, mesh)
+    return _apply_moe_dense(p, cfg, x, per_row)
 
-    logits = xg.float() @ p["router"]                       # [G, T, E]
+
+def _route(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
+    """Router, top-k and the Switch aux over groups xg [G, T, d] -> (topw,
+    topi [G, T, k], aux)."""
+    e, k = cfg.n_experts, cfg.top_k
+    logits = xg.float() @ router                            # [G, T, E]
     probs = torch.softmax(logits, dim=-1)
     topw, topi = top_k(probs, k)                            # [G, T, k]
     topw = topw / topw.sum(-1, keepdim=True)
-
     # load-balance aux (Switch): E * sum_e fraction_e * prob_e
-    experts = torch.arange(e, device=dev)
+    experts = torch.arange(e, device=xg.device)
     hits = (topi[..., None] == experts).float().sum(-2)     # [G, T, E]
     frac = hits.reshape(-1, e).mean(0)
     pmean = probs.reshape(-1, e).mean(0)
     aux = e * torch.sum(frac / k * pmean) * cfg.router_aux_weight
+    return topw, topi, aux
 
-    # sort+gather dispatch, per group
+
+def _dispatch(cfg: ModelConfig, xg, topw, topi, w_gate, w_up, w_down,
+              first: int = 0, acc=torch.float32):
+    """Sort+gather dispatch of groups xg [G, T, d] to the experts
+    ``first .. first + E_loc`` whose weights are given, capacity per
+    group, and the combine: each token's contributions from these experts
+    added in ascending expert order onto zeros of ``acc`` -> (y [G, T, d]
+    in ``acc``, kept [G, T, k]: the choices that found a slot)."""
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = w_up.shape[0]
+    n_g, t, d = xg.shape
+    dev = xg.device
     cap = capacity(t, cfg)
     flat_e = topi.reshape(n_g, t * k)                       # [G, T*k]
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -128,19 +158,20 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, -1) - counts             # [G, E]
     lanes = torch.arange(cap, device=dev)
-    slot_pos = (offsets[..., None] + lanes).clamp(0, t * k - 1)
-    valid = lanes < counts[..., None]                       # [G, E, C]
-    slot = torch.gather(order, 1, slot_pos.reshape(n_g, e * cap))
-    tok = (slot // k).reshape(n_g, e, cap)                  # [G, E, C]
+    off_l = offsets[:, first:first + e_loc]
+    slot_pos = (off_l[..., None] + lanes).clamp(0, t * k - 1)
+    valid = lanes < counts[:, first:first + e_loc, None]    # [G, E_loc, C]
+    slot = torch.gather(order, 1, slot_pos.reshape(n_g, e_loc * cap))
+    tok = (slot // k).reshape(n_g, e_loc, cap)              # [G, E_loc, C]
     rows = torch.arange(n_g, device=dev)[:, None, None]
-    xe = xg[rows, tok] * valid[..., None].to(x.dtype)       # [G, E, C, d]
-    xe = xe.transpose(0, 1).reshape(e, n_g * cap, d)
-    gate = _act(cfg, torch.bmm(xe, p["w_gate"]))
-    up = torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(gate * up, p["w_down"])                  # [E, G*C, d]
-    ye = ye.reshape(e, n_g, cap, d).transpose(0, 1)         # [G, E, C, d]
+    xe = xg[rows, tok] * valid[..., None].to(xg.dtype)      # [G,E_loc,C,d]
+    xe = xe.transpose(0, 1).reshape(e_loc, n_g * cap, d)
+    gate = _act(cfg, torch.bmm(xe, w_gate))
+    up = torch.bmm(xe, w_up)
+    ye = torch.bmm(gate * up, w_down)                       # [E_loc, G*C, d]
+    ye = ye.reshape(e_loc, n_g, cap, d).transpose(0, 1)     # [G,E_loc,C,d]
 
-    # combine: each token's k contributions in ascending expert order
+    # combine: each token's contributions in ascending expert order
     rank = torch.empty_like(order)
     rank.scatter_(1, order, torch.arange(t * k, device=dev)
                   .expand(n_g, t * k).contiguous())
@@ -149,11 +180,25 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     r = torch.gather(rank.reshape(n_g, t, k), -1, pick) - \
         torch.gather(offsets, 1, ex.reshape(n_g, t * k)).reshape(n_g, t, k)
     kept = r < cap
-    contrib = ye[rows, ex, r.clamp_max(cap - 1)].float() * \
-        (w * kept)[..., None]                               # [G, T, k, d]
-    y = torch.zeros((n_g, t, d), dtype=torch.float32, device=dev)
+    mine = (ex >= first) & (ex < first + e_loc)
+    el = (ex - first).clamp(0, e_loc - 1)
+    contrib = ye[rows, el, r.clamp_max(cap - 1)].to(acc) * \
+        (w * (kept & mine))[..., None].to(acc)              # [G, T, k, d]
+    y = torch.zeros((n_g, t, d), dtype=acc, device=dev)
     for j in range(k):
         y = y + contrib[:, :, j]
+    return y, kept
+
+
+def _apply_moe_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                     per_row: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    xg = x.reshape(1, b * s, d) if not per_row else x
+    n_g, t = xg.shape[:2]
+    topw, topi, aux = _route(cfg, xg, p["router"])
+    y, kept = _dispatch(cfg, xg, topw, topi, p["w_gate"], p["w_up"],
+                        p["w_down"])
     if DROP_LOG is not None:
         DROP_LOG.append((per_row, t, (~kept).sum()))
 
@@ -164,3 +209,78 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         gate_s = _act(cfg, xt @ sp["w_gate"])
         y = y + ((gate_s * up_s) @ sp["w_down"]).float().reshape(n_g, t, d)
     return y.to(x.dtype).reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel path (the JAX package's shard_map, in phases)
+# ---------------------------------------------------------------------------
+
+def _moe_specs(cfg: ModelConfig, mesh, batch: int):
+    """-> (expert parallel?, the batch's spec entry, the specs of w_up,
+    w_gate, w_down)."""
+    from ..launch.mesh import P
+    ep = (cfg.n_experts % mesh.shape["model"] == 0) and not cfg.moe_force_tp
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    dsize = 1
+    for a in dp:
+        dsize *= mesh.shape[a]
+    if batch % max(dsize, 1):
+        dp = ()                 # batch=1 decode: tokens replicated
+    bspec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    if ep:
+        w_up = w_gate = w_down = P("model", None, None)
+    else:
+        w_up = w_gate = P(None, None, "model")
+        w_down = P(None, "model", None)
+    return ep, bspec, (w_up, w_gate, w_down)
+
+
+def _apply_moe_shard_map(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], aux) over the mesh: one phase per slot
+    (route its tokens, dispatch to its experts or its slice of f), then
+    ``psum`` of the partials over ``model`` and ``pmean`` of aux over the
+    data axes."""
+    from ..launch.mesh import P
+    from ..launch.spmd import axis_index, gather, pmean, psum, slot_map, \
+        split
+    b, s, d = x.shape
+    e = cfg.n_experts
+    ep, bspec, (s_up, s_gate, s_down) = _moe_specs(cfg, mesh, b)
+    # aux varies over the data axes (different tokens); x is replicated
+    # over model, so it is the same there
+    dp_axes = bspec if isinstance(bspec, tuple) else \
+        ((bspec,) if bspec else ())
+    acc = torch.bfloat16 if cfg.moe_psum_bf16 else torch.float32
+    xs = split(x, mesh, P(bspec, None, None))
+    router = split(p["router"], mesh, P())
+    wg = split(p["w_gate"], mesh, s_gate)
+    wu = split(p["w_up"], mesh, s_up)
+    wd = split(p["w_down"], mesh, s_down)
+    pos = axis_index(mesh, "model")
+
+    def local(xl, router_l, wg_l, wu_l, wd_l, pos_l):
+        bl, sl, _ = xl.shape
+        xg = xl.reshape(1, bl * sl, d)
+        topw, topi, aux = _route(cfg, xg, router_l)
+        e_loc = wu_l.shape[0]
+        first = pos_l * e_loc if e_loc < e else 0
+        y, _ = _dispatch(cfg, xg, topw, topi, wg_l, wu_l, wd_l, first, acc)
+        return y.reshape(bl * sl, d), aux
+    y, aux = slot_map(local, mesh, xs, router, wg, wu, wd, pos, n_out=2)
+    if dp_axes:
+        aux = pmean(aux, mesh, dp_axes)
+    y = psum(y, mesh, "model")
+
+    def cast(y_l, xl):
+        return y_l.to(xl.dtype).reshape(xl.shape)
+    y = gather(slot_map(cast, mesh, y, xs), mesh, P(bspec, None, None),
+               x.device)
+    aux = aux[(0,) * aux.ndim].to(x.device)
+    if "shared" in p:
+        sp = p["shared"]
+        xt = x.reshape(-1, d)
+        up_s = xt @ sp["w_up"]
+        gate_s = _act(cfg, xt @ sp["w_gate"])
+        y = y + ((gate_s * up_s) @ sp["w_down"]).reshape(b, s, d)
+    return y, aux

@@ -19,16 +19,24 @@ keep both.  :func:`ssm_prefill` returns the output and the decode cache
 from one SSD computation (the JAX package's ``_ssm_prefill_cache``
 recomputes the same state).
 
-The port always runs the single-device path.  The JAX package's
-sequence-parallel variants (``ssm_train_seq_parallel``,
-``_ssm_prefill_seq_parallel``: shard_map code, ROADMAP M11) run only under
-a mesh with a ``model`` axis; without one it takes this same path, even
-for a config with ``ssm_seq_parallel=True`` such as mamba2-130m.
+Under a mesh with a ``model`` axis (the launchers install it as
+``"__mesh__"`` in ``models.sharding``'s rules), a config with
+``ssm_seq_parallel`` such as mamba2-130m runs the sequence-parallel SSD of
+the JAX package (``ssm_train_seq_parallel``, ``_ssm_prefill_seq_parallel``):
+the sequence splits over ``model`` and the batch over the data axes.  The
+port runs the JAX package's ``shard_map`` body in phases split at its
+collectives (``launch/spmd.py``): per slot the projection, the conv with
+its left neighbour's K - 1 halo and the local chunk scan (S2, h0 = 0);
+then the slots' (decay, state) pairs combine in a log-depth scan, in the
+JAX package's pairing order (shift 1, 2, 4, ...); then per slot the
+correction ``y += C exp(cum) h0``, the gate and ``w_out``.  Autograd runs
+through all of it.  Without such a mesh, the single-device path.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,13 +92,15 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 
 def _ssd_scan(cfg: ModelConfig, p: Dict, xh, B, C, dt,
-              h0: Optional[torch.Tensor] = None):
+              h0: Optional[torch.Tensor] = None, with_cum: bool = False):
     """Chunked SSD scan.  xh [B, S, H, hd]; B, C [B, S, N]; dt f32 [B, S, H]
     (softplus'd) -> (y f32 [B, S, H, hd] with the D skip, final state f32
     [B, H, N, hd]).  The chunk is ``q = min(ssm_chunk, S)``; S is padded to
     a multiple of q with zero dt (decay 1, update 0: state and outputs
-    exact).  The JAX package also returns the running log-decay, which only
-    its sequence-parallel path reads."""
+    exact).  ``with_cum`` adds the running log-decay from the sequence's
+    start, f32 [B, S, H] (the per-chunk cumsum plus the exclusive chunk
+    offset, as the JAX package computes it), which the sequence-parallel
+    correction reads."""
     b, s, h, hd = xh.shape
     n = B.shape[-1]
     q = min(cfg.ssm_chunk, s)
@@ -141,7 +151,12 @@ def _ssd_scan(cfg: ModelConfig, p: Dict, xh, B, C, dt,
 
     y = (y_intra + y_inter).reshape(b, s, h, hd)
     y = y + p["D"][None, None, :, None] * xh.float()
-    return y[:, :s_orig], h_final
+    if not with_cum:
+        return y[:, :s_orig], h_final
+    chunk_sum = dA_c.sum(dim=2)                             # [B, nc, H]
+    offs = torch.cumsum(chunk_sum, dim=1) - chunk_sum       # exclusive
+    cum_total = (cum + offs[:, :, None, :]).reshape(b, s, h)
+    return y[:, :s_orig], h_final, cum_total[:, :s_orig]
 
 
 def _mixer_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -155,10 +170,28 @@ def _mixer_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return z, xbc, conv_state, dt
 
 
+def _seq_parallel_mesh(cfg: ModelConfig, x: torch.Tensor):
+    """The installed mesh when this call takes the sequence-parallel path:
+    ``ssm_seq_parallel``, a ``model`` axis, and a sequence that tiles it
+    (the JAX package's dispatch)."""
+    if not cfg.ssm_seq_parallel:
+        return None
+    from .sharding import current_rules
+    mesh = current_rules().get("__mesh__")
+    if mesh is not None and "model" in getattr(mesh, "axis_names", ()) \
+            and x.shape[1] % mesh.shape["model"] == 0:
+        return mesh
+    return None
+
+
 def ssm_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict]:
     """Single-pass prefill: x [B, S, d] -> (y [B, S, d], the decode cache:
-    the final SSD state and the conv tail) from one SSD computation."""
+    the final SSD state and the conv tail) from one SSD computation; the
+    sequence-parallel path under a mesh (module docstring)."""
+    mesh = _seq_parallel_mesh(cfg, x)
+    if mesh is not None:
+        return _ssm_prefill_seq_parallel(p, cfg, x, mesh)
     b, s, _ = x.shape
     d_inner, h, hd, n = _dims(cfg)
     z, xbc, conv_state, dt = _mixer_inputs(p, cfg, x)
@@ -170,6 +203,118 @@ def ssm_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor
 
 def ssm_train(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return ssm_prefill(p, cfg, x)[0]
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel SSD (the JAX package's shard_map path, in phases)
+# ---------------------------------------------------------------------------
+#
+# SSD's inter-chunk recurrence is associative over (decay, state) pairs:
+#   (D1, S1) o (D2, S2) = (D1 D2, S1 D2 + S2)
+# so the slots' final states combine in log2(model) rounds; the conv needs
+# a K - 1 frame halo from the left neighbour, and each position's output
+# gains y += C_t exp(cum_t) h0.
+
+def ssm_train_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
+                           ) -> torch.Tensor:
+    return _ssm_prefill_seq_parallel(p, cfg, x, mesh)[0]
+
+
+def _ssm_prefill_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                              mesh) -> Tuple[torch.Tensor, Dict]:
+    """x [B, S, d] -> (y [B, S, d], cache) with S split over ``model`` and
+    B over the data axes (replicated when B does not tile them).  The
+    cache is the last model slot's inclusive state and conv tail."""
+    from ..launch.mesh import P, data_axes
+    from ..launch.spmd import (axis_index, gather, ppermute, slot_map,
+                               split)
+    b, s, _ = x.shape
+    d_inner, h, hd, n = _dims(cfg)
+    m = mesh.shape["model"]
+    dp = data_axes(mesh)
+    dsize = 1
+    for a in dp:
+        dsize *= mesh.shape[a]
+    if b % max(dsize, 1):
+        dp = ()
+    bspec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    perm_fwd = [(i, i + 1) for i in range(m - 1)]
+    k = p["conv"].shape[0]
+    A = -torch.exp(p["A_log"])
+    names = ("w_in", "conv", "A_log", "D", "dt_bias", "w_out")
+    pp = {nm: split(p[nm], mesh, P()) for nm in names}
+
+    def slot_params(idx):
+        return {nm: pp[nm][idx] for nm in names}
+
+    xs = split(x, mesh, P(bspec, "model", None))
+    idxs = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(idxs.shape):
+        idxs[idx] = idx
+
+    # phase 1: projection; the conv halo goes to the right neighbour
+    def proj(xl, idx):
+        z, xbc, dt_raw = _split_proj(cfg, xl @ pp["w_in"][idx])
+        return z, xbc, dt_raw, xbc[:, -(k - 1):]
+    z, xbc, dt_raw, tail = slot_map(proj, mesh, xs, idxs, n_out=4)
+    prev = ppermute(tail, mesh, "model", perm_fwd)
+
+    # phase 2: the conv and the local chunk scan from h0 = 0
+    def local(xbc_l, prev_l, dt_raw_l, idx):
+        lp = slot_params(idx)
+        bl, sl, _ = xbc_l.shape
+        xbc_c, conv_tail = _causal_conv(xbc_l, lp["conv"], prev_l)
+        xs_l, B, C = torch.split(xbc_c, [d_inner, n, n], dim=-1)
+        dt = F.softplus(dt_raw_l.float() + lp["dt_bias"])
+        y0, h_loc, cum = _ssd_scan(cfg, lp, xs_l.reshape(bl, sl, h, hd), B,
+                                   C, dt, None, with_cum=True)
+        d_loc = torch.exp(torch.sum(dt * A.to(dt.device), dim=1))  # [B, H]
+        return y0, h_loc, cum, C, conv_tail, d_loc
+    y0, h_loc, cum, C, conv_tail, d_acc = slot_map(
+        local, mesh, xbc, prev, dt_raw, idxs, n_out=6)
+
+    # the cross-slot inclusive scan of (decay product, state)
+    s_acc = h_loc
+    pos = axis_index(mesh, "model")
+    shift = 1
+    while shift < m:
+        pairs = [(i, i + shift) for i in range(m - shift)]
+        d_in = ppermute(d_acc, mesh, "model", pairs)
+        s_in = ppermute(s_acc, mesh, "model", pairs)
+
+        def combine(d_in_l, s_in_l, d_l, s_l, pos_l, _shift=shift):
+            has_left = 1.0 if pos_l >= _shift else 0.0
+            d_new = d_in_l * d_l if has_left else d_l
+            s_new = s_in_l * d_l[:, :, None, None] * has_left + s_l
+            return d_new, s_new
+        d_acc, s_acc = slot_map(combine, mesh, d_in, s_in, d_acc, s_acc,
+                                pos, n_out=2)
+        shift *= 2
+    # exclusive prefix: the left neighbour's inclusive state (0 at slot 0)
+    h0 = ppermute(s_acc, mesh, "model", perm_fwd)
+
+    # phase 3: the correction, the gate and the output projection
+    def finish(y0_l, C_l, cum_l, h0_l, z_l, idx):
+        bl, sl = y0_l.shape[:2]
+        y_corr = torch.einsum("bsn,bsh,bhnd->bshd", C_l.float(),
+                              torch.exp(cum_l), h0_l)
+        y = (y0_l + y_corr).to(x.dtype).reshape(bl, sl, d_inner)
+        return (y * F.silu(z_l)) @ pp["w_out"][idx]
+    out = slot_map(finish, mesh, y0, C, cum, h0, z, idxs)
+
+    last = np.empty(mesh.devices.shape, dtype=object)
+    last_conv = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(last.shape):
+        src = tuple(m - 1 if a == "model" else i
+                    for a, i in zip(mesh.axis_names, idx))
+        last[idx] = s_acc[src]
+        last_conv[idx] = conv_tail[src]
+    home = x.device
+    y = gather(out, mesh, P(bspec, "model", None), home)
+    cache = {"h": gather(last, mesh, P(bspec, None, None, None), home),
+             "conv": gather(last_conv, mesh, P(bspec, None, None),
+                            home).contiguous()}
+    return y, cache
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, device) -> Dict:

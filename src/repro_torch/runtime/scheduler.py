@@ -81,14 +81,27 @@ clock under its original delivery id.  A chaos scenario's
 :class:`~..core.netfault.FaultFabric` set as ``rt.fabric`` is stepped at
 the top of every tick.  ``stats()`` gains ``delivery`` and ``netfault``.
 
+Mesh-sharded serving (DESIGN.md §4): ``Runtime(mesh=...)`` lays batched
+query serves and hoisted pub/sub bursts out along the mesh's data slots,
+one frame slice a slot, the params replicated once per distinct device,
+whenever the batch tiles the slots and the plan threads no cross-frame
+state (``ExecutionPlan.shardable_batch``).  ``mesh="auto"`` (or ``True``)
+builds a host mesh: every visible CUDA device on the card, the runtime's
+device on the CPU.  ``shard_mode`` picks the placement ("auto" probes
+sharded against single once per batch size and keeps the faster,
+"always"/"never" force it; bursts shard only under "always").  Sharding
+never changes an answer: non-tiling groups, stateful plans and 1-slot
+meshes serve exactly like ``mesh=None``, and failover re-dispatches the
+orphans of a sharded batch like any other.  A mesh's slots must be on the
+runtime's device type.
+
 Every pipeline's tensors live on one device: the GPU unless the caller
-passes ``device="cpu"``.  Mesh placement waits for its ROADMAP item (M11)
-and raises ``NotImplementedError`` where asked for.
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -135,6 +148,9 @@ class _PipeRun:
     sink_log: Dict[str, list] = field(default_factory=dict)
     #: a retired run is skipped by the scheduler (it starts no new frames)
     retired: bool = False
+    #: ``params`` replicated on the runtime's mesh, placed at the first
+    #: sharded burst (placing them per burst costs more than the burst)
+    mesh_params: Any = None
     #: drops of elements a reconfiguration removed: their backlogs leave
     #: the topology with them, and the drop accounting keeps them
     carried_drops: int = 0
@@ -200,11 +216,33 @@ class Runtime:
                  delivery: Optional[netfault.DeliveryPolicy] = None,
                  fused_wire: bool = True,
                  lease_ticks: Optional[int] = None,
-                 park_deadline_ticks: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh placement (mesh=): ROADMAP M11")
+                 park_deadline_ticks: Optional[int] = None,
+                 shard_mode: str = "auto"):
         #: the torch device every deployed pipeline must live on
         self.device = resolve_device(device)
+        if mesh in ("auto", True):
+            from ..launch.mesh import make_host_mesh
+            mesh = make_host_mesh(devices=None if self.device.type == "cuda"
+                                  else [self.device])
+        if mesh is not None:
+            if not hasattr(mesh, "devices"):
+                raise TypeError(f"mesh= takes a launch.mesh.Mesh, 'auto' or "
+                                f"True, not {type(mesh).__name__}")
+            kinds = {d.type for d in mesh.devices.flat}
+            if kinds != {self.device.type}:
+                raise ValueError(f"mesh slots on {sorted(kinds)}, runtime "
+                                 f"on {self.device.type}: a mesh places "
+                                 f"work on the runtime's device type only")
+        #: the mesh batched serves and hoisted bursts may be laid out on
+        #: (module docstring); None: single-device serving
+        self.mesh = mesh
+        # validated here too: a pub/sub-only deployment builds no batcher,
+        # and the burst path would read a typo as "never"
+        if shard_mode not in ("auto", "always", "never"):
+            raise ValueError(f"shard_mode {shard_mode!r} not in "
+                             f"('auto', 'always', 'never')")
+        #: placement policy (module docstring)
+        self.shard_mode = shard_mode
         self.broker = broker or Broker()
         if lease_ticks is not None:
             self.broker.default_lease_ticks = lease_ticks
@@ -295,6 +333,7 @@ class Runtime:
                     # is never re-scheduled (qos stays off)
                     batcher = StageQueryBatcher(
                         e.endpoint, run, self.batching,
+                        mesh=self.mesh, shard_mode=self.shard_mode,
                         on_orphans=self._count_orphans,
                         qos=None, clock=lambda: self.ticks)
                 elif plan.stage_serving:
@@ -304,12 +343,14 @@ class Runtime:
                     # broker
                     batcher = StagedStreamingBatcher(
                         e.endpoint, run, self.batching,
+                        mesh=self.mesh, shard_mode=self.shard_mode,
                         on_orphans=self._count_orphans,
                         tick_source=lambda: self.ticks, qos=self.qos,
                         clock=lambda: self.ticks, broker=self.broker)
                 elif plan.stream_serving:
                     batcher = StreamingQueryBatcher(
                         e.endpoint, run, self.batching,
+                        mesh=self.mesh, shard_mode=self.shard_mode,
                         on_orphans=self._count_orphans,
                         tick_source=lambda: self.ticks, qos=self.qos,
                         clock=lambda: self.ticks)
@@ -317,6 +358,7 @@ class Runtime:
                     batcher = QueryBatcher(
                         e.endpoint, run, self.batching,
                         inline_step=lambda r=run: self._run_once(r),
+                        mesh=self.mesh, shard_mode=self.shard_mode,
                         fused=self.fused_wire,
                         on_orphans=self._count_orphans,
                         qos=self.qos, clock=lambda: self.ticks)
@@ -787,12 +829,22 @@ class Runtime:
         except ValueError:
             # frames of differing structure cannot stack: per frame
             return self._replay_frames(run, pulls)
+        # pub/sub bursts shard only in forced mode: they run off the serving
+        # hot path (catch-up drains) and pay no calibration probes
+        mesh = self.mesh if self.shard_mode == "always" else None
+        params = run.params
+        if mesh is not None and run.pipe.plan.shardable_batch(n, run.state,
+                                                              mesh):
+            if run.mesh_params is None:
+                from ..launch.shardings import replicated
+                run.mesh_params = replicated(mesh, run.params)
+            params = run.mesh_params
         if run.jit:
-            outs, run.state = run.pipe.compiled_step_n(hoist_io=True)(
-                run.params, run.state, stacked)
+            outs, run.state = run.pipe.compiled_step_n(
+                hoist_io=True, mesh=mesh)(params, run.state, stacked)
         else:
             outs, run.state = run.pipe.plan.step_n(
-                run.params, run.state, stacked, hoist_io=True)
+                params, run.state, stacked, hoist_io=True, mesh=mesh)
         for frame_outs in unstack_buffers(outs, n):
             self._deliver_frame(run, frame_outs)
         run.bursts += 1

@@ -179,8 +179,12 @@ def test_step_n_argument_errors():
     pipe = parse_launch("testsrc ! appsink name=o").realize()
     with pytest.raises(ValueError):
         pipe.step_n({}, pipe.init_state("cpu"))
-    with pytest.raises(NotImplementedError):
+    # the mesh is ported: a mesh entry takes a Mesh, and nothing else
+    with pytest.raises(TypeError, match="expected a Mesh"):
         pipe.compiled_step_n(mesh="auto")
+    from repro_torch.launch.mesh import make_host_mesh
+    assert callable(pipe.compiled_step_n(
+        mesh=make_host_mesh(devices=["cpu"] * 2)))
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,17 @@ def test_the_scan_covers_the_training_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: mesh-sharded serving's modules (M11)
+MESH_MODULES = ("launch/mesh.py", "launch/spmd.py", "launch/shardings.py",
+                "models/sharding.py", "core/plan.py", "core/batching.py",
+                "core/reconfig.py", "models/ssm.py", "models/moe.py")
+
+
+def test_the_scan_covers_the_mesh_modules():
+    for rel in MESH_MODULES:
+        assert PORT / rel in SCANNED, rel
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -123,7 +134,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.mla, repro_torch.models.vlm, "
             "repro_torch.configs, repro_torch.optim, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.launch.steps, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.spmd, repro_torch.launch.shardings, "
+            "repro_torch.models.sharding; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -190,6 +203,15 @@ def test_later_slices_raise_naming_their_roadmap_item(kw, item):
         # tenant QoS is ported: the runtime keeps the policy it is given
         qos = ms.three_tier_qos()
         assert Runtime(device="cpu", qos=qos).qos is qos
+        return
+    if item == "M11":
+        # mesh serving is ported: the runtime keeps a mesh of slots on its
+        # own device type and refuses an object that is not one
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(devices=["cpu"] * 8)
+        assert Runtime(device="cpu", mesh=mesh).mesh is mesh
+        with pytest.raises(TypeError, match="Mesh"):
+            Runtime(device="cpu", **kw)
         return
     if item == "M10":
         # the delivery layer is ported: the runtime keeps the policy

@@ -17,8 +17,9 @@
   learns the Markov corpus through ``make_train_step``.
 * ``launch/train.py``: ``main(["--device", "cpu", ...])`` trains, writes a
   checkpoint, and a resumed run restores it bitwise and starts again at
-  batch 0 (the reference's behaviour); ``--production-mesh`` names M11;
-  without CUDA the default device raises.
+  batch 0 (the reference's behaviour); ``--production-mesh`` raises with
+  the count of visible CUDA devices, as ``jax.make_mesh`` does; without
+  CUDA the default device raises.
 """
 import jax
 import jax.numpy as jnp
@@ -208,7 +209,11 @@ def test_train_main_checkpoints_and_resumes_at_batch_zero(tmp_path):
 
 
 def test_train_main_refuses_the_production_mesh():
-    with pytest.raises(NotImplementedError, match="M11"):
+    """The 16 x 16 pod mesh needs 256 CUDA devices: with fewer visible the
+    launcher raises and names both counts."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match=f"needs 256 CUDA devices; {n} "
+                                         f"visible"):
         train.main(["--device", "cpu", "--smoke", "--production-mesh"])
 
 
