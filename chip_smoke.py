@@ -199,8 +199,10 @@ Phases, one result line each (any failure exits non-zero):
    a subscriber pipeline on the card, ``EdgeQueryClient.infer`` round
    trips through a server there, bitwise the model.
 
-14. the attention and MoE decoder zoo — 14a, K5 (bf16 on the tensor
-   cores, fp32 on the tiled SIMT kernel) and K6 at the shapes 14b's and
+14. the attention and MoE decoder zoo — 14a, K5 (bf16 on the
+   warp-specialised tensor-core kernel, fp32 on the tiled SIMT kernel) and
+   K6 (bf16 on the grouped-head kernel, flash_decode_gqa.cu; fp32 on the
+   split-KV one) at the shapes 14b's and
    14c's serve phases give them (``_zoo_kernel_shapes``): K5 at
    granite-20b's [48, L, 128] (MQA, kv_groups 48), L = 128, 512, 1024, and
    gemma3-4b's [8, L, 256] (kv_groups 2), L = 128, 512, 1024, 2000 (the
@@ -217,8 +219,11 @@ Phases, one result line each (any failure exits non-zero):
    8 of 56 layers; 14e, deepseek-v2-236b at full width, the dense first
    layer and 3 MoE layers (MLA latent cache, 160 experts top-6, 2
    shared).  Each: every answer bitwise ``sequential_decode`` in its slot,
-   token conservation, K5/K6 launches by head dim (one a global layer a
-   prefill and a decode tick), the (token, expert) choices capacity
+   token conservation, K5/K6 launches by head dim and by compiled kernel
+   (one a global layer a prefill and a decode tick, bf16 at 128/256 all
+   on the warp-specialised prefill and the grouped-head decode; phase 4's
+   head dim 64 all on the one-warpgroup prefill and the split-KV decode),
+   the (token, expert) choices capacity
    dropped in each prefill and none at decode (per-row capacity); prints
    prefill ms per request, graphed decode ms per tick, tokens/s, weight
    GB and peak memory.  Each model is freed before the next loads.  14f,
@@ -484,9 +489,11 @@ def _k5_row(rn, bh, grp, d, L, dtype, ptxas):
                **_bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
                         4 * bh * d * L * (L + 1) / 2,
                         BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS))
+    row["kernel"] = fa.prefill_kernel(dt, d)
     if dt == torch.bfloat16:
-        row["ptxas"] = _ptxas_regs(ptxas, "flash_prefill_sm90",
-                                   "flash_prefill_sm90_kernel", f"D={d}")
+        row["ptxas"] = _ptxas_regs(
+            ptxas, "flash_prefill_sm90", "flash_prefill_sm90_kernel"
+            if d == 64 else "flash_prefill_ws_kernel", f"D={d}")
     else:
         _, _, prof = _profile(sdpa)
         row["library_kernel"] = prof[0][0] if prof else "not traced"
@@ -521,6 +528,7 @@ def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
     err, tol = _excess(o, r)
     check(err <= tol, f"K6 {dtype} S{S} H{H} kv{kv} d{d} max_seq {smax}: "
                       f"excess {err} over the tolerance's slack {tol}")
+    kern = fa.decode_kernel(dt, d, H // kv)
     q4 = q.reshape(S, H, 1, d)
     k4, v4 = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
     mask = (torch.arange(smax, device=dev)[None, :]
@@ -539,8 +547,14 @@ def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
         **_bound(2 * q.numel() * q.element_size() + S * 4 +
                  n_rows * kv * d * 2 * q.element_size(), 4 * n_rows * H * d,
                  BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS),
+        kernel=kern, geometry=list(fa.decode_geometry(smax, kv, H // kv, d,
+                                                      dt)),
         ptxas=_ptxas_regs(ptxas, "flash_decode", "flash_decode_partial_kernel",
-                          f"D={d}", "bf16" if dt == torch.bfloat16 else "f32"))
+                          f"D={d}", "bf16" if dt == torch.bfloat16 else "f32")
+        if kern == "split" else
+        _ptxas_regs(ptxas, "flash_decode_gqa",
+                    f"gqa_decode_{kern.removeprefix('gqa_')}_kernel",
+                    f"D={d}"))
 
 
 def _kernel_rows(phase, k5, k6, g, rng, ptxas):
@@ -558,7 +572,8 @@ def _kernel_rows(phase, k5, k6, g, rng, ptxas):
         rows[name] = dict(model=model, dtype=shape[-1],
                           **_k6_row(rn, rng, *shape, ptxas))
     for name, row in rows.items():
-        print(f"phase {phase} {name} ({row['model']}): max abs err "
+        print(f"phase {phase} {name} ({row['model']}, {row['kernel']}): "
+              f"max abs err "
               f"{row['max_abs_err']:.3e} (excess over "
               f"{'atol=rtol' if row['dtype'] == 'float32' else '1 ulp'} "
               f"{row['excess']:.1e}), kernel {row['ms']:.4f} ms, plain "
@@ -599,7 +614,7 @@ def _kernel_name(mangled):
     if "flash_prefill_f32_kernel" in mangled or \
             "flash_prefill_f32_wide_kernel" in mangled:   # K5 fp32's kVec
         tag = "cp.async" if "Lb1E" in mangled else "4-byte loads"
-    m = re.search(r"(?:sm90|wide|decode_\w+)_kernelI(?:13__nv_bfloat16|f)?"
+    m = re.search(r"(?:sm90|ws|wide|decode_\w+)_kernelI(?:13__nv_bfloat16|f)?"
                   r"Li(\d+)E", mangled)
     if m:                                       # K5/K6's head dim
         tag += f"{',' if tag else ''}D={m.group(1)}"
@@ -1204,11 +1219,16 @@ def phase_serve(seed):
     graph = _graph_since(mark)
     launches = dict(fa.LAUNCHES)
     routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
+    kernels = {k: v for k, v in fa.KERNEL_LAUNCHES.items() if v}
     answers = _check_answers(runs, clients, cfg.vocab, 8)
     qb = rt.stats()["query_batching"]
     check(qb["tokens_generated"] == qb["tokens_delivered"] +
           qb["tokens_dropped"] + qb["tokens_in_flight"],
           f"token conservation broken: {qb}")
+    check(kernels == {"flash_attention/sm90/64": launches["flash_attention"],
+                      "flash_decode/split/64": launches["flash_decode"]},
+          f"K5/K6 launches by kernel {kernels}: head dim 64 runs the "
+          f"one-warpgroup prefill and the split-KV decode only")
     check(launches["flash_attention"] == cfg.n_layers * qb["prefills"],
           f"K5 launches {launches} != {cfg.n_layers} x {qb['prefills']}")
     check(routes == {"sm90": launches["flash_attention"], "scalar": 0},
@@ -1230,7 +1250,7 @@ def phase_serve(seed):
                  mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
                  tokens_per_s=qb["tokens_generated"] / wall,
                  peak_gib=peak_gib, launches=launches,
-                 prefill_route_launches=routes,
+                 prefill_route_launches=routes, kernel_launches=kernels,
                  decode_ms=[1e3 * x for x in
                             _serve_batcher(rt).decode_times], **graph)
     print(f"phase 4a serve stablelm-1.6b bf16 24 layers slots 8 max_seq "
@@ -1242,7 +1262,7 @@ def phase_serve(seed):
           f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
           f"{graph['graphs']} graphs captured holding "
           f"{graph['graph_mib']:.1f} MiB, launches {launches}, K5 by route "
-          f"{routes}")
+          f"{routes}, K5/K6 by kernel {kernels}")
 
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     for prompt, gen, got, slot in answers:
@@ -4671,6 +4691,7 @@ def _phase_zoo_serve(tag, seed):
     graph = _graph_since(mark)
     launches = _launch_counts()
     by_dim = {k: v for k, v in fa.HEAD_DIM_LAUNCHES.items() if v}
+    by_kernel = {k: v for k, v in fa.KERNEL_LAUNCHES.items() if v}
     answers = _check_answers(runs, clients, cfg.vocab, 8)
     qb = rt.stats()["query_batching"]
     check(qb["tokens_generated"] == qb["tokens_delivered"] +
@@ -4683,6 +4704,15 @@ def _phase_zoo_serve(tag, seed):
         if n_flash else {}
     check(by_dim == want, f"{tag} {preset}: K5/K6 launches by head dim "
                           f"{by_dim}, expected {want}")
+    want = {}
+    if n_flash:
+        dt = getattr(torch, cfg.dtype)
+        k6 = fa.decode_kernel(dt, d, cfg.n_heads // cfg.n_kv_heads)
+        want = {f"flash_attention/{fa.prefill_kernel(dt, d)}/{d}":
+                n_flash * qb["prefills"],
+                f"flash_decode/{k6}/{d}": n_flash * qb["decode_ticks"]}
+    check(by_kernel == want, f"{tag} {preset}: K5/K6 launches by kernel "
+                             f"{by_kernel}, expected {want}")
     n_ssd = _ssd_layers(cfg)
     ssd = {k: launches[k] for k in ("ssd_state_scan", "ssd_decode")}
     want = {"ssd_state_scan": n_ssd * qb["prefills"],
@@ -4708,7 +4738,7 @@ def _phase_zoo_serve(tag, seed):
                                          ticks_ms[len(ticks_ms) // 2],
                                          ticks_ms[-1]],
                weight_gb=weight_gb, peak_gib=peak_gib, launches=launches,
-               launches_by_head_dim=by_dim,
+               launches_by_head_dim=by_dim, launches_by_kernel=by_kernel,
                prompt_lengths=[len(a[0]) for a in answers], **graph)
     mixer = f"head dim {d}" if not n_ssd else \
         f"{n_ssd} SSD layers of state {cfg.ssm_state}"
@@ -4723,7 +4753,7 @@ def _phase_zoo_serve(tag, seed):
           f"slots), "
           f"{row['tokens_per_s']:.1f} tokens/s; weights {weight_gb:.2f} GB,"
           f" peak {peak_gib:.2f} GiB; {graph['graphs']} graphs; K5/K6 "
-          f"launches by head dim {by_dim}" +
+          f"launches by head dim {by_dim}, by kernel {by_kernel}" +
           (f"; S2/S3 launches {ssd}" if n_ssd else ""))
     row["profile"] = _zoo_profile(tag, srv.pipe.elements["lm"], params, ecfg,
                                   seed)
@@ -4866,11 +4896,12 @@ def phase_zoo(seed, ptxas):
     t0 = time.perf_counter()
     rows["14f"] = _phase_zoo_cpu(seed)
     print(f"phase 14f wall {time.perf_counter() - t0:.1f} s")
-    counts = {}
-    for tag in ZOO_SERVE:
-        for k, v in rows[tag]["launches_by_head_dim"].items():
-            counts[k] = counts.get(k, 0) + v
-    rows["launches_by_head_dim"] = counts
+    for key in ("launches_by_head_dim", "launches_by_kernel"):
+        counts = {}
+        for tag in ZOO_SERVE:
+            for k, v in rows[tag][key].items():
+                counts[k] = counts.get(k, 0) + v
+        rows[key] = counts
     return rows
 
 
@@ -6481,6 +6512,20 @@ def main(argv=None):
                  "src/repro/models/ssm.py:123",
                  trained["16e"]["ssd_state_scan_bwd"],
                  trained["16b"]["launches"]))
+    # K5 bf16 and K6 bf16 at head dims 128 and 256 run kernels of their
+    # own on phase 14's serve path (14b granite-20b, 14c gemma3-4b): the
+    # warp-specialised prefill and the grouped-head decode
+    by_kernel = zoo["launches_by_kernel"]
+    wide = {"flash_attention_ws": sum(
+        v for k, v in by_kernel.items() if "/sm90_ws/" in k),
+        "flash_decode_gqa": sum(v for k, v in by_kernel.items()
+                                if "/gqa_" in k)}
+    rows.append(("flash_attention_ws", "flash_prefill_sm90.cu",
+                 "src/repro/kernels/flash_attn.py:70",
+                 zoo["14a"]["K5 bf16 d=128 L=1024"], wide))
+    rows.append(("flash_decode_gqa", "flash_decode_gqa.cu",
+                 "src/repro/kernels/flash_attn.py:110",
+                 zoo["14a"]["K6 bf16 d=128 S=8 max_seq=1024"], wide))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
@@ -6500,7 +6545,7 @@ def main(argv=None):
     kernels[10]["note"] = ("new kernel, not a TPU port: the backward of "
                            "ssd_state_scan, where the JAX package "
                            "differentiates its lax.scan")
-    for row in kernels[9:]:
+    for row in kernels[9:11]:
         row["ptxas"] = trained["16e"][row["name"]]["ptxas"]
         row["shape"] = trained["16e"][row["name"]]["shape"]
     # the forward scans run on the training path too: 16c's and 16b's counts
@@ -6549,6 +6594,20 @@ def main(argv=None):
             for name, r in zoo["14a"].items()
             if name.startswith("K5" if row["name"] == "flash_attention"
                                else "K6")}
+    # the head-dim 128/256 kernels: every 14a row of theirs, launches by
+    # kernel and head dim (14b-14e)
+    for row, k, prefix in ((kernels[11], "sm90_ws", "K5 bf16"),
+                           (kernels[12], "gqa_", "K6 bf16")):
+        row["note"] = ("K5 bf16 at head dims 128 and 256: warp-specialised "
+                       "(a TMA producer warp, two consumer warpgroups)"
+                       if k == "sm90_ws" else
+                       "K6 bf16 at head dims 128 and 256: a block reads "
+                       "each K/V row once for the group's query rows")
+        row["launches_phase14"] = {
+            n: v for n, v in by_kernel.items() if f"/{k}" in n}
+        row["by_shape"] = {
+            name: {f: r[f] for f in timed + ("ptxas", "kernel")}
+            for name, r in zoo["14a"].items() if name.startswith(prefix)}
     # K1–K4 carry the sharded offload (17a), S2 and its backward the
     # sequence-parallel prefill and train step (17b)
     for row in kernels[:4] + [kernels[7], kernels[10]]:

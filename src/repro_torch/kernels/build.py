@@ -31,6 +31,7 @@ SOURCES: Dict[str, str] = {
     "flash_prefill": "flash_prefill.cu",
     "flash_prefill_sm90": "flash_prefill_sm90.cu",
     "flash_decode": "flash_decode.cu",
+    "flash_decode_gqa": "flash_decode_gqa.cu",
     "quant8": "quant8.cu",
     "sparse_enc": "sparse_enc.cu",
     "sparse_dec": "sparse_dec.cu",

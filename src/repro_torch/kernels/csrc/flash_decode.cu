@@ -35,7 +35,10 @@
 // Bound.  Decode attention reads each valid cache row once: per layer per
 // tick sum_slots (pos+1) * kv * hd * 2 (K and V) * 2 bytes against ~4 FLOPs
 // per byte, so the card's memory rate (3.35 TB/s) bounds it.  Scalar f32
-// arithmetic suffices: one query row cannot feed a tensor core.
+// arithmetic suffices here: each query row reads its K/V rows alone.  It
+// runs head dim 64 (bf16 and f32) and f32 at 128 and 256; bf16 at 128 and
+// 256, where a group's query rows share every K/V row, runs
+// flash_decode_gqa.cu.
 #include "common.cuh"
 
 namespace repro {
@@ -280,8 +283,8 @@ static int launch_decode(const void* q, const void* k, const void* v,
 
 }  // namespace repro
 
-// Instantiated for head dims 64, 128 and 256 (dk == dv), those of every
-// configuration served.
+// Instantiated for head dims 64, 128 and 256 (dk == dv) in f32 and for 64
+// in bf16; bf16 at 128 and 256 runs flash_decode_gqa.cu.
 // ``part`` is the f32 scratch [S*H, nsplit, D + 2]; the wrapper has checked
 // that k and v are 16-byte aligned with strides of whole 16-byte words.
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
@@ -307,10 +310,6 @@ extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
   if (dtype == kFloat32 && D == 128) return REPRO_DECODE(float, 128);
   if (dtype == kFloat32 && D == 256) return REPRO_DECODE(float, 256);
   if (dtype == kBFloat16 && D == 64) return REPRO_DECODE(__nv_bfloat16, 64);
-  if (dtype == kBFloat16 && D == 128)
-    return REPRO_DECODE(__nv_bfloat16, 128);
-  if (dtype == kBFloat16 && D == 256)
-    return REPRO_DECODE(__nv_bfloat16, 256);
 #undef REPRO_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,16 +11,22 @@ dispatches on the tensors' device:
   card to the plain version.
 
 K5 has two routes on the card (:func:`prefill_route`): bfloat16 runs the
-tensor-core kernel ``flash_prefill_sm90.cu`` (wgmma + TMA), float32 the
-register-tiled SIMT kernel ``flash_prefill.cu`` (IEEE f32 FMAs on the CUDA
-cores; its route keeps the name ``"scalar"``).  K6 is split-KV in
-``flash_decode.cu`` (a partial pass and a combine pass) for both dtypes.
-Every kernel takes head dims 64, 128 and 256 (``KERNEL_HEAD_DIMS``, dk ==
-dv) and any ``kv_groups`` that divides the heads.
+tensor-core kernels of ``flash_prefill_sm90.cu`` (wgmma + TMA: one
+warpgroup a block at head dim 64, warp-specialised at 128 and 256),
+float32 the register-tiled SIMT kernels of ``flash_prefill.cu`` (IEEE f32
+FMAs on the CUDA cores; its route keeps the name ``"scalar"``).  K6 is
+split-KV, a partial pass and a combine pass: bfloat16 at head dims 128 and
+256 runs ``flash_decode_gqa.cu`` (a block reads each K/V row once for the
+group's query rows; :func:`decode_geometry`), head dim 64 and float32
+``flash_decode.cu``.  Every route takes head dims 64, 128 and 256
+(``KERNEL_HEAD_DIMS``, dk == dv) and any ``kv_groups`` that divides the
+heads.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels;
-``PREFILL_ROUTE_LAUNCHES`` splits K5's count by route.
+``PREFILL_ROUTE_LAUNCHES`` splits K5's count by route and
+``KERNEL_LAUNCHES`` both wrappers' by compiled kernel and head dim
+(:func:`prefill_kernel`, :func:`decode_kernel`).
 
 Neither kernel has a backward.  K6 raises on the card when an input
 requires grad (``build.refuse_grad``); K5 raises on both routes, because
@@ -34,7 +40,7 @@ written at the top of its CUDA source.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -46,7 +52,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
            "flash_decode_plain", "LAUNCHES", "PREFILL_ROUTE_LAUNCHES",
            "HEAD_DIM_LAUNCHES",
            "reset_launches", "KERNEL_HEAD_DIMS", "prefill_route",
-           "tma_aligned", "decode_splits", "decode_scratch_shape"]
+           "tma_aligned", "decode_splits", "decode_scratch_shape",
+           "KERNEL_LAUNCHES", "prefill_kernel", "decode_kernel",
+           "decode_geometry", "DecodeGeometry"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
@@ -63,6 +71,18 @@ HEAD_DIM_LAUNCHES: Dict[str, int] = {
     f"{name}/{d}": 0 for name in ("flash_attention", "flash_decode")
     for d in KERNEL_HEAD_DIMS}
 
+#: the compiled kernels by wrapper: K5's ``sm90`` (one warpgroup, head dim
+#: 64) and ``sm90_ws`` (warp-specialised, 128 and 256) in
+#: flash_prefill_sm90.cu, ``scalar`` (fp32) in flash_prefill.cu; K6's
+#: ``split`` (flash_decode.cu) and ``gqa_mma`` / ``gqa_simt``
+#: (flash_decode_gqa.cu)
+KERNELS = {"flash_attention": ("sm90", "sm90_ws", "scalar"),
+           "flash_decode": ("split", "gqa_mma", "gqa_simt")}
+#: launches by "<wrapper>/<kernel>/<head dim>", counted with LAUNCHES
+KERNEL_LAUNCHES: Dict[str, int] = {
+    f"{name}/{kern}/{d}": 0 for name, kerns in KERNELS.items()
+    for kern in kerns for d in KERNEL_HEAD_DIMS}
+
 #: key-tile widths of the plain versions (K6's is ``flash_decode_step``'s
 #: block; any width gives the same online softmax up to f32 rounding)
 PREFILL_BLOCK = 64
@@ -70,6 +90,14 @@ DECODE_BLOCK = 128
 #: keys per block of K6's split-KV partial pass (``kDecodeSplit`` in
 #: csrc/flash_decode.cu)
 DECODE_SPLIT = 128
+#: flash_decode_gqa.cu: keys a ring stage by kernel (``Geo::TK``), query
+#: rows of an m16 tile, the m16 tiles a ``gqa_mma`` block holds at most by
+#: head dim (``kMmaTiles``), and the pass-1 blocks a slot aims at (so that a
+#: few slots fill 132 SMs)
+GQA_TILE = {"gqa_mma": 64, "gqa_simt": 32}
+GQA_MMA_ROWS = 16
+GQA_MMA_TILES = {128: 3, 256: 2}
+GQA_BLOCKS_PER_SLOT = 64
 
 _c = ctypes
 _PREFILL_ARGS = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 6
@@ -78,10 +106,13 @@ _PREFILL_SM90_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6
                       + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 _DECODE_ARGS = ([_c.c_int] + [_c.c_void_p] * 6 + [_c.c_int] * 6
                 + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
+_DECODE_GQA_ARGS = ([_c.c_void_p] * 6 + [_c.c_int] * 7
+                    + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 
 
 def reset_launches():
-    for counts in (LAUNCHES, PREFILL_ROUTE_LAUNCHES, HEAD_DIM_LAUNCHES):
+    for counts in (LAUNCHES, PREFILL_ROUTE_LAUNCHES, HEAD_DIM_LAUNCHES,
+                   KERNEL_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -93,6 +124,59 @@ def prefill_route(dtype) -> str:
     Raises for a dtype no kernel takes."""
     return "sm90" if dtype_code("flash_attention", dtype) == \
         DTYPE_CODE["bfloat16"] else "scalar"
+
+
+def prefill_kernel(dtype, d: int) -> str:
+    """K5's compiled kernel on the card (a ``KERNELS`` name) for ``dtype``
+    at head dim ``d``."""
+    if prefill_route(dtype) == "scalar":
+        return "scalar"
+    return "sm90" if d == 64 else "sm90_ws"
+
+
+def decode_kernel(dtype, d: int, groups: int) -> str:
+    """K6's compiled kernel on the card for ``dtype``, head dim ``d`` and
+    ``groups`` query heads a kv head: bfloat16 at 128 and 256 runs
+    flash_decode_gqa.cu, on tensor cores when the group has more than two
+    rows (``gqa_mma``), in f32 SIMT otherwise (``gqa_simt``); head dim 64
+    and float32 run flash_decode.cu (``split``)."""
+    if dtype_code("flash_decode", dtype) != DTYPE_CODE["bfloat16"] or \
+            d == 64:
+        return "split"
+    return "gqa_mma" if groups > 2 else "gqa_simt"
+
+
+class DecodeGeometry(NamedTuple):
+    """K6's launch geometry: the kernel, keys a pass-1 block (``split``),
+    NSPLIT, and pass-1 blocks a (slot, kv head, split) that share the
+    group's query rows (``head_tiles``)."""
+    kernel: str
+    split: int
+    nsplit: int
+    head_tiles: int
+
+
+def decode_geometry(max_seq: int, kv: int, groups: int, d: int,
+                    dtype=torch.bfloat16) -> DecodeGeometry:
+    """K6's geometry from the cache's shape alone (never the slot count or
+    ``pos``, so a slot decodes bitwise alike in any batch).  flash_decode.cu
+    takes ``DECODE_SPLIT`` keys a block.  flash_decode_gqa.cu splits a
+    group's heads into m16 tiles (``gqa_mma``) and takes the smallest
+    multiple of its stage width ``GQA_TILE`` that still gives each slot
+    about ``GQA_BLOCKS_PER_SLOT`` blocks: granite (kv 1, G 48, max_seq
+    1024) 64 keys, 16 splits, its 3 m16 tiles in one block; gemma3 (kv 4,
+    G 2, 4096) 256 keys, 16 splits."""
+    kernel = decode_kernel(dtype, d, groups)
+    if kernel == "split":
+        return DecodeGeometry(kernel, DECODE_SPLIT, decode_splits(max_seq), 1)
+    tiles = 1
+    if kernel == "gqa_mma":      # m16 tiles, up to GQA_MMA_TILES a block
+        m16 = -(-groups // GQA_MMA_ROWS)
+        tiles = -(-m16 // min(m16, GQA_MMA_TILES[d]))
+    tk = GQA_TILE[kernel]
+    want = -(-GQA_BLOCKS_PER_SLOT // (kv * tiles))  # splits a slot's pair
+    split = tk * max(1, -(-max_seq // (tk * want)))
+    return DecodeGeometry(kernel, split, -(-max_seq // split), tiles)
 
 
 def tma_aligned(data_ptr: int, strides, itemsize: int) -> bool:
@@ -118,9 +202,13 @@ def decode_splits(max_seq: int) -> int:
     return -(-max_seq // DECODE_SPLIT)
 
 
-def decode_scratch_shape(rows: int, max_seq: int, dv: int = 64):
-    """K6's f32 scratch: per (slot·head) row and split, (m, l, acc[dv])."""
-    return (rows, decode_splits(max_seq), dv + 2)
+def decode_scratch_shape(rows: int, max_seq: int, dv: int = 64, *,
+                         kv: int = 1, groups: int = 1,
+                         dtype=torch.bfloat16):
+    """K6's f32 scratch: per (slot·head) row and split, (m, l, acc[dv]),
+    NSPLIT from :func:`decode_geometry`."""
+    return (rows, decode_geometry(max_seq, kv, groups, dv, dtype).nsplit,
+            dv + 2)
 
 
 def _check_head_dim(name: str, dk: int, dv: int):
@@ -191,6 +279,8 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
     LAUNCHES["flash_attention"] += 1
     PREFILL_ROUTE_LAUNCHES[route] += 1
     HEAD_DIM_LAUNCHES[f"flash_attention/{dk}"] += 1
+    KERNEL_LAUNCHES[f"flash_attention/{prefill_kernel(q.dtype, dk)}/{dk}"] \
+        += 1
     return o
 
 
@@ -266,27 +356,42 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
                          "tensor on the cache's device")
     _check_head_dim("flash_decode", dk, dv)
     _check_aligned("flash_decode", k_cache, v_cache)
-    nsplit = decode_splits(smax)
-    if smax < 1 or nsplit > 65535:
+    geo = decode_geometry(max(smax, 1), kvh, kv_groups, dk, q.dtype)
+    if smax < 1 or geo.nsplit > 65535:
         raise ValueError(f"flash_decode kernel: max_seq {smax} outside "
-                         f"[1, {65535 * DECODE_SPLIT}]")
+                         f"[1, {65535 * geo.split}]")
+    if geo.kernel != "split" and s_ * kvh > 65535:
+        raise ValueError(f"flash_decode kernel: {s_} x {kvh} (slot, kv "
+                         f"head) pairs exceed the grid's limit of 65535")
     o = torch.empty((s_ * h, dv), dtype=q.dtype, device=q.device)
     if s_ == 0:
         return o
-    part = torch.empty(decode_scratch_shape(s_ * h, smax, dv),
+    part = torch.empty(decode_scratch_shape(s_ * h, smax, dv, kv=kvh,
+                                            groups=kv_groups,
+                                            dtype=q.dtype),
                        dtype=torch.float32, device=q.device)
-    fn = _lib("flash_decode", "repro_flash_decode", _DECODE_ARGS)
     ks, vs = k_cache.stride(), v_cache.stride()
+    strides = (q.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+               o.stride(0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(code, q.data_ptr(), k_cache.data_ptr(),
-                v_cache.data_ptr(), pos.data_ptr(), part.data_ptr(),
-                o.data_ptr(), s_, h, dk, kv_groups, smax, nsplit,
-                q.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                o.stride(0), dk ** -0.5, stream)
+        if geo.kernel == "split":
+            fn = _lib("flash_decode", "repro_flash_decode", _DECODE_ARGS)
+            rc = fn(code, q.data_ptr(), k_cache.data_ptr(),
+                    v_cache.data_ptr(), pos.data_ptr(), part.data_ptr(),
+                    o.data_ptr(), s_, h, dk, kv_groups, smax, geo.nsplit,
+                    *strides, dk ** -0.5, stream)
+        else:
+            fn = _lib("flash_decode_gqa", "repro_flash_decode_gqa",
+                      _DECODE_GQA_ARGS)
+            rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    pos.data_ptr(), part.data_ptr(), o.data_ptr(), s_, h,
+                    dk, kv_groups, smax, geo.split, geo.nsplit, *strides,
+                    dk ** -0.5, stream)
     _raise_on(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     HEAD_DIM_LAUNCHES[f"flash_decode/{dk}"] += 1
+    KERNEL_LAUNCHES[f"flash_decode/{geo.kernel}/{dk}"] += 1
     return o
 
 

@@ -5,9 +5,10 @@ On the CPU the plain versions at these dims are held to the JAX package's
 ``flash_attention`` (Pallas interpret mode) and ``flash_decode_step`` at
 atol = rtol = 2e-5 (f32, two frameworks, summation orders differ), and a
 dim outside ``KERNEL_HEAD_DIMS`` is pinned to raise.  The CUDA kernels run
-only on the card (``cuda`` marker, skipped here): K5 bf16 (wgmma + TMA,
-``flash_prefill_sm90.cu``), K5 fp32 (``flash_prefill.cu``'s tiled kernel)
-and K6 (``flash_decode.cu``) against their plain versions, fp32 within
+only on the card (``cuda`` marker, skipped here): K5 bf16 (the
+warp-specialised kernel of ``flash_prefill_sm90.cu``), K5 fp32
+(``flash_prefill.cu``'s tiled kernel) and K6 (bf16: ``flash_decode_gqa.cu``;
+fp32: ``flash_decode.cu``) against their plain versions, fp32 within
 atol = rtol = 2e-5, bf16 within one bf16 ulp plus 1e-5 (the plain version
 in f32 on the same bf16 inputs), at MQA (granite: 48 query heads on one kv
 head) and GQA 2 (gemma3), ragged lengths included.
@@ -78,8 +79,16 @@ def test_decode_plain_matches_jax_at_wide_dims(d, h, kv):
 
 def test_head_dims_set():
     assert fa.KERNEL_HEAD_DIMS == (64, 128, 256)
-    assert fa.decode_scratch_shape(8 * 48, 1024, 128) == (384, 8, 130)
-    assert fa.decode_scratch_shape(8 * 8, 1024, 256) == (64, 8, 258)
+    # bf16 at 128/256: flash_decode_gqa.cu's geometry (granite: 64-key
+    # splits; gemma3's G = 2 at max_seq 1024: 64-key splits)
+    assert fa.decode_scratch_shape(8 * 48, 1024, 128, kv=1,
+                                   groups=48) == (384, 16, 130)
+    assert fa.decode_scratch_shape(8 * 8, 1024, 256, kv=4,
+                                   groups=2) == (64, 16, 258)
+    # fp32 keeps flash_decode.cu's 128-key splits
+    for d, rows in ((128, 8 * 48), (256, 8 * 8)):
+        assert fa.decode_scratch_shape(rows, 1024, d, dtype=torch.float32) \
+            == (rows, 8, d + 2)
 
 
 # ---------------------------------------------------------------------------
