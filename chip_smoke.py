@@ -200,9 +200,11 @@ Phases, one result line each (any failure exits non-zero):
    trips through a server there, bitwise the model.
 
 14. the attention and MoE decoder zoo — 14a, K5 (bf16 on the
-   warp-specialised tensor-core kernel, fp32 on the tiled SIMT kernel) and
-   K6 (bf16 on the grouped-head kernel, flash_decode_gqa.cu; fp32 on the
-   split-KV one) at the shapes 14b's and
+   warp-specialised tensor-core kernel, fp32 on the persistent tiled SIMT
+   kernel ``scalar_wide``) and K6 (flash_decode_gqa.cu: bf16 on its
+   tensor-core and SIMT routes, fp32 at granite's group of 48 on its f32
+   route ``gqa_f32``; gemma3's fp32 group of 2 on the split-KV
+   flash_decode.cu) at the shapes 14b's and
    14c's serve phases give them (``_zoo_kernel_shapes``): K5 at
    granite-20b's [48, L, 128] (MQA, kv_groups 48), L = 128, 512, 1024, and
    gemma3-4b's [8, L, 256] (kv_groups 2), L = 128, 512, 1024, 2000 (the
@@ -210,7 +212,8 @@ Phases, one result line each (any failure exits non-zero):
    [8, 1024, 1, 128] serve cache and gemma3's 8 x 8 over [8, 4096, 4,
    256], positions up to max_seq - 1; each dtype against its plain version
    (the bf16 and fp32 limits above), timed beside SDPA and the bounds,
-   with ptxas's registers and spills (phase 3b's rows, same code).  14b, granite-20b whole
+   with the compiled kernel's name and ptxas's registers and spills
+   (phase 3b's rows, same code).  14b, granite-20b whole
    (52 layers, bf16, ``granite-20b-flash``) behind ``serve_pipeline(slots=
    8, max_seq=1024)``, phase 4's client schedule with prompts of 128–512
    tokens; 14c, gemma3-4b whole (``gemma3-4b-flash``, 34 layers LLLLLG)
@@ -231,7 +234,9 @@ Phases, one result line each (any failure exits non-zero):
    preset (qwen, granite, gemma3, mixtral, deepseek, internvl2 through
    ``Model.prefill`` with patches, the int8 KV cache) and granite-20b at 2
    layers and gemma3-4b at 6 (LLLLLG) at full width, so K5/K6 fp32 run at
-   128 and 256 on a model path, within 3e-5 of the largest logit; then
+   128 and 256 on a model path (K5 on ``scalar_wide`` at both, K6 on
+   ``gqa_f32`` at granite's group of 48: launches by kernel checked),
+   within 3e-5 of the largest logit; then
    each case again with TF32 on in the card's matmuls, which must read
    more than that limit.
 
@@ -500,7 +505,7 @@ def _k5_row(rn, bh, grp, d, L, dtype, ptxas):
         row["ptxas"] = _ptxas_regs(ptxas, "flash_prefill",
                                    "flash_prefill_f32_kernel", "cp.async") \
             if d == 64 else _ptxas_regs(ptxas, "flash_prefill",
-                                        "flash_prefill_f32_wide_kernel",
+                                        "flash_prefill_f32_tiled_kernel",
                                         "cp.async", f"D={d}")
     return row
 
@@ -554,7 +559,8 @@ def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
         if kern == "split" else
         _ptxas_regs(ptxas, "flash_decode_gqa",
                     f"gqa_decode_{kern.removeprefix('gqa_')}_kernel",
-                    f"D={d}"))
+                    f"D={d}", *([f"MT={min(-(-H // kv // 16), 4)}"]
+                                if kern == "gqa_f32" else [])))
 
 
 def _kernel_rows(phase, k5, k6, g, rng, ptxas):
@@ -612,12 +618,15 @@ def _kernel_name(mangled):
     if "sparse_enc_kernel" in mangled and "Lb1E" in mangled:
         tag += ",scalar loads"          # K3's kScalar instantiation
     if "flash_prefill_f32_kernel" in mangled or \
-            "flash_prefill_f32_wide_kernel" in mangled:   # K5 fp32's kVec
+            "flash_prefill_f32_tiled_kernel" in mangled:  # K5 fp32's kVec
         tag = "cp.async" if "Lb1E" in mangled else "4-byte loads"
-    m = re.search(r"(?:sm90|ws|wide|decode_\w+)_kernelI(?:13__nv_bfloat16|f)?"
-                  r"Li(\d+)E", mangled)
+    m = re.search(r"(?:sm90|ws|tiled|combine|decode_\w+)_kernelI"
+                  r"(?:13__nv_bfloat16|f)?Li(\d+)E", mangled)
     if m:                                       # K5/K6's head dim
         tag += f"{',' if tag else ''}D={m.group(1)}"
+    m = re.search(r"gqa_decode_f32_kernelILi\d+ELi(\d+)E", mangled)
+    if m:                                       # K6 fp32's m16 tiles
+        tag += f",MT={m.group(1)}"
     m = re.search(r"rglru_scan(?:_bwd)?_kernelILb([01])E", mangled)
     if m:                                       # S1's kVec (and backward's)
         tag = f"{'16' if m.group(1) == '1' else '4'} B copies"
@@ -4864,6 +4873,13 @@ def _phase_zoo_cpu(seed):
               by_dim.get(f"flash_decode/{d}", 0) > 0,
               f"14f: K5/K6 fp32 never ran at head dim {d}: {by_dim}")
     check(routes["sm90"] == 0, f"14f is fp32: K5 routes {routes}")
+    # the fp32 kernels at 128 and 256: K5's tiled kernel at both dims, K6's
+    # f32 grouped-head kernel at granite's group of 48
+    by_kernel = {k: v for k, v in fa.KERNEL_LAUNCHES.items() if v}
+    for key in ("flash_attention/scalar_wide/128",
+                "flash_attention/scalar_wide/256", "flash_decode/gqa_f32/128"):
+        check(by_kernel.get(key, 0) > 0,
+              f"14f: {key} never launched: {by_kernel}")
     control = {}
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -4876,12 +4892,12 @@ def _phase_zoo_cpu(seed):
           f"the largest; sound / TF32 control): " +
           ", ".join(f"{k} {v:.1e} / {control[k]:.1e}"
                     for k, v in out.items()) +
-          f"; K5/K6 launches by head dim {by_dim}")
+          f"; K5/K6 launches by head dim {by_dim}, by kernel {by_kernel}")
     for name, v in control.items():
         check(v > ZOO_CPU_TOL, f"14f {name}: the TF32 control reads {v:.2e},"
                                f" inside the limit {ZOO_CPU_TOL:g}")
     return dict(worst=out, tf32_control=control, launches_by_head_dim=by_dim,
-                launches=launches)
+                launches_by_kernel=by_kernel, launches=launches)
 
 
 def phase_zoo(seed, ptxas):
@@ -6526,6 +6542,21 @@ def main(argv=None):
     rows.append(("flash_decode_gqa", "flash_decode_gqa.cu",
                  "src/repro/kernels/flash_attn.py:110",
                  zoo["14a"]["K6 bf16 d=128 S=8 max_seq=1024"], wide))
+    # K5 fp32 and K6 fp32 at head dims 128 and 256 run kernels of their own
+    # on 14f's fp32 model path (granite-20b and gemma3-4b cut in depth,
+    # the smoke presets): the tiled persistent prefill, the f32 grouped
+    # decode
+    f32_by_kernel = zoo["14f"]["launches_by_kernel"]
+    f32_wide = {"flash_attention_f32_wide": sum(
+        v for k, v in f32_by_kernel.items() if "/scalar_wide/" in k),
+        "flash_decode_gqa_f32": sum(v for k, v in f32_by_kernel.items()
+                                    if "/gqa_f32/" in k)}
+    rows.append(("flash_attention_f32_wide", "flash_prefill.cu",
+                 "src/repro/kernels/flash_attn.py:70",
+                 zoo["14a"]["K5 fp32 d=128 L=1024"], f32_wide))
+    rows.append(("flash_decode_gqa_f32", "flash_decode_gqa.cu",
+                 "src/repro/kernels/flash_attn.py:110",
+                 zoo["14a"]["K6 fp32 d=128 S=8 max_seq=1024"], f32_wide))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
@@ -6605,6 +6636,19 @@ def main(argv=None):
                        "each K/V row once for the group's query rows")
         row["launches_phase14"] = {
             n: v for n, v in by_kernel.items() if f"/{k}" in n}
+        row["by_shape"] = {
+            name: {f: r[f] for f in timed + ("ptxas", "kernel")}
+            for name, r in zoo["14a"].items() if name.startswith(prefix)}
+    for row, k, prefix in ((kernels[13], "scalar_wide", "K5 fp32"),
+                           (kernels[14], "gqa_f32", "K6 fp32")):
+        row["note"] = ("K5 fp32 at head dims 128 and 256: persistent "
+                       "blocks, items packing a kv group's heads, f32 "
+                       "register tiles" if k == "scalar_wide" else
+                       "K6 fp32 at head dims 128 and 256, groups over 2: a "
+                       "block reads each K/V row once for the group's "
+                       "query rows, f32 register tiles")
+        row["launches_phase14f"] = {
+            n: v for n, v in f32_by_kernel.items() if f"/{k}/" in n}
         row["by_shape"] = {
             name: {f: r[f] for f in timed + ("ptxas", "kernel")}
             for name, r in zoo["14a"].items() if name.startswith(prefix)}

@@ -36,9 +36,9 @@
 // tick sum_slots (pos+1) * kv * hd * 2 (K and V) * 2 bytes against ~4 FLOPs
 // per byte, so the card's memory rate (3.35 TB/s) bounds it.  Scalar f32
 // arithmetic suffices here: each query row reads its K/V rows alone.  It
-// runs head dim 64 (bf16 and f32) and f32 at 128 and 256; bf16 at 128 and
-// 256, where a group's query rows share every K/V row, runs
-// flash_decode_gqa.cu.
+// runs head dim 64 (bf16 and f32) and f32 at 128 and 256 where a group has
+// one or two query rows; the rest of 128 and 256, where a group's query
+// rows share every K/V row, runs flash_decode_gqa.cu.
 #include "common.cuh"
 
 namespace repro {
@@ -284,7 +284,8 @@ static int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace repro
 
 // Instantiated for head dims 64, 128 and 256 (dk == dv) in f32 and for 64
-// in bf16; bf16 at 128 and 256 runs flash_decode_gqa.cu.
+// in bf16; bf16 at 128 and 256, and f32 there at groups over 2, run
+// flash_decode_gqa.cu.
 // ``part`` is the f32 scratch [S*H, nsplit, D + 2]; the wrapper has checked
 // that k and v are 16-byte aligned with strides of whole 16-byte words.
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,

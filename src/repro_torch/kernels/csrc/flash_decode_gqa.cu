@@ -1,13 +1,15 @@
-// Grouped-head flash-decode step for Hopper (sm_90a), bf16, head dims 128
-// and 256: the port of ``flash_decode_step`` in
-// src/repro/kernels/flash_attn.py (a ``lax.scan`` over 128-wide KV blocks,
-// once per layer per generated token on the serve path) for the grouped
-// heads of granite, mixtral, qwen, internvl2 (128) and gemma3's global
-// layers (256).  Head dim 64 and the fp32 route stay on flash_decode.cu.
+// Grouped-head flash-decode step for Hopper (sm_90a), head dims 128 and
+// 256: the port of ``flash_decode_step`` in src/repro/kernels/flash_attn.py
+// (a ``lax.scan`` over 128-wide KV blocks, once per layer per generated
+// token on the serve path) for the grouped heads of granite, mixtral, qwen,
+// internvl2 (128) and gemma3's global layers (256): bf16 at any group, and
+// fp32 where the group has more than two query rows (``gqa_f32``, below).
+// Head dim 64, and fp32 at groups of 1-2, stay on flash_decode.cu.
 //
 // What it computes is flash_decode.cu's: the G = H / kv query rows of each
 // (slot, kv head) attend to that slot's cached keys [0, pos[slot]], f32
-// online softmax, scores scaled by D^-0.5, l clamped at 1e-30, bf16 out;
+// online softmax, scores scaled by D^-0.5, l clamped at 1e-30, out in the
+// input type;
 // the cache is read in its stored layout [S, max_seq, kv, D] by strides and
 // ``pos`` is an int32 device vector (the host never reads it).
 //
@@ -31,7 +33,7 @@
 // (``flash_attn.decode_geometry``), so a slot decodes bitwise alike in any
 // batch, and a CUDA graph replays the same launches.
 //
-// Two routes, by G:
+// Two bf16 routes, by G:
 //   G > 2, "gqa_mma": the group's rows share every key, so the scores are a
 // [G, D] x [D, keys] product.  The rows go in m16 tiles (G = 48 fills
 // three, mixtral's 6 and qwen's 8 pad one), four warps a tile and up to
@@ -58,6 +60,7 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "flash_f32_tile.cuh"
 
 namespace repro {
 namespace {
@@ -143,8 +146,8 @@ struct Block {
   int slot, kvh, ht, split, c0, kend, rows, row0;
 };
 
-template <int ROWS>
-__device__ __forceinline__ Block block_of(const Args& a) {
+template <int ROWS, class A>
+__device__ __forceinline__ Block block_of(const A& a) {
   Block b;
   b.ht = blockIdx.x;
   b.split = blockIdx.y;
@@ -159,8 +162,8 @@ __device__ __forceinline__ Block block_of(const Args& a) {
   return b;
 }
 
-template <int D>
-__device__ __forceinline__ float* part_row(const Args& a, const Block& b,
+template <int D, class A>
+__device__ __forceinline__ float* part_row(const A& a, const Block& b,
                                            int r) {
   return a.part +
          (static_cast<long long>(b.row0 + r) * a.nsplit + b.split) * (D + 2);
@@ -226,8 +229,8 @@ __device__ __forceinline__ void merge_and_store(const Args& a, const Block& b,
   }
 }
 
-template <int D, int NTH>
-__device__ __forceinline__ void neutral(const Args& a, const Block& b) {
+template <int D, int NTH, class A>
+__device__ __forceinline__ void neutral(const A& a, const Block& b) {
   for (int i = threadIdx.x; i < b.rows * (D + 2); i += NTH) {
     const int r = i / (D + 2);
     const int e = i - r * (D + 2);
@@ -568,16 +571,217 @@ gqa_decode_simt_kernel(const Args a) {
   merge_and_store<D, GR, NSUB, NT>(a, b, sm_m, sm_l, sm_e, pacc);
 }
 
+// ---------------------------------------------------------------------------
+// G > 2, fp32: f32 SIMT register tiles, the whole group a block
+// ---------------------------------------------------------------------------
+//   The bf16 routes' structure in IEEE f32 (tensor cores would mean TF32):
+// a block owns one (slot, kv head, split) and MT m16 tiles of the group's
+// query rows (all of them up to G = 64, so each K/V row is read once per
+// (slot, kv head, split)), KQ warps a tile.  The split's keys stage in
+// shared memory through a two-deep cp.async ring (K rows padded to D + 4
+// floats, V rows of D) of 64 keys at D = 128 and 32 at 256; warp (tile mt,
+// key group kq) runs the warp tile of flash_f32_tile.cuh over its 16 rows
+// and its 1/KQ of each stage: at D = 128 and up to 3 tiles (granite's 48
+// rows), KQ = 4 warps of 16 keys, a 4 x 2 score tile and a 4 x 16 output
+// tile a lane, so 12 warps share an SM's work; at 4 tiles, for registers,
+// KQ = 2 warps of 32 keys (4 x 4); at 256, KQ = 2 of 16 keys (4 x 2 and
+// 4 x 32).  Q is staged
+// once, scaled by D^-0.5 log2(e) (scores in the log2 domain).  At the end
+// the key groups' (m, l, acc) merge in order through shared memory and the
+// block writes the split's partial (its m in the log2 domain); the combine
+// merges the splits in order with exp2.  Split widths are multiples of 64
+// keys (``decode_geometry``): granite's group of 48 takes 64-key splits (one
+// stage), 16 a slot, 3 tiles a block.  Measured by tools/flash_vs_parent.py
+// on an NVIDIA H100 80GB HBM3 at 700 W: 0.0175 ms at granite's 8-slot cache
+// (pass 1 0.0128 + combine 0.0028; flash_decode.cu's fp32 route 0.0340).
+
+// keys of a ring stage by head dim, and the warps a stage's keys are split
+// between: at D = 128 4 (16 keys a warp, a 4 x 2 score tile) up to 3 m16
+// tiles a block, 2 (32 keys, 4 x 4) at 4 tiles, for registers; at 256, 2
+template <int D>
+constexpr int F32_TK = D == 128 ? 64 : 32;
+template <int D, int MT>
+constexpr int F32_KQ = D == 128 && MT <= 3 ? 4 : 2;
+template <int D, int MT>
+using F32DecTile = F32Tile<D, 4, 4, F32_TK<D> / F32_KQ<D, MT> / 8>;
+constexpr int F32_TILES = 4;  // m16 tiles a block holds at most
+constexpr int F32_SPLIT_UNIT = 64;  // a split is a multiple of this
+
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* pos;
+  float* part;
+  int H, groups, Smax, split, nsplit;
+  long long q_sr, k_sslot, k_sseq, k_sh, v_sslot, v_sseq, v_sh;
+  float scale;
+};
+
+template <int D, int MT>
+constexpr int F32_NTH = 32 * MT * F32_KQ<D, MT>;  // threads of a block
+
+template <int D, int MT>
+constexpr int f32_smem() {
+  using Tile = F32DecTile<D, MT>;
+  return 4 * (MT * MROWS * Tile::LDQ + 2 * F32_TK<D> * (Tile::LDQ + D) +
+              MT * F32_KQ<D, MT> * 16 * Tile::LDP);
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(F32_NTH<D, MT>)
+gqa_decode_f32_kernel(const F32Args a) {
+  using Tile = F32DecTile<D, MT>;
+  constexpr int KQ = F32_KQ<D, MT>;
+  constexpr int NTH = F32_NTH<D, MT>;
+  constexpr int ROWS = MT * MROWS;
+  constexpr int LDQ = Tile::LDQ;
+  constexpr int TK = F32_TK<D>;
+  constexpr int KW = Tile::KEYS;       // keys of a warp in a stage
+  constexpr int STAGE = TK * (LDQ + D);  // floats of K then V
+  static_assert(Tile::ROWS == MROWS && KW * KQ == TK, "warp tiling");
+  static_assert((KQ - 1) * ROWS * (D + 2) <= 2 * STAGE, "merge space");
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                   // [ROWS][LDQ]
+  float* ring = qs + ROWS * LDQ;     // 2 stages
+  float* pbuf = ring + 2 * STAGE;    // [warps][16][LDP]
+
+  const Block b = block_of<ROWS>(a);
+  if (b.c0 >= b.kend) {  // no valid key here: the neutral partial
+    neutral<D, NTH>(a, b);
+    return;
+  }
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int mt = warp / KQ;  // m16 tile
+  const int kq = warp % KQ;  // key group of each stage
+  const int lane = t & 31;
+  const int rg = lane / Tile::TC;
+  const int tc = lane % Tile::TC;
+  constexpr int RG = Tile::NRG;
+  constexpr int R = Tile::NR;
+  const float* kb = a.k + b.slot * a.k_sslot + b.kvh * a.k_sh;
+  const float* vb = a.v + b.slot * a.v_sslot + b.kvh * a.v_sh;
+
+  // stage j's K and V rows (rows past kend land as zeros); one commit group
+  auto load = [&](int j) {
+    float* ks = ring + (j & 1) * STAGE;
+    float* vs = ks + TK * LDQ;
+    const int k0 = b.c0 + j * TK;
+    for (int i = t; i < TK * (D / 4); i += NTH) {
+      const int r = i / (D / 4);
+      const int c = (i - r * (D / 4)) * 4;
+      const int key = k0 + r;
+      const bool ok = key < b.kend;
+      const long long kk = ok ? key : 0;  // a valid address when zero-filling
+      cp_async16(ks + r * LDQ + c, kb + kk * a.k_sseq + c, ok);
+      cp_async16(vs + r * D + c, vb + kk * a.v_sseq + c, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int ntiles = (b.kend - b.c0 + TK - 1) / TK;
+  load(0);
+  // Q [ROWS, D], scaled, while the first K/V rows are in flight (rows past
+  // the group are zeros); any alignment, so element loads
+  const float qscale = a.scale * 1.4426950408889634f;
+  for (int i = t; i < ROWS * D; i += NTH) {
+    const int r = i / D;
+    const int d = i - r * D;
+    qs[r * LDQ + d] =
+        r < b.rows ? a.q[(b.row0 + r) * a.q_sr + d] * qscale : 0.f;
+  }
+
+  Tile tile;
+  tile.init();
+  int lim[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) lim[i] = b.kend;
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage j (and Q) landed; stage j-1 is free
+    if (j + 1 < ntiles) load(j + 1);
+    const float* ks = ring + (j & 1) * STAGE + KW * kq * LDQ;
+    const float* vs = ring + (j & 1) * STAGE + TK * LDQ + KW * kq * D;
+    const int k0 = b.c0 + j * TK + KW * kq;
+    if (k0 < b.kend) {
+      float* ps = pbuf + warp * 16 * Tile::LDP;
+      tile.scores(qs + 16 * mt * LDQ, ks, ps, k0, lim, k0 + KW > b.kend, 1.f,
+                  rg, tc);
+      tile.accumulate(vs, ps, rg, tc);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: key groups 1.. leave results there
+  tile.row_sums();
+
+  // sub[kq - 1][row]: (m, l, acc) of key group kq; group 0 merges them in
+  // order and writes the split's partial
+  float* sub = ring;
+  if (kq > 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float* sr = sub + ((kq - 1) * ROWS + 16 * mt + rg + RG * i) * (D + 2);
+      if (tc == 0) {
+        sr[0] = tile.m[i];
+        sr[1] = tile.l[i];
+      }
+#pragma unroll
+      for (int e = 0; e < Tile::E; ++e)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sr[2 + 4 * Tile::TC * e + 4 * tc + c] = tile.acc[i][e][c];
+    }
+  }
+  __syncthreads();
+  if (kq == 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = 16 * mt + rg + RG * i;
+      if (r >= b.rows) continue;
+      float mm = tile.m[i];
+#pragma unroll
+      for (int g = 1; g < KQ; ++g)
+        mm = fmaxf(mm, sub[((g - 1) * ROWS + r) * (D + 2)]);
+      float w[KQ];
+      w[0] = exp2f(tile.m[i] - mm);
+      float l = tile.l[i] * w[0];
+#pragma unroll
+      for (int g = 1; g < KQ; ++g) {
+        const float* sr = sub + ((g - 1) * ROWS + r) * (D + 2);
+        w[g] = exp2f(sr[0] - mm);
+        l += sr[1] * w[g];
+      }
+      float* out = part_row<D>(a, b, r);
+      if (tc == 0) {
+        out[0] = mm;
+        out[1] = l;
+      }
+#pragma unroll
+      for (int e = 0; e < Tile::E; ++e)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = 4 * Tile::TC * e + 4 * tc + c;
+          float x = tile.acc[i][e][c] * w[0];
+#pragma unroll
+          for (int g = 1; g < KQ; ++g)
+            x += sub[((g - 1) * ROWS + r) * (D + 2) + 2 + d] * w[g];
+          out[2 + d] = x;
+        }
+    }
+  }
+}
+
 // Pass 2: out = sum_i acc_i e^(m_i - m) / max(sum_i l_i e^(m_i - m), 1e-30)
-// over the splits in order, m = max_i m_i.  The block's threads first take
+// over the splits in order, m = max_i m_i (2^ for the f32 route, whose m
+// are in the log2 domain).  The block's threads first take
 // m (a max: exact in any order), then the weights e^(m_i - m) of D splits
 // at a time into shared memory, so that each thread's sums run over the
 // splits in order with its loads in flight together.
-template <int D>
+template <int D, typename T, bool kLog2>
 __global__ void __launch_bounds__(D)
 gqa_decode_combine_kernel(const float* __restrict__ part,
-                          __nv_bfloat16* __restrict__ o, int nsplit,
-                          long long o_sr) {
+                          T* __restrict__ o, int nsplit, long long o_sr) {
   __shared__ float red[D / 32];
   __shared__ float e_s[D], l_s[D];
   const int r = blockIdx.x;
@@ -592,7 +796,7 @@ gqa_decode_combine_kernel(const float* __restrict__ part,
     const int n = min(D, nsplit - i0);
     if (d < n) {
       const float* pi = pr + (i0 + d) * (D + 2);
-      e_s[d] = expf(pi[0] - m);
+      e_s[d] = kLog2 ? exp2f(pi[0] - m) : expf(pi[0] - m);
       l_s[d] = pi[1];
     }
     __syncthreads();
@@ -603,7 +807,7 @@ gqa_decode_combine_kernel(const float* __restrict__ part,
     }
     __syncthreads();
   }
-  o[r * o_sr + d] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  o[r * o_sr + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
 }
 
 template <auto Kernel, int SMEM, int NTH>
@@ -647,8 +851,36 @@ int launch(const Args& a, int S, void* o, long long o_sr,
                             simt_smem<D>(), NT>(a, grid, stream);
   }
   if (rc != 0) return rc;
-  gqa_decode_combine_kernel<D><<<S * a.H, D, 0, stream>>>(
-      a.part, static_cast<__nv_bfloat16*>(o), a.nsplit, o_sr);
+  gqa_decode_combine_kernel<D, __nv_bfloat16, false>
+      <<<S * a.H, D, 0, stream>>>(a.part, static_cast<__nv_bfloat16*>(o),
+                                  a.nsplit, o_sr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int MT>
+int launch_f32_mt(const F32Args& a, int S, cudaStream_t stream) {
+  const int tiles = (a.groups + MROWS - 1) / MROWS;
+  const dim3 grid((tiles + MT - 1) / MT, a.nsplit, S * (a.H / a.groups));
+  constexpr int smem = f32_smem<D, MT>();
+  const cudaError_t err = allow_smem<gqa_decode_f32_kernel<D, MT>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gqa_decode_f32_kernel<D, MT>
+      <<<grid, F32_NTH<D, MT>, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const F32Args& a, int S, void* o, long long o_sr,
+               cudaStream_t stream) {
+  // a block takes min(tiles, F32_TILES) m16 tiles of the group
+  const int mt = min((a.groups + MROWS - 1) / MROWS, F32_TILES);
+  const int rc = mt == 1   ? launch_f32_mt<D, 1>(a, S, stream)
+                 : mt == 2 ? launch_f32_mt<D, 2>(a, S, stream)
+                 : mt == 3 ? launch_f32_mt<D, 3>(a, S, stream)
+                           : launch_f32_mt<D, F32_TILES>(a, S, stream);
+  if (rc != 0) return rc;
+  gqa_decode_combine_kernel<D, float, true><<<S * a.H, D, 0, stream>>>(
+      a.part, static_cast<float*>(o), a.nsplit, o_sr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -687,5 +919,34 @@ extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(a, S, o, o_sr, st);
   if (D == 256) return launch<256>(a, S, o, o_sr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f32, head dims 128 and 256, groups over 2 (dk == dv): the arguments of
+// repro_flash_decode_gqa; ``split`` is a multiple of 64 keys.
+extern "C" int repro_flash_decode_gqa_f32(const void* q, const void* k,
+                                          const void* v, const void* pos,
+                                          void* part, void* o, int S, int H,
+                                          int D, int groups, int Smax,
+                                          int split, int nsplit,
+                                          long long q_sr, long long k_sslot,
+                                          long long k_sseq, long long k_sh,
+                                          long long v_sslot, long long v_sseq,
+                                          long long v_sh, long long o_sr,
+                                          float scale, void* stream) {
+  using namespace repro;
+  if (S <= 0 || groups <= 2 || H % groups != 0 || Smax <= 0 || split <= 0 ||
+      split % F32_SPLIT_UNIT != 0 || nsplit <= 0 || nsplit > 65535 ||
+      static_cast<long long>(nsplit) * split < Smax ||
+      static_cast<long long>(nsplit - 1) * split >= Smax ||
+      static_cast<long long>(S) * (H / groups) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const int*>(pos),
+                  static_cast<float*>(part), H, groups, Smax, split, nsplit,
+                  q_sr, k_sslot, k_sseq, k_sh, v_sslot, v_sseq, v_sh, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_f32<128>(a, S, o, o_sr, st);
+  if (D == 256) return launch_f32<256>(a, S, o, o_sr, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 // Flash-attention prefill for Hopper (sm_90a), fp32 route: the port of the
 // TPU kernel ``flash_attention`` in src/repro/kernels/flash_attn.py (body
 // ``_flash_kernel``).  Head dim 64 runs the persistent kernel described
-// below; 128 and 256 a plain tiled one (``flash_prefill_f32_wide_kernel``,
-// further down).  This file serves float32 only; bfloat16 (the serve
+// below; 128 and 256 a persistent kernel of their own
+// (``flash_prefill_f32_tiled_kernel``, further down, on the warp tile of
+// flash_f32_tile.cuh).  This file serves float32 only; bfloat16 (the serve
 // path) runs on the tensor cores in flash_prefill_sm90.cu.  fp32 runs on the
 // CUDA cores in IEEE f32 FMAs: tensor cores would mean TF32 (10-bit
 // mantissas), which the fp32 check (atol = rtol = 2e-5 against the plain
@@ -62,6 +63,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "flash_f32_tile.cuh"
 
 namespace repro {
 namespace {
@@ -412,36 +414,67 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Head dims 128 and 256: a plain tiled kernel, one block per (bh, 32-row
-// query tile), heaviest tiles first.  The persistent kernel above keeps a
-// 4 x 4 output tile in registers at 128 a thread; at D = 128 or 256 its
-// tiles no longer fit 227 KB of shared memory nor its 128 registers, so
-// these dims take a simpler shape, right first (speed is later work):
-//  * 8 warps; warp w owns query rows 4w..4w+3 of the tile.  For S = Q K^T
-//    lane j owns key j of a 32-key tile for each of the 4 rows (Q rows are
-//    read as broadcasts, K rows padded to D + 4 floats: conflict-free
-//    128-bit loads); for O += P V lane j owns dims 4j + 128c, c < D/128.
-//  * The row max and sum are full-warp shuffles; P goes through shared
-//    memory (a warp reads only its own rows, so ``__syncwarp`` suffices).
-//  * K/V tiles are double-buffered with cp.async (tile t+1 lands while
-//    tile t is computed); a misaligned view takes 4-byte loads instead.
-//  * Scores in the log2 domain, as above.
-// Shared memory: Q 32 x (D+4), K 2 x 32 x (D+4), V 2 x 32 x D and P 32 x 32
-// floats: 87.5 KB at D = 128, 165.5 KB at 256.
+// Head dims 128 and 256: a persistent, register-tiled kernel.  The kernel
+// above keeps a whole 64 x 64 output tile in 128 registers a thread; at
+// D = 128 or 256 that tile no longer fits, so these dims take their own
+// shape, built on the warp tile of flash_f32_tile.cuh (which says what
+// bounds it: 128-bit shared loads against FMAs):
+//  * A block is 8 warps, one an SM (``__launch_bounds__(256, 1)``, up to
+//    255 registers a thread).  A work item is 8 warps' rows: at D = 128 a
+//    warp owns 16 rows, a lane 8 of them x 4 keys of a 64-key tile and x 8
+//    output dims; at D = 256 a warp owns 8 rows, a lane 4 x 4 keys and x 16
+//    dims.  The shared pipe then needs 0.88 (D = 128) or 1.31 (256) of the
+//    FMA pipe's time (flash_f32_tile.cuh counts it; a one-row-group tile
+//    at 256, 1.13 on paper, ran slower on an H100).  Each K/V tile in
+//    shared memory serves all of the item's rows.
+//  * An item packs ``hs`` heads of one kv group (hs = the largest of 8, 4,
+//    2, 1 that divides kv_groups) at the same rows / hs query positions:
+//    one K/V tile serves hs heads, and the causal diagonal costs a strip of
+//    rows / hs positions, not of rows.
+//  * Items are numbered heaviest first (the last query tiles of the causal
+//    triangle first) and dealt to one persistent block an SM in snake
+//    order.  Where there are fewer items than SMs, each item's key tiles
+//    are cut into ``nc`` chunks of nearly equal length, one work unit each,
+//    so short prompts and few heads still fill the card: a unit leaves its
+//    rows' (acc, m, l) in an f32 scratch and a second launch merges each
+//    row's chunks in chunk order (no atomics).  (Merging in the item's last
+//    unit instead, counted with an integer atomic, was slower on an H100:
+//    one block's merge loads wait on L2 one after another.)
+//  * K and V have one buffer each, loaded with cp.async so that each lands
+//    while the other is in use: V(t) while Q K^T(t) runs, K(t+1) while
+//    P V(t) runs (two barriers a tile).  A misaligned view takes 4-byte
+//    loads instead.  A warp skips the tiles that lie wholly above its part
+//    of the causal diagonal; masks are evaluated only on tiles that cross
+//    it or the ragged key end.
+// Shared memory: Q rows x (D+4), K 64 x (D+4), V 64 x D, P rows x 80
+// floats: 171 KB at D = 128 (128 rows), 214 KB at 256 (64 rows).
+// ``flash_attn.wide_prefill_geometry`` computes hs, nc and the grid.
+// Measured by tools/flash_vs_parent.py on an NVIDIA H100 80GB HBM3 at
+// 700 W: 0.425 ms at granite's causal [48, 1024, 128] (45% of the f32
+// operation bound; the earlier 32-row tiled kernel 0.708 ms, fp32 SDPA
+// 1.36), 0.510 ms at gemma3's [8, 2048, 256] (50%; 0.805, 1.27).
 // ---------------------------------------------------------------------------
 
-constexpr int kWBQ = 32;        // query rows of a block
-constexpr int kWBK = 32;        // keys of a tile
-constexpr int kWWarps = 8;
-constexpr int kWThreads = 32 * kWWarps;
-constexpr int kWR = kWBQ / kWWarps;  // rows a warp owns
+constexpr int kXWarps = 8;
+constexpr int kXThreads = 32 * kXWarps;
+constexpr int kXKeys = 64;  // keys of a K/V tile
 
 template <int D>
-struct WideSmem {
-  float q[kWBQ * (D + 4)];
-  float k[2][kWBK * (D + 4)];
-  float v[2][kWBK * D];
-  float p[kWBQ * kWBK];
+struct XGeo {
+  // warp tile: 2 row groups of 16 lanes, 8 (D = 128) or 4 (256) rows a
+  // lane, 4 keys a lane (64 a warp)
+  using Tile = F32Tile<D, 2, D == 128 ? 8 : 4, 4>;
+  static constexpr int RW = Tile::ROWS;          // rows of a warp
+  static constexpr int ROWS = kXWarps * RW;      // rows of an item
+  static_assert(Tile::KEYS == kXKeys, "a warp takes the whole key tile");
+};
+
+template <int D>
+struct XSmem {
+  float q[XGeo<D>::ROWS * (D + 4)];
+  float k[kXKeys * (D + 4)];
+  float v[kXKeys * D];
+  float p[XGeo<D>::ROWS * XGeo<D>::Tile::LDP];
 };
 
 // Rows r0..r0+n-1 of a [rows, D] f32 matrix with row stride ``ss`` into
@@ -452,7 +485,7 @@ __device__ __forceinline__ void load_rows_wide(float* dst, int ld,
                                                const float* src, long long ss,
                                                int r0, int n, int nrows) {
   if (kVec) {
-    for (int c = threadIdx.x; c < n * (D / 4); c += kWThreads) {
+    for (int c = threadIdx.x; c < n * (D / 4); c += kXThreads) {
       const int r = c / (D / 4);
       const int col = (c % (D / 4)) * 4;
       const bool ok = r0 + r < nrows;
@@ -460,7 +493,7 @@ __device__ __forceinline__ void load_rows_wide(float* dst, int ld,
                  ok ? src + (long long)(r0 + r) * ss + col : src, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < n * D; e += kWThreads) {
+    for (int e = threadIdx.x; e < n * D; e += kXThreads) {
       const int r = e / D;
       const int col = e % D;
       dst[r * ld + col] =
@@ -470,174 +503,216 @@ __device__ __forceinline__ void load_rows_wide(float* dst, int ld,
 }
 
 template <int D, bool kVec>
-__global__ void __launch_bounds__(kWThreads, 1)
-flash_prefill_f32_wide_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              float* __restrict__ o, int Sq, int Sk,
-                              int groups, int causal, long long q_sbh,
-                              long long q_ss, long long k_sbh, long long k_ss,
-                              long long v_sbh, long long v_ss,
-                              long long o_sbh, long long o_ss,
-                              float scale_log2) {
-  constexpr int LDQ = D + 4;
-  constexpr int NCH = D / 128;   // float4 groups of output dims a lane owns
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_prefill_f32_tiled_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, float* __restrict__ part,
+                               int BH, int Sq, int Sk, int groups, int causal,
+                               int hs, int nc, long long q_sbh, long long q_ss,
+                               long long k_sbh, long long k_ss,
+                               long long v_sbh, long long v_ss,
+                               long long o_sbh, long long o_ss,
+                               float scale_log2) {
+  using X = XGeo<D>;
+  using Tile = typename X::Tile;
+  constexpr int LDQ = Tile::LDQ;
+  constexpr int RW = X::RW;
+  constexpr int RG = Tile::NRG;
+  constexpr int R = Tile::NR;  // rows of a lane
   extern __shared__ float4 smem_raw[];
-  WideSmem<D>& sm = *reinterpret_cast<WideSmem<D>*>(smem_raw);
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWBQ;  // heaviest first
-  const int kvh = bh / groups;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* kp = k + kvh * k_sbh;
-  const float* vp = v + kvh * v_sbh;
-  const int q_last = min(q0 + kWBQ, Sq) - 1;
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int nt = (k_end + kWBK - 1) / kWBK;
+  XSmem<D>& sm = *reinterpret_cast<XSmem<D>*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane / Tile::TC;
+  const int tc = lane % Tile::TC;
+  const int qt_rows = X::ROWS / hs;  // query positions of an item
+  const int n_qt = (Sq + qt_rows - 1) / qt_rows;
+  const int nhg = groups / hs;
+  const int per_qt = (BH / groups) * nhg;  // items of one query tile
+  const long long n_units = (long long)per_qt * n_qt * nc;
+  const int G = gridDim.x;
+  const int b = blockIdx.x;
 
-  load_rows_wide<D, kVec>(sm.q, LDQ, q + bh * q_sbh, q_ss, q0, kWBQ, Sq);
-  if (nt > 0) {
-    load_rows_wide<D, kVec>(sm.k[0], LDQ, kp, k_ss, 0, kWBK, Sk);
-    load_rows_wide<D, kVec>(sm.v[0], D, vp, v_ss, 0, kWBK, Sk);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  for (int r = 0;; ++r) {
+    const long long u = (long long)r * G + ((r & 1) ? G - 1 - b : b);
+    if (u >= n_units) break;
+    const int item = static_cast<int>(u / nc);
+    const int c = static_cast<int>(u - (long long)item * nc);
+    const int tq = item / per_qt;
+    const int rem = item - tq * per_qt;
+    const int kvh = rem / nhg;
+    const int h0 = kvh * groups + (rem - kvh * nhg) * hs;  // first head
+    const int q0 = (causal ? n_qt - 1 - tq : tq) * qt_rows;
+    const int k_end = causal ? min(Sk, min(q0 + qt_rows, Sq)) : Sk;
+    const int nt = (k_end + kXKeys - 1) / kXKeys;
+    const int ta = static_cast<int>((long long)c * nt / nc);
+    const int tb = static_cast<int>((long long)(c + 1) * nt / nc);
+    // this warp's head and positions p0 + rg + RG i
+    const int wh = h0 + RW * warp / qt_rows;
+    const int p0 = q0 + RW * warp % qt_rows;
+    int lim[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      lim[i] = causal ? min(Sk, p0 + rg + RG * i + 1) : Sk;
+    const int wlo = causal ? min(Sk, p0 + 1) : Sk;   // the warp's least limit
+    const int whi = causal ? min(Sk, p0 + RW) : Sk;  // and its greatest
+    const float* kp = k + kvh * k_sbh;
+    const float* vp = v + kvh * v_sbh;
+    float* ps = sm.p + RW * warp * Tile::LDP;
 
-  float acc[kWR][NCH][4];
-  float m[kWR], l[kWR];
+    cp_async_wait<0>();
+    __syncthreads();  // the previous unit is done with Q, K, V and P
+    // Q: row r is head h0 + r / qt_rows at position q0 + r % qt_rows
+    for (int e = tid; e < X::ROWS * (D / 4); e += kXThreads) {
+      const int rr = e / (D / 4);
+      const int col = (e % (D / 4)) * 4;
+      const int pos = q0 + rr % qt_rows;
+      const bool ok = pos < Sq;
+      const float* src =
+          q + (h0 + rr / qt_rows) * q_sbh + (long long)pos * q_ss + col;
+      float* dst = sm.q + rr * LDQ + col;
+      if (kVec) {
+        cp_async16(dst, ok ? src : q, ok);
+      } else {
 #pragma unroll
-  for (int i = 0; i < kWR; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][c][j] = 0.f;
-  }
-  for (int t = 0; t < nt; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nt) {  // the next tile lands while this one is computed
-      load_rows_wide<D, kVec>(sm.k[buf ^ 1], LDQ, kp, k_ss, (t + 1) * kWBK,
-                              kWBK, Sk);
-      load_rows_wide<D, kVec>(sm.v[buf ^ 1], D, vp, v_ss, (t + 1) * kWBK,
-                              kWBK, Sk);
-    }
-    cp_async_commit();
-    const float* ks = sm.k[buf];
-    const float* vs = sm.v[buf];
-    const int k0 = t * kWBK;
-
-    float s[kWR];
-#pragma unroll
-    for (int i = 0; i < kWR; ++i) s[i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = ld4(ks + lane * LDQ + d);
-#pragma unroll
-      for (int i = 0; i < kWR; ++i) {
-        const float4 qv = ld4(sm.q + (warp * kWR + i) * LDQ + d);
-        float a = s[i];
-        a = fmaf(qv.x, kv.x, a);
-        a = fmaf(qv.y, kv.y, a);
-        a = fmaf(qv.z, kv.z, a);
-        a = fmaf(qv.w, kv.w, a);
-        s[i] = a;
+        for (int j = 0; j < 4; ++j) dst[j] = ok ? src[j] : 0.f;
       }
     }
-    const bool masked = k0 + kWBK > Sk || (causal && k0 + kWBK - 1 > q0);
-    const int kr = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < kWR; ++i) {
-      const int row = q0 + warp * kWR + i;
-      const bool ok = !masked || (kr < Sk && !(causal && kr > row));
-      const float x = ok ? s[i] * scale_log2 : kNegInf;
-      float mt = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      const float p = ok ? exp2f(x - m_new) : 0.f;
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha + ps;
-      sm.p[(warp * kWR + i) * kWBK + lane] = p;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][c][j] *= alpha;
-    }
-    __syncwarp();  // this warp's rows of P are written
+    if (ta < tb)
+      load_rows_wide<D, kVec>(sm.k, LDQ, kp, k_ss, ta * kXKeys, kXKeys, Sk);
+    cp_async_commit();
 
-#pragma unroll 2
-    for (int kk = 0; kk < kWBK; kk += 4) {
-      float4 pv[kWR];
+    Tile tile;
+    tile.init();
+    for (int t = ta; t < tb; ++t) {
+      const int k0 = t * kXKeys;
+      const bool active = k0 < whi;  // else the tile lies above the warp
+      cp_async_wait<0>();
+      __syncthreads();  // K(t) landed; every warp is done with V(t-1)
+      load_rows_wide<D, kVec>(sm.v, D, vp, v_ss, k0, kXKeys, Sk);
+      cp_async_commit();
+      if (active)
+        tile.scores(sm.q + RW * warp * LDQ, sm.k, ps, k0, lim,
+                    k0 + kXKeys > wlo, scale_log2, rg, tc);
+      cp_async_wait<0>();
+      __syncthreads();  // V(t) landed; every warp is done with K(t)
+      if (t + 1 < tb) {
+        load_rows_wide<D, kVec>(sm.k, LDQ, kp, k_ss, k0 + kXKeys, kXKeys,
+                                Sk);
+        cp_async_commit();
+      }
+      if (active) tile.accumulate(sm.v, ps, rg, tc);
+    }
+
+    tile.row_sums();
 #pragma unroll
-      for (int i = 0; i < kWR; ++i)
-        pv[i] = ld4(sm.p + (warp * kWR + i) * kWBK + kk);
+    for (int i = 0; i < R; ++i) {
+      const int pos = p0 + rg + RG * i;
+      if (pos >= Sq) continue;
+      if (nc == 1) {
+        const float lc = fmaxf(tile.l[i], 1e-30f);
+        float* op = o + wh * o_sbh + (long long)pos * o_ss + 4 * tc;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const float4 vv = ld4(vs + (kk + cc) * D + 4 * lane + 128 * c);
-#pragma unroll
-          for (int i = 0; i < kWR; ++i) {
-            const float pc = comp(pv[i], cc);
-            acc[i][c][0] = fmaf(pc, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(pc, vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(pc, vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(pc, vv.w, acc[i][c][3]);
+        for (int e = 0; e < Tile::E; ++e) {
+          const float4 r4 = make_float4(
+              tile.acc[i][e][0] / lc, tile.acc[i][e][1] / lc,
+              tile.acc[i][e][2] / lc, tile.acc[i][e][3] / lc);
+          float* oe = op + 4 * Tile::TC * e;
+          if (kVec) {
+            *reinterpret_cast<float4*>(oe) = r4;
+          } else {
+            oe[0] = r4.x;
+            oe[1] = r4.y;
+            oe[2] = r4.z;
+            oe[3] = r4.w;
           }
         }
+      } else {  // this chunk's (acc, m, l) of the row
+        float* pr = part + (((long long)wh * Sq + pos) * nc + c) * (D + 4);
+        if (tc == 0) {
+          pr[D] = tile.m[i];
+          pr[D + 1] = tile.l[i];
+        }
+#pragma unroll
+        for (int e = 0; e < Tile::E; ++e)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            pr[4 * Tile::TC * e + 4 * tc + j] = tile.acc[i][e][j];
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();  // tile t+1 landed; every warp is done with tile t
   }
+  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int i = 0; i < kWR; ++i) {
-    const int row = q0 + warp * kWR + i;
-    if (row >= Sq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    float* op = o + bh * o_sbh + (long long)row * o_ss + 4 * lane;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const float4 r4 = make_float4(acc[i][c][0] / lc, acc[i][c][1] / lc,
-                                    acc[i][c][2] / lc, acc[i][c][3] / lc);
-      if (kVec) {
-        *reinterpret_cast<float4*>(op + 128 * c) = r4;
-      } else {
-        op[128 * c] = r4.x;
-        op[128 * c + 1] = r4.y;
-        op[128 * c + 2] = r4.z;
-        op[128 * c + 3] = r4.w;
-      }
-    }
+// The chunks' merge: out = sum_c acc_c 2^(m_c - m) / max(sum_c l_c 2^(m_c -
+// m), 1e-30) over c in order, m = max_c m_c.  A chunk's record of a row is
+// (acc[D], m, l, 2 floats of padding), so a thread takes 4 dims of a row
+// with 16-byte loads; 256 threads take 1024 / D rows.
+constexpr int kCombineThreads = 256;
+
+template <int D, bool kVec>
+__global__ void __launch_bounds__(kCombineThreads)
+flash_prefill_f32_combine_kernel(const float* __restrict__ part,
+                                 float* __restrict__ o, long long rows,
+                                 int Sq, int nc, long long o_sbh,
+                                 long long o_ss) {
+  constexpr int TPR = D / 4;  // threads a row
+  const long long r = (long long)blockIdx.x * (kCombineThreads / TPR) +
+                      threadIdx.x / TPR;  // head * Sq + position
+  if (r >= rows) return;
+  const int d = 4 * (threadIdx.x % TPR);
+  const float* pr = part + r * nc * (D + 4);
+  float m = kNegInf;
+  for (int c = 0; c < nc; ++c) m = fmaxf(m, pr[c * (D + 4) + D]);
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    const float* pc = pr + c * (D + 4);
+    const float w = exp2f(pc[D] - m);
+    const float4 x = *reinterpret_cast<const float4*>(pc + d);
+    l += pc[D + 1] * w;
+    a.x += x.x * w;
+    a.y += x.y * w;
+    a.z += x.z * w;
+    a.w += x.w * w;
+  }
+  const float lc = fmaxf(l, 1e-30f);
+  const long long bh = r / Sq;
+  float* op = o + bh * o_sbh + (r - bh * Sq) * o_ss + d;
+  if (kVec) {
+    *reinterpret_cast<float4*>(op) =
+        make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc);
+  } else {
+    op[0] = a.x / lc;
+    op[1] = a.y / lc;
+    op[2] = a.z / lc;
+    op[3] = a.w / lc;
   }
 }
 
 template <int D, bool kVec>
-int launch_wide(const float* q, const float* k, const float* v, float* o,
-                int BH, int Sq, int Sk, int groups, int causal,
-                long long q_sbh, long long q_ss, long long k_sbh,
-                long long k_ss, long long v_sbh, long long v_ss,
-                long long o_sbh, long long o_ss, float scale,
-                cudaStream_t stream) {
-  const cudaError_t err = allow_smem<flash_prefill_f32_wide_kernel<D, kVec>>(
-      static_cast<int>(sizeof(WideSmem<D>)));
+int launch_tiled(const float* q, const float* k, const float* v, float* o,
+                 float* part, int BH, int Sq, int Sk, int groups, int causal,
+                 int hs, int nc, int grid, long long q_sbh, long long q_ss,
+                 long long k_sbh, long long k_ss, long long v_sbh,
+                 long long v_ss, long long o_sbh, long long o_ss, float scale,
+                 cudaStream_t stream) {
+  const cudaError_t err = allow_smem<flash_prefill_f32_tiled_kernel<D, kVec>>(
+      static_cast<int>(sizeof(XSmem<D>)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (Sq + kWBQ - 1) / kWBQ;
-  if (n_qt > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_prefill_f32_wide_kernel<D, kVec>
-      <<<dim3(BH, n_qt), kWThreads, sizeof(WideSmem<D>), stream>>>(
-          q, k, v, o, Sq, Sk, groups, causal, q_sbh, q_ss, k_sbh, k_ss,
-          v_sbh, v_ss, o_sbh, o_ss, scale * kLog2e);
+  flash_prefill_f32_tiled_kernel<D, kVec>
+      <<<grid, kXThreads, sizeof(XSmem<D>), stream>>>(
+          q, k, v, o, part, BH, Sq, Sk, groups, causal, hs, nc, q_sbh, q_ss,
+          k_sbh, k_ss, v_sbh, v_ss, o_sbh, o_ss, scale * kLog2e);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nc == 1) return static_cast<int>(e);
+  const long long rows = (long long)BH * Sq;
+  const long long per = kCombineThreads / (D / 4);
+  flash_prefill_f32_combine_kernel<D, kVec>
+      <<<static_cast<unsigned>((rows + per - 1) / per), kCombineThreads, 0,
+         stream>>>(part, o, rows, Sq, nc, o_sbh, o_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -671,8 +746,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH,
 }  // namespace
 }  // namespace repro
 
-// float32, head dims 64 (the persistent kernel), 128 and 256 (the tiled
-// one): those of every configuration served.
+// float32, head dim 64: the persistent kernel above.
 extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int BH, int Sq,
                                    int Sk, int D, int groups, int causal,
@@ -682,8 +756,7 @@ extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
                                    long long o_sbh, long long o_ss,
                                    float scale, void* stream) {
   using namespace repro;
-  if (dtype != kFloat32 || (D != kD && D != 128 && D != 256) || BH <= 0 ||
-      Sq <= 0 || Sk < 0 ||
+  if (dtype != kFloat32 || D != kD || BH <= 0 || Sq <= 0 || Sk < 0 ||
       groups <= 0 || BH % groups != 0 ||
       (long long)BH * ((Sq + kBQ - 1) / kBQ) > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -694,16 +767,47 @@ extern "C" int repro_flash_prefill(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(q, q_sbh, q_ss) && aligned16(k, k_sbh, k_ss) &&
                    aligned16(v, v_sbh, v_ss) && aligned16(o, o_sbh, o_ss);
-#define REPRO_WIDE(DD, V)                                                 \
-  launch_wide<DD, V>(fq, fk, fv, fo, BH, Sq, Sk, groups, causal, q_sbh,   \
-                     q_ss, k_sbh, k_ss, v_sbh, v_ss, o_sbh, o_ss, scale, st)
-  if (D == 128) return vec ? REPRO_WIDE(128, true) : REPRO_WIDE(128, false);
-  if (D == 256) return vec ? REPRO_WIDE(256, true) : REPRO_WIDE(256, false);
-#undef REPRO_WIDE
   return vec ? launch<true>(fq, fk, fv, fo, BH, Sq, Sk, groups, causal,
                             q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, o_sbh,
                             o_ss, scale, st)
              : launch<false>(fq, fk, fv, fo, BH, Sq, Sk, groups, causal,
                              q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, o_sbh,
                              o_ss, scale, st);
+}
+
+// float32, head dims 128 and 256: the tiled persistent kernel.  ``hs``
+// (heads an item), ``nc`` (chunks an item) and ``grid`` come from
+// ``flash_attn.wide_prefill_geometry``; ``part`` is the f32 scratch
+// [BH * Sq, nc, D + 4] when nc > 1 (unused otherwise).
+extern "C" int repro_flash_prefill_wide(const void* q, const void* k,
+                                        const void* v, void* o, void* part,
+                                        int BH, int Sq, int Sk, int D,
+                                        int groups, int causal, int hs,
+                                        int nc, int grid, long long q_sbh,
+                                        long long q_ss, long long k_sbh,
+                                        long long k_ss, long long v_sbh,
+                                        long long v_ss, long long o_sbh,
+                                        long long o_ss, float scale,
+                                        void* stream) {
+  using namespace repro;
+  if ((D != 128 && D != 256) || BH <= 0 || Sq <= 0 || Sk < 0 ||
+      groups <= 0 || BH % groups != 0 || hs <= 0 || hs > 8 ||
+      (hs & (hs - 1)) != 0 || groups % hs != 0 || nc <= 0 || grid <= 0 ||
+      (nc > 1 && part == nullptr) || (long long)BH * Sq > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(o);
+  float* fp = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(q, q_sbh, q_ss) && aligned16(k, k_sbh, k_ss) &&
+                   aligned16(v, v_sbh, v_ss) && aligned16(o, o_sbh, o_ss);
+#define REPRO_TILED(DD, V)                                                   \
+  launch_tiled<DD, V>(fq, fk, fv, fo, fp, BH, Sq, Sk, groups, causal, hs,    \
+                      nc, grid, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss,       \
+                      o_sbh, o_ss, scale, st)
+  if (D == 128) return vec ? REPRO_TILED(128, true) : REPRO_TILED(128, false);
+  return vec ? REPRO_TILED(256, true) : REPRO_TILED(256, false);
+#undef REPRO_TILED
 }

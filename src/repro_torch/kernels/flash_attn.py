@@ -13,14 +13,16 @@ dispatches on the tensors' device:
 K5 has two routes on the card (:func:`prefill_route`): bfloat16 runs the
 tensor-core kernels of ``flash_prefill_sm90.cu`` (wgmma + TMA: one
 warpgroup a block at head dim 64, warp-specialised at 128 and 256),
-float32 the register-tiled SIMT kernels of ``flash_prefill.cu`` (IEEE f32
-FMAs on the CUDA cores; its route keeps the name ``"scalar"``).  K6 is
-split-KV, a partial pass and a combine pass: bfloat16 at head dims 128 and
-256 runs ``flash_decode_gqa.cu`` (a block reads each K/V row once for the
-group's query rows; :func:`decode_geometry`), head dim 64 and float32
-``flash_decode.cu``.  Every route takes head dims 64, 128 and 256
-(``KERNEL_HEAD_DIMS``, dk == dv) and any ``kv_groups`` that divides the
-heads.
+float32 the register-tiled persistent SIMT kernels of ``flash_prefill.cu``
+(IEEE f32 FMAs on the CUDA cores; its route keeps the name ``"scalar"``;
+at 128 and 256 the kernel ``scalar_wide``, shaped by
+:func:`wide_prefill_geometry`).  K6 is split-KV, a partial pass and a
+combine pass: at head dims 128 and 256, bfloat16 and float32 groups of
+more than two query rows run ``flash_decode_gqa.cu`` (a block reads each
+K/V row once for the group's query rows; :func:`decode_geometry`), head
+dim 64 and float32 groups of 1-2 ``flash_decode.cu``.  Every route takes
+head dims 64, 128 and 256 (``KERNEL_HEAD_DIMS``, dk == dv) and any
+``kv_groups`` that divides the heads.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels;
@@ -54,7 +56,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
            "reset_launches", "KERNEL_HEAD_DIMS", "prefill_route",
            "tma_aligned", "decode_splits", "decode_scratch_shape",
            "KERNEL_LAUNCHES", "prefill_kernel", "decode_kernel",
-           "decode_geometry", "DecodeGeometry"]
+           "decode_geometry", "DecodeGeometry", "wide_prefill_geometry",
+           "WidePrefillGeometry", "gqa_f32_key_groups"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
@@ -73,11 +76,12 @@ HEAD_DIM_LAUNCHES: Dict[str, int] = {
 
 #: the compiled kernels by wrapper: K5's ``sm90`` (one warpgroup, head dim
 #: 64) and ``sm90_ws`` (warp-specialised, 128 and 256) in
-#: flash_prefill_sm90.cu, ``scalar`` (fp32) in flash_prefill.cu; K6's
-#: ``split`` (flash_decode.cu) and ``gqa_mma`` / ``gqa_simt``
-#: (flash_decode_gqa.cu)
-KERNELS = {"flash_attention": ("sm90", "sm90_ws", "scalar"),
-           "flash_decode": ("split", "gqa_mma", "gqa_simt")}
+#: flash_prefill_sm90.cu, ``scalar`` (fp32, head dim 64) and
+#: ``scalar_wide`` (fp32, 128 and 256) in flash_prefill.cu; K6's ``split``
+#: (flash_decode.cu) and ``gqa_mma`` / ``gqa_simt`` (bf16) and ``gqa_f32``
+#: (fp32) in flash_decode_gqa.cu
+KERNELS = {"flash_attention": ("sm90", "sm90_ws", "scalar", "scalar_wide"),
+           "flash_decode": ("split", "gqa_mma", "gqa_simt", "gqa_f32")}
 #: launches by "<wrapper>/<kernel>/<head dim>", counted with LAUNCHES
 KERNEL_LAUNCHES: Dict[str, int] = {
     f"{name}/{kern}/{d}": 0 for name, kerns in KERNELS.items()
@@ -90,19 +94,30 @@ DECODE_BLOCK = 128
 #: keys per block of K6's split-KV partial pass (``kDecodeSplit`` in
 #: csrc/flash_decode.cu)
 DECODE_SPLIT = 128
-#: flash_decode_gqa.cu: keys a ring stage by kernel (``Geo::TK``), query
-#: rows of an m16 tile, the m16 tiles a ``gqa_mma`` block holds at most by
-#: head dim (``kMmaTiles``), and the pass-1 blocks a slot aims at (so that a
-#: few slots fill 132 SMs)
+#: flash_decode_gqa.cu: keys a ring stage by kernel (``Geo::TK``; for
+#: ``gqa_f32`` by head dim, ``F32_TK``: two warps' keys), the keys a split
+#: is a multiple of, query rows of an m16 tile, the m16 tiles a block holds
+#: at most by head dim (``kMmaTiles``; ``F32_TILES`` for ``gqa_f32``), and
+#: the pass-1 blocks a slot aims at (so that a few slots fill 132 SMs)
 GQA_TILE = {"gqa_mma": 64, "gqa_simt": 32}
+GQA_F32_STAGE = {128: 64, 256: 32}
+GQA_SPLIT_UNIT = {"gqa_mma": 64, "gqa_simt": 32, "gqa_f32": 64}
 GQA_MMA_ROWS = 16
 GQA_MMA_TILES = {128: 3, 256: 2}
+GQA_F32_TILES = 4
 GQA_BLOCKS_PER_SLOT = 64
+#: flash_prefill.cu's kernel at head dims 128 and 256: query rows of a work
+#: item by head dim (``XGeo::ROWS``: 8 warps of 16 or 8) and keys of a K/V
+#: tile (``kXKeys``)
+WIDE_ROWS = {128: 128, 256: 64}
+WIDE_KEYS = 64
 
 _c = ctypes
 _PREFILL_ARGS = ([_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int] * 6
                  + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 _PREFILL_SM90_ARGS = ([_c.c_void_p] * 4 + [_c.c_int] * 6
+                      + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
+_PREFILL_WIDE_ARGS = ([_c.c_void_p] * 5 + [_c.c_int] * 9
                       + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
 _DECODE_ARGS = ([_c.c_int] + [_c.c_void_p] * 6 + [_c.c_int] * 6
                 + [_c.c_longlong] * 8 + [_c.c_float, _c.c_void_p])
@@ -130,19 +145,51 @@ def prefill_kernel(dtype, d: int) -> str:
     """K5's compiled kernel on the card (a ``KERNELS`` name) for ``dtype``
     at head dim ``d``."""
     if prefill_route(dtype) == "scalar":
-        return "scalar"
+        return "scalar" if d == 64 else "scalar_wide"
     return "sm90" if d == 64 else "sm90_ws"
+
+
+class WidePrefillGeometry(NamedTuple):
+    """``scalar_wide``'s launch: heads an item packs (``hs``), chunks each
+    item's key tiles are cut into (``nc``; over 1, a merge launch
+    follows), work units (items x nc) and persistent blocks."""
+    hs: int
+    nc: int
+    units: int
+    grid: int
+
+
+def wide_prefill_geometry(bh: int, sq: int, sk: int, d: int, groups: int,
+                          causal: bool, sms: int) -> WidePrefillGeometry:
+    """K5 fp32 at head dims 128 and 256 (flash_prefill.cu's tiled kernel):
+    an item is ``WIDE_ROWS[d]`` query rows, ``hs`` heads of one kv group
+    (the largest of 8, 4, 2, 1 that divides ``groups``) at ``WIDE_ROWS[d] /
+    hs`` positions; with fewer items than ``sms`` each item's key tiles are
+    cut into ``nc`` chunks (at most one a tile) so that the units fill the
+    card.  Granite [48, 1024, 128] (groups 48): hs 8, 384 items, nc 1;
+    gemma3 [8, 512, 256] (groups 2): hs 2, 64 items, nc 3."""
+    hs = next(h for h in (8, 4, 2, 1) if groups % h == 0)
+    items = (bh // groups) * (groups // hs) * -(-sq // (WIDE_ROWS[d] // hs))
+    k_end = min(sk, sq) if causal else sk
+    tiles = -(-k_end // WIDE_KEYS)
+    nc = 1 if items >= sms else max(1, min(-(-sms // items), tiles))
+    units = items * nc
+    return WidePrefillGeometry(hs, nc, units, min(units, sms))
 
 
 def decode_kernel(dtype, d: int, groups: int) -> str:
     """K6's compiled kernel on the card for ``dtype``, head dim ``d`` and
-    ``groups`` query heads a kv head: bfloat16 at 128 and 256 runs
+    ``groups`` query heads a kv head: at 128 and 256, bfloat16 runs
     flash_decode_gqa.cu, on tensor cores when the group has more than two
-    rows (``gqa_mma``), in f32 SIMT otherwise (``gqa_simt``); head dim 64
-    and float32 run flash_decode.cu (``split``)."""
-    if dtype_code("flash_decode", dtype) != DTYPE_CODE["bfloat16"] or \
-            d == 64:
+    rows (``gqa_mma``), in f32 SIMT otherwise (``gqa_simt``), and float32
+    groups of more than two rows its f32 register tiles (``gqa_f32``);
+    head dim 64 and float32 groups of 1-2 run flash_decode.cu
+    (``split``)."""
+    bf16 = dtype_code("flash_decode", dtype) == DTYPE_CODE["bfloat16"]
+    if d == 64 or (not bf16 and groups <= 2):
         return "split"
+    if not bf16:
+        return "gqa_f32"
     return "gqa_mma" if groups > 2 else "gqa_simt"
 
 
@@ -161,22 +208,31 @@ def decode_geometry(max_seq: int, kv: int, groups: int, d: int,
     """K6's geometry from the cache's shape alone (never the slot count or
     ``pos``, so a slot decodes bitwise alike in any batch).  flash_decode.cu
     takes ``DECODE_SPLIT`` keys a block.  flash_decode_gqa.cu splits a
-    group's heads into m16 tiles (``gqa_mma``) and takes the smallest
-    multiple of its stage width ``GQA_TILE`` that still gives each slot
-    about ``GQA_BLOCKS_PER_SLOT`` blocks: granite (kv 1, G 48, max_seq
-    1024) 64 keys, 16 splits, its 3 m16 tiles in one block; gemma3 (kv 4,
-    G 2, 4096) 256 keys, 16 splits."""
+    group's heads into m16 tiles (``gqa_mma``, ``gqa_f32``) and takes the
+    smallest multiple of its split unit ``GQA_SPLIT_UNIT`` that still gives
+    each slot about ``GQA_BLOCKS_PER_SLOT`` blocks: granite (kv 1, G 48,
+    max_seq 1024) 64 keys, 16 splits, its 3 m16 tiles in one block (bf16
+    and fp32); gemma3 (kv 4, G 2, 4096) 256 keys, 16 splits (bf16)."""
     kernel = decode_kernel(dtype, d, groups)
     if kernel == "split":
         return DecodeGeometry(kernel, DECODE_SPLIT, decode_splits(max_seq), 1)
     tiles = 1
-    if kernel == "gqa_mma":      # m16 tiles, up to GQA_MMA_TILES a block
+    if kernel != "gqa_simt":     # m16 tiles, up to a block's share
         m16 = -(-groups // GQA_MMA_ROWS)
-        tiles = -(-m16 // min(m16, GQA_MMA_TILES[d]))
-    tk = GQA_TILE[kernel]
+        cap = GQA_F32_TILES if kernel == "gqa_f32" else GQA_MMA_TILES[d]
+        tiles = -(-m16 // min(m16, cap))
+    tk = GQA_SPLIT_UNIT[kernel]
     want = -(-GQA_BLOCKS_PER_SLOT // (kv * tiles))  # splits a slot's pair
     split = tk * max(1, -(-max_seq // (tk * want)))
     return DecodeGeometry(kernel, split, -(-max_seq // split), tiles)
+
+
+def gqa_f32_key_groups(d: int, groups: int) -> int:
+    """``gqa_f32``'s warps a stage's keys are split between (``F32_KQ``):
+    4 at head dim 128 while a block holds up to 3 m16 tiles of the group
+    (granite's 48 rows: 12 warps), else 2."""
+    tiles = min(-(-groups // GQA_MMA_ROWS), GQA_F32_TILES)
+    return 4 if d == 128 and tiles <= 3 else 2
 
 
 def tma_aligned(data_ptr: int, strides, itemsize: int) -> bool:
@@ -209,6 +265,19 @@ def decode_scratch_shape(rows: int, max_seq: int, dv: int = 64, *,
     NSPLIT from :func:`decode_geometry`."""
     return (rows, decode_geometry(max_seq, kv, groups, dv, dtype).nsplit,
             dv + 2)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    """The card's streaming multiprocessors (read once per device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _SMS[idx]
 
 
 def _check_head_dim(name: str, dk: int, dv: int):
@@ -270,10 +339,21 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     bh, sq, sk, dk, kv_groups, int(causal), *strides,
                     dk ** -0.5, stream)
-        else:
+        elif dk == 64:
             fn = _lib("flash_prefill", "repro_flash_prefill", _PREFILL_ARGS)
             rc = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), bh, sq, sk, dk, kv_groups, int(causal),
+                    *strides, dk ** -0.5, stream)
+        else:
+            geo = wide_prefill_geometry(bh, sq, sk, dk, kv_groups, causal,
+                                        _sm_count(q.device))
+            part = torch.empty((bh * sq, geo.nc, dv + 4), dtype=torch.float32,
+                               device=q.device) if geo.nc > 1 else None
+            fn = _lib("flash_prefill", "repro_flash_prefill_wide",
+                      _PREFILL_WIDE_ARGS)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    part.data_ptr() if part is not None else None, bh, sq,
+                    sk, dk, kv_groups, int(causal), geo.hs, geo.nc, geo.grid,
                     *strides, dk ** -0.5, stream)
     _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -382,8 +462,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
                     o.data_ptr(), s_, h, dk, kv_groups, smax, geo.nsplit,
                     *strides, dk ** -0.5, stream)
         else:
-            fn = _lib("flash_decode_gqa", "repro_flash_decode_gqa",
-                      _DECODE_GQA_ARGS)
+            fn = _lib("flash_decode_gqa", "repro_flash_decode_gqa_f32"
+                      if geo.kernel == "gqa_f32" else
+                      "repro_flash_decode_gqa", _DECODE_GQA_ARGS)
             rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     pos.data_ptr(), part.data_ptr(), o.data_ptr(), s_, h,
                     dk, kv_groups, smax, geo.split, geo.nsplit, *strides,

@@ -9,7 +9,10 @@ then the splits combined in order) and held to the JAX package's
 ``flash_decode_step`` slot by slot at atol = rtol = 2e-5 (f32, two
 frameworks, summation orders differ); with bf16 inputs and the tensor-core
 route's hi/lo P split, to the plain version within one bf16 ulp + 1e-5.
-The geometry helper is pinned, and shown not to depend on the slot count.
+The fp32 route of the same file (``gqa_f32``: stages of ``GQA_F32_STAGE``
+keys split between ``gqa_f32_key_groups`` warps, log2-domain scores) is
+emulated the same way against ``flash_decode_step``.  The geometry helper
+is pinned, and shown not to depend on the slot count.
 
 On the card (``cuda`` marker, skipped here) both kernels are held to their
 plain versions within one bf16 ulp + 1e-5, K6 at G = 1, 2, 6, 8 and 48 with
@@ -53,35 +56,47 @@ def _hi_lo(p):
     return hi.float() + (p - hi.float()).to(torch.bfloat16).float()
 
 
-def _subs(kernel, tk, d):
+def _subs(kernel, tk, d, groups):
     """-> (sub-partial of each key of a tile, number of sub-partials): the
-    four warps' 16-key quarters (``gqa_mma``), or the lane groups of the
-    SIMT route (warp w's keys 8w .. 8w + 7, ``32 / (d / 8)`` groups a warp
-    taking every other key)."""
+    four warps' 16-key quarters (``gqa_mma``), the ``gqa_f32_key_groups``
+    warps' shares of a stage (``gqa_f32``), or the lane groups of the SIMT
+    route (warp w's keys 8w .. 8w + 7, ``32 / (d / 8)`` groups a warp taking
+    every other key)."""
     r = np.arange(tk)
     if kernel == "gqa_mma":
         return r // 16, 4
+    if kernel == "gqa_f32":
+        kq = fa.gqa_f32_key_groups(d, groups)
+        return r // (tk // kq), kq
     gpw = 32 // (d // 8)
     kpw = tk // 4
     return (r // kpw) * gpw + (r % kpw) % gpw, 4 * gpw
 
 
-def _emulate_gqa(q, kc, vc, pos, groups, p_split=None):
-    """flash_decode_gqa.cu's arithmetic in f32: per split of
-    ``decode_geometry``'s width, ``TK``-key tiles; each sub-partial keeps
-    its own online softmax (m, l, acc) over its keys; the block merges them
-    in index order; the splits combine in order (the neutral (-1e30, 0, 0)
-    past ``pos``).  The tensor-core route scales S after Q K^T, the SIMT
-    route scales q first; ``p_split`` rounds P as the kernel's P V does."""
+def _emulate_gqa(q, kc, vc, pos, groups, p_split=None,
+                 dtype=torch.bfloat16):
+    """flash_decode_gqa.cu's arithmetic in f32, on ``dtype``'s route: per
+    split of ``decode_geometry``'s width, ``TK``-key tiles; each sub-partial
+    keeps its own online softmax (m, l, acc) over its keys; the block merges
+    them in index order; the splits combine in order (the neutral (-1e30,
+    0, 0) past ``pos``).  The tensor-core route scales S after Q K^T, the
+    SIMT routes scale q first (``gqa_f32`` by D^-0.5 log2(e): its scores
+    and merges are in the log2 domain); ``p_split`` rounds P as the
+    kernel's P V does."""
     s_, smax, kv, d = kc.shape
     h = kv * groups
-    geo = fa.decode_geometry(smax, kv, groups, d)
-    tk = fa.GQA_TILE[geo.kernel]
-    sub, nsub = _subs(geo.kernel, tk, d)
+    geo = fa.decode_geometry(smax, kv, groups, d, dtype)
+    tk = fa.GQA_F32_STAGE[d] if geo.kernel == "gqa_f32" else \
+        fa.GQA_TILE[geo.kernel]
+    sub, nsub = _subs(geo.kernel, tk, d, groups)
     scale = d ** -0.5
+    exp = torch.exp
     qf = q.float().reshape(s_, kv, groups, d)
     if geo.kernel == "gqa_simt":
         qf = qf * scale
+    elif geo.kernel == "gqa_f32":
+        qf = qf * np.float32(scale * 1.4426950408889634)
+        exp = torch.exp2
     kf = kc.float().permute(0, 2, 1, 3)                    # [S, kv, Smax, d]
     vf = vc.float().permute(0, 2, 1, 3)
     n = (pos.long().clamp(0, smax - 1) + 1).reshape(s_, 1, 1, 1)
@@ -106,22 +121,22 @@ def _emulate_gqa(q, kc, vc, pos, groups, p_split=None):
                 ok = valid & mine
                 s_j = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
                 m_new = torch.maximum(m[..., j], s_j.amax(-1))
-                p = torch.where(ok, torch.exp(s_j - m_new[..., None]),
+                p = torch.where(ok, exp(s_j - m_new[..., None]),
                                 torch.zeros_like(sc))
-                alpha = torch.exp(m[..., j] - m_new)
+                alpha = exp(m[..., j] - m_new)
                 l[..., j] = l[..., j] * alpha + p.sum(-1)
                 pv = p if p_split is None else p_split(p)
                 acc[..., j, :] = acc[..., j, :] * alpha[..., None] + pv @ vj
                 m[..., j] = m_new
         mm = m.amax(-1, keepdim=True)
-        e = torch.exp(m - mm)
+        e = exp(m - mm)
         live = c0 < n[..., 0]
         pm[..., c] = torch.where(live, mm[..., 0], NEG_INF)
         pl[..., c] = torch.where(live, (l * e).sum(-1), 0.0)
         pa[..., c, :] = torch.where(live[..., None],
                                     (acc * e[..., None]).sum(-2), 0.0)
     mm = pm.amax(-1, keepdim=True)
-    e = torch.exp(pm - mm)
+    e = exp(pm - mm)
     ll = (pl * e).sum(-1, keepdim=True)
     out = (pa * e[..., None]).sum(-2) / ll.clamp_min(1e-30)
     return out.reshape(s_ * h, d).to(q.dtype)
@@ -159,6 +174,38 @@ def test_gqa_emulation_matches_jax_flash_decode_step_slot_by_slot(
                           jnp.asarray(kc[s].transpose(1, 0, 2)),
                           jnp.asarray(vc[s].transpose(1, 0, 2)),
                           jnp.int32(p), kv_groups=groups)
+        np.testing.assert_allclose(got[s * h:(s + 1) * h].numpy(),
+                                   np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d,groups,kv,smax", [
+    (128, 48, 1, 1500),     # granite's group: 3 m16 tiles, 64-key splits
+    (256, 48, 1, 300),
+    (128, 6, 2, 300),       # mixtral's group: one padded m16 tile
+    (128, 3, 2, 200),
+    (256, 8, 1, 700),       # qwen's group at 256
+    (128, 96, 1, 200),      # over 64 rows: two blocks a group
+])
+def test_gqa_f32_emulation_matches_jax_flash_decode_step_slot_by_slot(
+        d, groups, kv, smax):
+    """The fp32 route (``gqa_f32``): 64-key stages at 128 (32 at 256), cut
+    between ``gqa_f32_key_groups`` warps with their own (m, l, acc), merged
+    in order, log2-domain scores; positions 0, a split's last and first
+    key, max_seq - 1 and past the cache."""
+    geo = fa.decode_geometry(smax, kv, groups, d, torch.float32)
+    assert geo.kernel == "gqa_f32"
+    h = kv * groups
+    pos = [0, geo.split - 1, geo.split, smax - 1, smax + 7]
+    q, kc, vc = _inputs(d + groups + smax + 1, len(pos), h, kv, d, smax)
+    got = _emulate_gqa(torch.as_tensor(q), torch.as_tensor(kc),
+                       torch.as_tensor(vc),
+                       torch.tensor(pos, dtype=torch.int32), groups,
+                       dtype=torch.float32)
+    for s, p in enumerate(pos):
+        want = jax_decode(jnp.asarray(q[s * h:(s + 1) * h]),
+                          jnp.asarray(kc[s].transpose(1, 0, 2)),
+                          jnp.asarray(vc[s].transpose(1, 0, 2)),
+                          jnp.int32(min(p, smax - 1)), kv_groups=groups)
         np.testing.assert_allclose(got[s * h:(s + 1) * h].numpy(),
                                    np.asarray(want), **TOL)
 
@@ -219,7 +266,11 @@ def test_decode_geometry_routes_and_ignores_the_slot_count():
     bf16, f32 = torch.bfloat16, torch.float32
     assert fa.decode_geometry(1024, 32, 1, 64) == \
         ("split", fa.DECODE_SPLIT, 8, 1)
+    # fp32: groups over 2 take flash_decode_gqa.cu's f32 route, groups of
+    # 1-2 stay on flash_decode.cu
     assert fa.decode_geometry(1024, 1, 48, 128, f32) == \
+        ("gqa_f32", 64, 16, 1)
+    assert fa.decode_geometry(1024, 4, 2, 256, f32) == \
         ("split", fa.DECODE_SPLIT, 8, 1)
     assert fa.decode_kernel(bf16, 128, 3) == "gqa_mma"
     assert fa.decode_kernel(bf16, 256, 2) == "gqa_simt"
@@ -233,7 +284,8 @@ def test_decode_geometry_routes_and_ignores_the_slot_count():
     assert fa.prefill_kernel(bf16, 64) == "sm90"
     assert fa.prefill_kernel(bf16, 128) == "sm90_ws"
     assert fa.prefill_kernel(bf16, 256) == "sm90_ws"
-    assert fa.prefill_kernel(f32, 256) == "scalar"
+    assert fa.prefill_kernel(f32, 64) == "scalar"
+    assert fa.prefill_kernel(f32, 256) == "scalar_wide"
 
 
 def test_kernel_launches_counts_nothing_on_the_cpu():
