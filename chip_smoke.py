@@ -328,6 +328,25 @@ Phases, one result line each (any failure exits non-zero):
    of the dense block, EP and TP.  17d reruns 17a over distinct GPUs when
    more than one is visible, and otherwise prints that none is.
 
+18. the pod-axis pipeline-parallel decode (``launch/pp_serve.py``, the
+   paper's Fig. 2 at pod scale) and the examples' twins — 18a,
+   stablelm-1.6b whole (24 layers, bf16, flash attention) on meshes of
+   (P, 1, 1) ``cuda:0`` slots, P = 2 and 4: one 512-token prompt a row for
+   8 rows through ``prefill_stacked`` at ``max_seq=1024``, then 16
+   ``pp_serve`` steps with the cache carried, every launch count set to 0
+   just before; each microbatch's tokens (every step) and cache rows
+   bitwise ``decode_step_stacked`` run on that microbatch alone, K6
+   exactly 24 P times a step and K5 24 times (head dim 64's kernels), the
+   outputs on the card and no aten op of a step on a CPU tensor (a
+   dispatch mode watches one more step); reports token agreement with
+   the full-batch stacked step, median host ms a step and queued device
+   ms of both, peak GiB.  18b, the fp32 smoke stablelm at 4 layers
+   through ``pp_serve`` on the card against the port's CPU path, P = 2
+   and 4: tokens equal over 4 steps, caches within 2e-5 of the largest
+   element.  18c, the 11 twins under ``examples_torch/`` with ``--device
+   cuda``, 6 subprocesses at once: exit 0, the script's last line, wall
+   seconds each.
+
 Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
@@ -6422,6 +6441,366 @@ def phase_mesh(seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the pod-axis pipeline-parallel decode and the examples' twins
+# ---------------------------------------------------------------------------
+
+#: 18a: batch, prompt, cache rows and pp steps of stablelm-1.6b
+PP_BATCH, PP_PROMPT, PP_MAX_SEQ, PP_STEPS = 8, 512, 1024, 16
+PP_PODS = (2, 4)
+#: 18b: the fp32 smoke model's card == CPU limit, a share of each cache
+#: leaf's largest element
+PP_FP32_TOL = 2e-5
+#: 18c: each twin's flags on the card, and the start of the last line
+#: its script prints (its OK line; two scripts end on a summary line)
+TWIN_RUNS = {
+    "train_e2e": ([], "OK — loss decreased"),
+    "serve_e2e": ([], "OK — full mamba2-130m"),
+    "quickstart": ([], "OK"),
+    "offloading_query": ([], "OK"),
+    "batched_offloading": ([], "OK — every client"),
+    "failover_offloading": ([], "OK — 6 TVs"),
+    "augmented_worker": ([], "OK — gated"),
+    "sharded_offloading": ([], "every TV got 10/10 answers"),
+    "multicam_pubsub": ([], "OK — 4 devices"),
+    "multitenant_fleet": ([], "fleet events:"),
+    "lossy_fleet": ([], "OK — every TV got its 12 answers"),
+}
+TWIN_JOBS = 6
+TWIN_TIMEOUT_S = 300
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+def _pod_mesh(p, device):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(np.array([device] * p, dtype=object).reshape(p, 1, 1),
+                ("pod", "data", "model"))
+
+
+def _stacked_cache(cache, rows=slice(None)):
+    """A stacked cache's rows, cloned (prefix and tail are empty for the
+    pp archs)."""
+    return {"pos": cache["pos"][rows].clone(), "prefix": [], "tail": [],
+            "groups": [{k: v[:, rows].clone()
+                        for k, v in cache["groups"][0].items()}]}
+
+
+def _ops_off_the_card(fn):
+    """Runs ``fn`` under a dispatch mode that sees every aten op -> (ops
+    that took or made a CPU tensor of at least one dimension, 0-dim CPU
+    tensors seen: wrapped scalars, which hold nothing the card waits on)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    bad, scalars = [], [0]
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves((args, kwargs, out)):
+                if isinstance(t, torch.Tensor) and t.device.type != "cuda":
+                    if t.dim() == 0:
+                        scalars[0] += 1
+                    else:
+                        bad.append(str(func))
+            return out
+
+    with Watch():
+        fn()
+    return sorted(set(bad)), scalars[0]
+
+
+def _event_ms(fn):
+    """Stream ms of one call of ``fn``: CUDA events around it (the time
+    the stream took, host gaps between its kernels included)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _phase_pp_full(seed, device="cuda", cfg=None):
+    """18a: stablelm-1.6b whole (24 layers, bf16, flash attention) on
+    meshes of (P, 1, 1) cuda:0 slots, P = 2 and 4.  The main path, with
+    every launch count set to 0 just before it: one 512-token prompt a row
+    through ``prefill_stacked`` at max_seq 1024, then 16 ``pp_serve``
+    steps with the cache carried.  Hard: K6 exactly 24 P times a step and
+    K5 24 times (the prefill), on the head-dim-64 kernels; each
+    microbatch's tokens at every step and its cache rows bitwise
+    ``decode_step_stacked`` run on that microbatch alone; the step's
+    outputs on the card, and no aten op of a step on a CPU tensor.
+    Reported: token agreement with the full-batch stacked step, and for
+    both steps the median host ms, the stream ms of one step (CUDA
+    events) and its device busy ms (the profiler's kernel time), peak
+    GiB.
+    Rehearse on the CPU with ``device="cpu"`` and a smoke ``cfg`` (no
+    launch, device-time or dispatch checks there)."""
+    import torch
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.core.buffers import tree_flatten
+    from repro_torch.device import make_generator
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import pp_serve as PP
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import greedy
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    if cfg is None:
+        cfg = dataclasses.replace(stablelm_1_6b.config(), use_flash_attn=True)
+        check(cfg.dtype == "bfloat16" and cfg.n_layers == 24 and
+              cfg.resolved_head_dim == 64, f"18a: unexpected config {cfg}")
+    if card:
+        _free_card()
+    model = build_model(cfg)
+    params = model.init_stacked(make_generator(seed, dev), dev)
+    toks = torch.randint(0, cfg.vocab, (PP_BATCH, PP_PROMPT),
+                         generator=make_generator(seed + 18, dev),
+                         device=dev)
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}}
+    for p in PP_PODS:
+        mesh = _pod_mesh(p, "cuda:0" if card else device)
+        check(PP.pp_applicable(model, mesh), f"18a: P={p} not applicable")
+        step = PP.make_pp_serve_step(model, mesh)
+        mb = PP_BATCH // p
+        pp_toks, host_ms, k6_steps = [], [], []
+        with torch.no_grad():
+            _reset_launches()
+            logits, cache = model.prefill_stacked(params, {"tokens": toks},
+                                                  PP_MAX_SEQ)
+            tok = greedy(logits)
+            for _ in range(PP_STEPS):
+                before = fa.LAUNCHES["flash_decode"]
+                sync()
+                t0 = time.perf_counter()
+                tok, cache = step(params, tok, cache)
+                sync()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                k6_steps.append(fa.LAUNCHES["flash_decode"] - before)
+                pp_toks.append(tok.clone())
+            counts = _launch_counts()
+            kernels = {k: v for k, v in fa.KERNEL_LAUNCHES.items() if v}
+        row = {"flash_attention": counts["flash_attention"],
+               "flash_decode": counts["flash_decode"], "by_kernel": kernels}
+        out["launches"][f"P={p}"] = row
+        if card:
+            check(k6_steps == [cfg.n_layers * p] * PP_STEPS,
+                  f"18a P={p}: K6 launches a step {k6_steps}, want "
+                  f"{cfg.n_layers * p} each")
+            check(kernels == {"flash_attention/sm90/64": cfg.n_layers,
+                              "flash_decode/split/64":
+                              cfg.n_layers * p * PP_STEPS},
+                  f"18a P={p}: launches by kernel {kernels}")
+        leaves = [tok] + tree_flatten(cache)[0]
+        check(all(t.device == leaves[0].device == params["embed"]["tok"]
+                  .device for t in leaves),
+              f"18a P={p}: a step output is off the model's device")
+        with torch.no_grad():
+            # the references start from the prefill again (not counted)
+            logits, cache0 = model.prefill_stacked(
+                params, {"tokens": toks}, PP_MAX_SEQ)
+            tok0 = greedy(logits)
+            for m in range(p):
+                rows = slice(m * mb, (m + 1) * mb)
+                c, t = _stacked_cache(cache0, rows), tok0[rows].clone()
+                for i in range(PP_STEPS):
+                    lt, c = model.decode_step_stacked(params, t, c)
+                    t = greedy(lt)
+                    check(torch.equal(t, pp_toks[i][rows]),
+                          f"18a P={p}: microbatch {m} step {i}: tokens "
+                          f"{t.tolist()} vs pp {pp_toks[i][rows].tolist()}")
+                check(torch.equal(c["pos"], cache["pos"][rows]),
+                      f"18a P={p}: microbatch {m} pos")
+                for k, v in c["groups"][0].items():
+                    check(torch.equal(v, cache["groups"][0][k][:, rows]),
+                          f"18a P={p}: microbatch {m} cache {k} not bitwise")
+            # the full-batch stacked step from the same prefill
+            full, t, full_ms, agree = _stacked_cache(cache0), tok0, [], 0
+            for i in range(PP_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                lt, full = model.decode_step_stacked(params, t, full)
+                t = greedy(lt)
+                sync()
+                full_ms.append((time.perf_counter() - t0) * 1e3)
+                agree += int((t == pp_toks[i]).sum())
+            bad, scalars, timed = [], 0, {}
+            if card:
+                # no aten op of a step on a CPU tensor (one more step)
+                bad, scalars = _ops_off_the_card(
+                    lambda: step(params, tok, cache))
+                check(not bad, f"18a P={p}: ops on CPU tensors: {bad}")
+                for what, fn in (
+                        ("pp", lambda: step(params, tok, cache)),
+                        ("full", lambda: model.decode_step_stacked(
+                            params, t, full))):
+                    timed[what + "_event_ms"] = _event_ms(fn)
+                    timed[what + "_busy_ms"] = _profile(fn, warm=False)[1]
+        out[f"P={p}"] = dict(
+            host_ms=float(np.median(host_ms)),
+            full_host_ms=float(np.median(full_ms)),
+            cpu_scalars=scalars, agreement=agree / (PP_BATCH * PP_STEPS),
+            **timed)
+        r = out[f"P={p}"]
+        print(f"phase 18a P={p}: {cfg.name} ({cfg.n_layers} layers, "
+              f"{cfg.dtype}, flash) on ({p}, 1, 1) {mesh.devices.flat[0]} "
+              f"slots, batch {PP_BATCH} ({p} "
+              f"microbatches of {mb}), {PP_PROMPT}-token prompts, "
+              f"{PP_STEPS} steps: every microbatch bitwise "
+              f"decode_step_stacked alone (tokens every step, cache rows); "
+              f"K6 {cfg.n_layers * p} a step ({counts['flash_decode']}), "
+              f"K5 {counts['flash_attention']}; "
+              f"{f'no op on a CPU tensor ({scalars} wrapped scalars)' if card else 'launches and ops not checked off the card'}"
+              f"; token agreement with the "
+              f"full-batch step {r['agreement']:.4f}; host ms a step "
+              f"(median) pp {r['host_ms']:.2f} vs stacked "
+              f"{r['full_host_ms']:.2f}; stream ms (events) pp "
+              f"{_ms(r.get('pp_event_ms'))} vs stacked "
+              f"{_ms(r.get('full_event_ms'))}; device busy ms (profiler) pp "
+              f"{_ms(r.get('pp_busy_ms'))} vs stacked "
+              f"{_ms(r.get('full_busy_ms'))}")
+        del cache, cache0, full
+    if card:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"phase 18a peak {out['peak_gib']:.2f} GiB")
+        del params
+        _free_card()
+    return out
+
+
+def _phase_pp_cpu(seed):
+    """18b: the fp32 smoke stablelm (4 layers, flash) through ``pp_serve``
+    on (P, 1, 1) cuda:0 slots against the port's CPU path on (P, 1, 1)
+    cpu slots, P = 2 and 4, from the same weights and prompts: 4 steps,
+    tokens equal and every cache leaf within PP_FP32_TOL of its largest
+    element; TF32 off."""
+    import torch
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.device import make_generator
+    from repro_torch.launch import pp_serve as PP
+    from repro_torch.launch.spmd import to_device
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import greedy
+    cfg = dataclasses.replace(stablelm_1_6b.config().smoke(), n_layers=4,
+                              dtype="float32", use_flash_attn=True)
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params_cpu = model.init_stacked(make_generator(seed, cpu), cpu)
+    params_gpu = to_device(params_cpu, torch.device("cuda"))
+    toks = torch.randint(0, cfg.vocab, (8, 24),
+                         generator=make_generator(seed + 1, cpu))
+    out = {}
+    for p in PP_PODS:
+        runs = {}
+        for where, params in (("cuda:0", params_gpu), ("cpu", params_cpu)):
+            step = PP.make_pp_serve_step(model, _pod_mesh(p, where))
+            with torch.no_grad():
+                logits, cache = model.prefill_stacked(
+                    params, {"tokens": toks.to(where)}, 48)
+                tok, seen = greedy(logits), []
+                for _ in range(4):
+                    tok, cache = step(params, tok, cache)
+                    seen.append(tok.cpu())
+            runs[where] = (seen, _on_cpu(cache))
+        (card_t, card_c), (cpu_t, cpu_c) = runs["cuda:0"], runs["cpu"]
+        check(all(torch.equal(a, b) for a, b in zip(card_t, cpu_t)),
+              f"18b P={p}: tokens differ card vs CPU")
+        share = _tree_share(card_c["groups"], cpu_c["groups"], "18b")
+        check(share <= PP_FP32_TOL, f"18b P={p}: cache {share:.2e} of the "
+                                    f"largest element, limit {PP_FP32_TOL}")
+        out[f"P={p}"] = share
+        print(f"phase 18b P={p}: fp32 stablelm smoke (4 layers) pp_serve "
+              f"card == CPU: tokens equal over 4 steps, caches within "
+              f"{share:.2e} of the largest element (limit {PP_FP32_TOL:g})")
+    return out
+
+
+def _phase_twins(device="cuda"):
+    """18c: every twin under ``examples_torch/`` with ``--device cuda`` in
+    a subprocess, TWIN_JOBS at once: exit code 0 and its last line as its
+    script's, wall seconds each.  ``train_e2e`` writes its checkpoints to
+    a fresh directory under ``build/``, removed afterwards.  Rehearse on
+    the CPU with ``device="cpu"``."""
+    import os
+    import shutil
+    work = ROOT / "build" / f"twins_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    queue = list(TWIN_RUNS)
+    running, results = {}, {}
+    t_all = time.perf_counter()
+    try:
+        while queue or running:
+            while queue and len(running) < TWIN_JOBS:
+                name = queue.pop(0)
+                argv = list(TWIN_RUNS[name][0]) + ["--device", device]
+                if name == "train_e2e":
+                    argv += ["--ckpt-dir", str(work / "ckpt")]
+                log = open(work / f"{name}.log", "w")
+                proc = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples_torch" /
+                                         f"{name}.py"), *argv],
+                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                running[name] = (proc, log, time.perf_counter())
+            for name, (proc, log, t0) in list(running.items()):
+                if proc.poll() is None and \
+                        time.perf_counter() - t0 < TWIN_TIMEOUT_S:
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                log.close()
+                del running[name]
+                text = (work / f"{name}.log").read_text().strip()
+                lines = text.splitlines() or [""]
+                results[name] = dict(rc=proc.returncode,
+                                     wall_s=time.perf_counter() - t0,
+                                     last=lines[-1])
+                check(proc.returncode == 0,
+                      f"18c {name}: exit {proc.returncode}\n{text[-3000:]}")
+                check(lines[-1].startswith(TWIN_RUNS[name][1]),
+                      f"18c {name}: last line {lines[-1]!r}")
+                print(f"phase 18c {name}: exit 0 in "
+                      f"{results[name]['wall_s']:.1f} s: {lines[-1][:100]}")
+            time.sleep(0.1)
+    finally:
+        for proc, log, _ in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 18c: all {len(results)} twins on {device} in "
+          f"{time.perf_counter() - t_all:.1f} s ({TWIN_JOBS} at once)")
+    return results
+
+
+def phase_pp(seed):
+    """Phase 18: the pod-axis pipeline-parallel decode and the examples'
+    twins (module docstring)."""
+    rows = {}
+    t0 = time.perf_counter()
+    rows["18a"] = _phase_pp_full(seed)
+    print(f"phase 18a wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["18b"] = _phase_pp_cpu(seed)
+    print(f"phase 18b wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["18c"] = _phase_twins()
+    print(f"phase 18c wall {time.perf_counter() - t0:.1f} s")
+    rows["launches"] = rows["18a"]["launches"]
+    return rows
+
+
 def _to_numpy(tree):
     if tree is None:
         return None
@@ -6491,6 +6870,8 @@ def main(argv=None):
     wall("16")
     meshed = phase_mesh(args.seed)
     wall("17")
+    pp = phase_pp(args.seed)
+    wall("18")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -6656,6 +7037,11 @@ def main(argv=None):
     # sequence-parallel prefill and train step (17b)
     for row in kernels[:4] + [kernels[7], kernels[10]]:
         row["launches_phase17"] = meshed["launches"][row["name"]]
+    # K5 (the prefill) and K6 (24 P a step) carry the pod-axis
+    # pipeline-parallel decode (18a), by pod count
+    for row in kernels[4:6]:
+        row["launches_phase18"] = {
+            k: v[row["name"]] for k, v in pp["launches"].items()}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6671,7 +7057,8 @@ def main(argv=None):
                                    "failover": failover,
                                    "staged": staged, "qos": qos,
                                    "lossy": lossy, "zoo": zoo, "ssd": ssd,
-                                   "train": trained, "mesh": meshed},
+                                   "train": trained, "mesh": meshed,
+                                   "pp": pp},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

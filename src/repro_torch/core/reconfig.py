@@ -355,7 +355,7 @@ class Reconfiguration:
             if isinstance(e, (MqttSink, MqttSrc)) and e.sync_clock is None \
                     and dev is not None:
                 e.sync_clock = dev.pipeline_clock
-        rt._wire(run)
+        rt._wire(dev, run)
         run.step_fn = run.pipe.compiled_step() \
             if (run.jit and run.pipe.plan.pure) else run.pipe.step
         run.retired = False

@@ -2,7 +2,9 @@
 
 There is no silent fallback.  ``resolve_device(None)`` means ``cuda`` and
 raises when CUDA is unavailable; the CPU is used only when a caller passes
-``device="cpu"`` (or a CPU ``torch.device``) explicitly.
+``device="cpu"`` (or a CPU ``torch.device``) explicitly.  ``device="meta"``
+builds trees of shapes and dtypes only, allocating nothing (the launch
+shape helpers of ``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU "
             "explicitly (the port never falls back on its own)")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -30,7 +30,7 @@ from ..models.config import ModelConfig
 from ..models.model import Model
 from ..models.sharding import sharding_rules
 from ..models.transformer import greedy
-from ..optim import OptState, adamw_update, linear_warmup_cosine
+from ..optim import OptState, adamw_init, adamw_update, linear_warmup_cosine
 from . import shardings as SH
 
 # input shapes assigned to this paper (brief):
@@ -151,3 +151,45 @@ def opt_shardings(mesh, params_sharding, opt_shape) -> Any:
     tree; the dtype differs), the step is replicated."""
     return OptState(step=SH.NamedSharding(mesh, SH.P()), m=params_sharding,
                     v=params_sharding)
+
+
+# ---------------------------------------------------------------------------
+# shape plumbing of the analysis tools
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def eval_params_shape(model: Model, stacked: bool = True):
+    """The parameter tree (stacked layout unless ``stacked=False`` or the
+    model has none) as meta tensors."""
+    init = model.init_stacked if (stacked and model.supports_stacked) \
+        else model.init
+    # a CPU generator: drawing on ``meta`` consumes none of it
+    return init(torch.Generator().manual_seed(0), META)
+
+
+def eval_cache_shape(model: Model, batch: int, seq: int,
+                     stacked: bool = True):
+    """The decode cache of ``batch`` rows and ``seq`` positions as meta
+    tensors."""
+    init = model.init_cache_stacked if (stacked and model.supports_stacked) \
+        else model.init_cache
+    return init(batch, seq, META)
+
+
+def eval_opt_shape(params_shape) -> OptState:
+    """``adamw_init`` over a meta parameter tree: OptState(step, m, v) of
+    meta tensors."""
+    return adamw_init(params_shape)
+
+
+def input_specs(model: Model, shape_name: str) -> Dict[str, torch.Tensor]:
+    """Meta tensors standing in for every model input of a named shape
+    (``SHAPES``), the sequence clamped to the model's context."""
+    info = SHAPES[shape_name]
+    seq = model.clamp_seq(info["seq"])
+    return {k: torch.empty(spec.shape, dtype=spec.dtype, device=META)
+            for k, spec in model.input_specs(info["mode"],
+                                             info["global_batch"],
+                                             seq).items()}

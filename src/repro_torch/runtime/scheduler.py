@@ -312,12 +312,12 @@ class Runtime:
                                  f"runtime on {self.device}")
         self.devices.append(device)
         for run in device.runs:
-            self._wire(run)
+            self._wire(device, run)
         device.pipeline_clock.calibrate(self._ntp_ref)
         device.pipeline_clock.start()
         return device
 
-    def _wire(self, run: _PipeRun):
+    def _wire(self, device: Device, run: _PipeRun):
         for e in run.pipe.elements.values():
             if isinstance(e, (MqttSink, MqttSrc, TensorQueryClient)) and \
                     e.broker is None:

@@ -1,7 +1,9 @@
 """The public API of M1 and M3 that no serving path calls, in the port
 against the JAX package, on the CPU: the ``core`` package's re-exports,
 ``Pipeline.sources()`` / ``sinks()``, ``TensorQueryClient.recv_answer()``
-and ``StatefulElement``."""
+and ``StatefulElement``; and ``Runtime._wire(device, run)``, which
+``examples/augmented_worker.py`` calls to wire a pipeline added to a device
+after the runtime took it."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,3 +169,33 @@ def test_stateful_element_threads_its_state():
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, np.full((2, 3), 1.5 * (k + 1),
                                                  np.float32))
+
+
+def test_wire_takes_the_device_and_the_run_as_the_reference():
+    """``Runtime._wire`` has the JAX package's (device, run) parameters, so
+    a pipeline added to a device already in the runtime is wired as
+    ``examples/augmented_worker.py`` wires it: its mqttsrc finds the
+    publisher and drains what it published."""
+    import inspect
+    from repro.runtime import Runtime as JRuntime
+    from repro_torch.runtime import Runtime
+    assert list(inspect.signature(Runtime._wire).parameters) == \
+        list(inspect.signature(JRuntime._wire).parameters) == \
+        ["self", "device", "run"]
+    got = {}
+    for pkg in (Port, Jax):
+        rt = pkg.runtime()
+        cam = pkg.device("cam")
+        cam.add_pipeline(pkg.parse(
+            "testsrc width=2 height=2 ! tensor_converter ! "
+            "mqttsink pub-topic=api/wire"), jit=False)
+        rt.add_device(cam)
+        late = pkg.parse("mqttsrc sub-topic=api/wire is-live=false ! "
+                         "appsink name=out")
+        cam.add_pipeline(late, jit=False)
+        rt._wire(cam, cam.runs[-1])
+        rt.run(3)
+        got[pkg] = (cam.runs[-1].frames,
+                    [np.asarray(b.tensor).tolist()
+                     for b in cam.runs[-1].sink_log.get("out", ())])
+    assert got[Port] == got[Jax] and got[Port][0] > 0

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
 * no file under ``src/repro_torch`` imports ``jax`` or the JAX package
-  ``repro`` (AST scan), and neither does ``chip_smoke.py``;
+  ``repro`` (AST scan), and neither does ``chip_smoke.py`` nor a twin of
+  the reference's examples under ``examples_torch/``;
 * importing the port's serve entry point leaves ``jax`` out of
   ``sys.modules`` (a fresh interpreter);
 * without CUDA, every entry point raises unless ``device="cpu"`` is passed
@@ -36,7 +37,9 @@ def _imports(path):
             yield node.module or ""
 
 
-SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE_TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
+SCANNED = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    EXAMPLE_TWINS
 
 #: the wire-codec slice's modules, which the scan must reach
 CODEC_MODULES = ("kernels/ops.py", "kernels/quant8.py",
@@ -115,6 +118,18 @@ def test_the_scan_covers_the_mesh_modules():
         assert PORT / rel in SCANNED, rel
 
 
+#: the pod-axis pipeline-parallel decode and the launch shape helpers
+PP_MODULES = ("launch/pp_serve.py", "launch/steps.py", "device.py")
+
+
+def test_the_scan_covers_pp_serve_and_the_example_twins():
+    for rel in PP_MODULES:
+        assert PORT / rel in SCANNED, rel
+    assert len(EXAMPLE_TWINS) == 11
+    assert [p.name for p in EXAMPLE_TWINS] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -136,7 +151,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.launch.mesh, "
             "repro_torch.launch.spmd, repro_torch.launch.shardings, "
-            "repro_torch.models.sharding; "
+            "repro_torch.models.sharding, repro_torch.launch.pp_serve; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -17,10 +17,12 @@ contents must be equal, and the port must meet the reference's oracles:
 Frames are stamped over CPU tensors (inside the port's CRC domain) and
 numpy arrays (the JAX package's).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from repro.core import Channel as JChannel
 from repro.core.buffers import StreamBuffer as JBuffer
@@ -37,6 +39,21 @@ WINDOWS = st.integers(min_value=1, max_value=8)
 TIMEOUTS = st.integers(min_value=0, max_value=6)
 BACKOFFS = st.floats(min_value=1.0, max_value=4.0)
 CAPS = st.integers(min_value=1, max_value=64)
+
+
+def _first_capped_retry(timeout: int, backoff: float, cap: int) -> int:
+    """The first retry ``n`` with ``timeout * backoff**n >= cap``: 0 when
+    the schedule cannot grow (backoff 1, timeout 0) or starts at the cap;
+    found from the logarithm, then corrected by single steps to the exact
+    float comparison the schedule makes."""
+    if backoff == 1.0 or timeout == 0 or timeout >= cap:
+        return 0
+    n = max(0, math.ceil(math.log(cap / timeout) / math.log(backoff)))
+    while timeout * backoff ** n < cap:
+        n += 1
+    while n > 0 and timeout * backoff ** (n - 1) >= cap:
+        n -= 1
+    return n
 
 
 def _frame(seq):
@@ -175,12 +192,38 @@ class TestBackoffSchedule:
 
     @given(TIMEOUTS, BACKOFFS, CAPS)
     @settings(max_examples=40)
+    @example(1, 1.0390625, 11)          # still growing after 64 retries
+    @example(3, 1.0, 7)                 # backoff 1: constant from the start
+    @example(0, 2.5, 9)                 # timeout 0: 1 tick from the start
+    @example(1, math.nextafter(1.0, 2.0), 64)          # 1 ulp above 1
+    @example(5, 1.0 + 4 * 2.0 ** -52, 6)               # 4 ulps above 1
     def test_reaches_the_cap_and_stays(self, timeout, backoff, cap):
+        """The schedule reaches its fixed point at the first retry ``n``
+        where ``timeout * backoff**n >= cap`` (at once for backoff 1 or
+        timeout 0) and stays there; it never decreases on the way, however
+        far away ``n`` is, and equals the JAX package's everywhere."""
         pol = nf.DeliveryPolicy(timeout_ticks=timeout, backoff=backoff,
                                 max_backoff_ticks=cap)
-        sched = [pol.retry_in(k) for k in range(64)]
-        assert sched[-1] == sched[-2]
-        assert sched[-1] <= max(cap, 1)
         jpol = jnf.DeliveryPolicy(timeout_ticks=timeout, backoff=backoff,
                                   max_backoff_ticks=cap)
-        assert sched == [jpol.retry_in(k) for k in range(64)]
+        n = _first_capped_retry(timeout, backoff, cap)
+        fixed = max(1, min(timeout, cap)) if n == 0 else max(cap, 1)
+        at = [n, n + 1, n + 63]
+        assert [pol.retry_in(k) for k in at] == [fixed] * 3
+        assert fixed <= max(cap, 1)
+        # the climb: every retry for a short one, 257 samples of a long
+        # one (a backoff a few ulps above 1 climbs for ~1e16 retries),
+        # always with the last retries before n
+        if n <= 256:
+            climb = list(range(n + 1))
+        else:
+            climb = sorted({n * i // 256 for i in range(257)} |
+                           set(range(n - 8, n + 1)))
+        sched = [pol.retry_in(k) for k in climb]
+        assert all(a <= b for a, b in zip(sched, sched[1:]))
+        assert all(1 <= t <= max(cap, 1) for t in sched)
+        if n > 0:
+            assert pol.retry_in(n - 1) < fixed or fixed == 1
+        probe = climb + at + list(range(64))
+        assert [pol.retry_in(k) for k in probe] == \
+            [jpol.retry_in(k) for k in probe]
