@@ -347,6 +347,26 @@ Phases, one result line each (any failure exits non-zero):
    cuda``, 6 subprocesses at once: exit 0, the script's last line, wall
    seconds each.
 
+19. the analysis tools (M14: ``launch/dryrun.py``,
+   ``launch/hlo_analysis.py``, ``kernels/cost.py``) — 19a, six steps
+   (``DRY_STEPS``: stablelm-1.6b whole with ``use_flash_attn``, a prefill
+   of 8 x 2048 (K5) and a decode step of 8 slots at max_seq 4096 (K6);
+   mamba2-130m whole, a prefill of 8 x 2048 (S2), a decode step (S3) and a
+   train step at 8 x 2048 (S2's backward); recurrentgemma-9b cut to one
+   pattern unit and its tail, a prefill of 2 x 2048 (S1)) each traced on
+   ``meta`` under ``hlo_analysis.CostCounter``, then run on the card with
+   seeded weights under another: FLOPs, bytes and each kernel's calls
+   equal (hard), the card's kernel calls equal the ``LAUNCHES`` delta
+   (hard), the meta peak within DRY_PEAK_TOL of the card's increase of
+   ``max_memory_allocated`` (hard), the step's device ms (CUDA events)
+   beside the count's ``compute_s`` and ``memory_s`` on the H100
+   constants and the share of the larger.  19b, ``python -m
+   repro_torch.launch.dryrun --mesh card`` over every arch x shape and
+   the ``use_flash_attn`` stablelm-1.6b prefill_32k and decode_32k, 8
+   processes at once: each combo compiled or skipped with its reason,
+   none FAILED; one line each with its dominant term and its peak against
+   the card's 80 GB.
+
 Each phase's wall seconds print on a line of their own.
 
 Phase 3b also times K5's fp32 route (``flash_prefill.cu``, register-tiled
@@ -382,9 +402,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
-FP32_FLOPS = 67e12               # float32 outside the tensor cores
 FP32_TOL = 2e-5
 BF16_ATOL = 1e-5
 
@@ -445,14 +462,6 @@ def bf16_excess(out, ref):
     return ((out.float() - ref).abs() - ulp).max().item()
 
 
-def _bound(nbytes, flops, peak):
-    """-> dict of the byte and operation bounds (ms) on the card's
-    published peaks, the larger (``bound_ms``) and what it is."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return dict(bytes_bound_ms=t_b, ops_bound_ms=t_f, bound_ms=max(t_b, t_f),
-                bound_by="bytes" if t_b >= t_f else "operations")
-
-
 def _ptxas_regs(ptxas, lib, kernel, *tags):
     """'<registers> registers, spill <stores>/<loads> B' of the kernel
     instantiation whose template tags (phase 2's names) include ``tags``."""
@@ -487,6 +496,7 @@ def _k5_row(rn, bh, grp, d, L, dtype, ptxas):
     backend ran), with its bounds and ptxas line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as fa
     dt = getattr(torch, dtype)
     q = rn(bh, L, d, dtype=dt)
@@ -510,9 +520,8 @@ def _k5_row(rn, bh, grp, d, L, dtype, ptxas):
                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
                    q, k, v, causal=True, kv_groups=grp), iters=5),
                library_ms=cuda_ms(sdpa),
-               **_bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                        4 * bh * d * L * (L + 1) / 2,
-                        BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS))
+               **cost.bound(cost.flash_attention(bh, L, L, d, d, grp, True,
+                                                 dt)))
     row["kernel"] = fa.prefill_kernel(dt, d)
     if dt == torch.bfloat16:
         row["ptxas"] = _ptxas_regs(
@@ -537,6 +546,7 @@ def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
     and ptxas line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as fa
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
@@ -568,9 +578,8 @@ def _k6_row(rn, rng, S, H, kv, d, smax, dtype, ptxas):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask,
             **({"enable_gqa": True} if H > kv else {}))),
-        **_bound(2 * q.numel() * q.element_size() + S * 4 +
-                 n_rows * kv * d * 2 * q.element_size(), 4 * n_rows * H * d,
-                 BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS),
+        **cost.bound(cost.flash_decode(S, H, kv, d, d, smax, dt,
+                                       rows=n_rows)),
         kernel=kern, geometry=list(fa.decode_geometry(smax, kv, H // kv, d,
                                                       dt)),
         ptxas=_ptxas_regs(ptxas, "flash_decode", "flash_decode_partial_kernel",
@@ -817,7 +826,7 @@ def phase_codec_kernels(seed):
     import torch
     from repro_torch.core.buffers import StreamBuffer
     from repro_torch.core.elements import TensorSparseEnc
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.kernels import quant8 as kq
     from repro_torch.kernels import sparse_dec as kd
     from repro_torch.kernels import sparse_enc as ke
@@ -941,20 +950,18 @@ def phase_codec_kernels(seed):
         return torch.mul(q.view(gm, ref.QUANT_BM, gn, ref.QUANT_BN),
                          s.view(gm, 1, gn, 1))
     same_bits(lib_dequant().view(dq.shape), dq, "K2 vs torch.mul")
-    nbytes = x.numel() * 4 + q.numel() + s.numel() * 4
     table["quantize8"] = dict(
         shape=f"f32 [{b}*{l}, {d}]",
         max_abs_err=max(err(q, pq), err(s, ps)),
         ms=cuda_ms(lambda: kq.quantize8(x)),
         plain_ms=cuda_ms(lambda: ref.quantize8_plain(x)),
-        library_ms=None, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
+        library_ms=None, **cost.bound(cost.quantize8(b * l, d)))
     table["dequantize8"] = dict(
         shape=f"int8 [{b}*{l}, {d}]", max_abs_err=err(dq, pdq),
         ms=cuda_ms(lambda: kq.dequantize8(q, s)),
         plain_ms=cuda_ms(lambda: ref.dequantize8_plain(q, s)),
         library_ms=cuda_ms(lib_dequant), library="torch.mul",
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        **cost.bound(cost.dequantize8(b * l, d)))
 
     n = l * d
     nb, kb = ref._sparse_dims(n, int(n * 0.15))
@@ -1000,8 +1007,6 @@ def phase_codec_kernels(seed):
     same_bits(removed_glue()[1], st[3], "K3 totals vs the old count")
     copies = [xs] + [xs.clone() for _ in range(3)]     # > 100 MB: past L2
     cycle = itertools.cycle(copies)
-    enc_bytes = xs.numel() * 4 + v2.numel() * 8 + nb * b * 4 * 2
-    dec_bytes = v2.numel() * 8 + dense.numel() * 4
     table["sparse_enc"] = dict(
         shape=f"f32 [{b}*{n}], 10% nonzero, kb={kb}",
         max_abs_err=max(err(g_, w_) for g_, w_ in zip(got, want)),
@@ -1014,8 +1019,8 @@ def phase_codec_kernels(seed):
         removed_glue_ms=cuda_ms(removed_glue),
         stacked_ms=cuda_ms(lambda: ops.sparse_enc_stacked(
             x8, cap, 0.0, with_total=True)),
-        library_ms=None, bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", kept=kept, nonzeros=truth)
+        library_ms=None, kept=kept, nonzeros=truth,
+        **cost.bound(cost.sparse_enc(b * n, kb, xs.dtype, totals=True)))
     del copies, cycle
     table["sparse_dec"] = dict(
         shape=f"[{b}*{nb}, {kb}] -> f32 [{b}*{n}]",
@@ -1024,7 +1029,8 @@ def phase_codec_kernels(seed):
         plain_ms=cuda_ms(lambda: ref.sparse_dec_plain(v2, i2)),
         library_ms=cuda_ms(lambda: torch.zeros(
             b * nb * ref.SPARSE_B, device=dev).index_add_(0, idx64, vflat)),
-        library="index_add_", bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        library="index_add_",
+        **cost.bound(cost.sparse_dec(b * nb, kb, v2.dtype)))
     for name, row in table.items():
         lib = "library —" if row["library_ms"] is None else \
             f"{row['library']} {row['library_ms']:.4f} ms"
@@ -1034,11 +1040,8 @@ def phase_codec_kernels(seed):
             f"passes {row['removed_glue_ms']:.4f} ms)")
         print(f"phase 3c {name} {row['shape']}: bitwise, kernel "
               f"{row['ms']:.4f} ms{extra}, plain {row['plain_ms']:.4f} ms, "
-              f"{lib}, bound {row['bound_ms']:.5f} ms (bytes)")
+              f"{lib}, bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     return table
-
-
-F32_FLOPS = 67e12   # H100 SXM f32 peak outside the tensor cores
 
 
 def phase_scan_kernel(seed):
@@ -1052,6 +1055,7 @@ def phase_scan_kernel(seed):
     them.  No single PyTorch call computes a linear recurrence, so it has
     no library time."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import rglru_scan as rs
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -1081,14 +1085,12 @@ def phase_scan_kernel(seed):
     same_bits(h, r, "scan [1,3000,4096]")
     kern = cuda_ms(lambda: rs.rglru_scan(a, bx))
     plain = cuda_ms(lambda: rs.rglru_scan_plain(a, bx), iters=3, warmup=1)
-    nbytes = 3 * b * s * w * 4          # a, bx read once; h written once
-    flops = 2 * b * s * w
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    count = cost.rglru_scan(b, s, w)    # a, bx read once; h written once
+    nbytes, bounds = count.bytes, cost.bound(count)
+    bound = bounds["bound_ms"]
     in_flight = (ring["stages"] - 1) * ring["stage_bytes"]
     row = dict(shape=[b, s, w], max_abs_err=0.0, bitwise=True,
-               ms=kern, plain_ms=plain, library_ms=None, bound_ms=bound,
-               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-               flops / F32_FLOPS else "operations",
+               ms=kern, plain_ms=plain, library_ms=None, **bounds,
                stages=ring["stages"], bytes_in_flight_per_block=in_flight)
     print(f"phase 3d scan kernel: {n} smoke shapes and a row at B = 1 vs "
           f"in a batch of 3 bitwise the plain loop; f32 [1, 3000, 4096]: "
@@ -1096,7 +1098,8 @@ def phase_scan_kernel(seed):
           f"bound); {ring['channels']} channels a block, ring of "
           f"{ring['stages']} stages of {ring['stage_bytes']} B, "
           f"{in_flight} B in flight a block; plain "
-          f"{plain:.4f} ms, bound {bound:.5f} ms (bytes, {nbytes} B)")
+          f"{plain:.4f} ms, bound {bound:.5f} ms ({bounds['bound_by']}, "
+          f"{nbytes} B)")
     return row
 
 
@@ -5021,6 +5024,7 @@ def _phase_ssd_kernels(seed, ptxas):
     byte bounds.  No single PyTorch call computes either, so neither has a
     library time."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ssd_decode as sd
     from repro_torch.kernels import ssd_scan as ss
     g = torch.Generator(device="cuda").manual_seed(seed + 150)
@@ -5070,36 +5074,33 @@ def _phase_ssd_kernels(seed, ptxas):
 
     rows = {}
     decay, states, _ = _s2_inputs(g, S2_SHAPE)
-    b, nc, h, nn, hd = S2_SHAPE
-    nbytes = 2 * states.numel() * 4 + decay.numel() * 4 + b * h * nn * hd * 4
+    count = cost.ssd_state_scan(*S2_SHAPE)
     rows["S2"] = dict(
         shape=list(S2_SHAPE), max_abs_err=0.0, bitwise=True,
         ms=cuda_ms(lambda: ss.ssd_state_scan(decay, states)),
         plain_ms=cuda_ms(lambda: ss.ssd_state_scan_plain(decay, states),
                          iters=5, warmup=1),
-        library_ms=None, nbytes=nbytes,
+        library_ms=None, nbytes=count.bytes,
         ptxas=_ptxas_regs(ptxas, "ssd_scan", "ssd_state_scan_kernel",
                           "float4"),
-        **_bound(nbytes, 2 * states.numel(), FP32_FLOPS))
+        **cost.bound(count))
     a = _s3_inputs(g, S3_SHAPE, torch.bfloat16)
     hk, yk = sd.ssd_decode_step(**a)
     hp, yp = sd.ssd_decode_step_plain(**a)
-    b, h, nn, hd = S3_SHAPE
-    nbytes = (2 * a["h"].numel() * 4 + yk.numel() * 4 + a["dt"].numel() * 4
-              + b * (2 * nn + h * hd) * 2 + 2 * h * 4)
+    count = cost.ssd_decode(*S3_SHAPE, torch.bfloat16)
     rows["S3"] = dict(
         shape=list(S3_SHAPE), dtype="bfloat16",
         max_abs_err=max((hk - hp).abs().max().item(),
                         (yk - yp).abs().max().item()),
         ms=cuda_ms(lambda: sd.ssd_decode_step(**a)),
         plain_ms=cuda_ms(lambda: sd.ssd_decode_step_plain(**a)),
-        library_ms=None, nbytes=nbytes,
+        library_ms=None, nbytes=count.bytes,
         ptxas=_ptxas_regs(ptxas, "ssd_decode", "ssd_decode_kernel", "bf16"),
-        **_bound(nbytes, 6 * a["h"].numel(), FP32_FLOPS))
+        **cost.bound(count))
     for name, r in rows.items():
         print(f"phase 15a {name} {r['shape']}: kernel {r['ms']:.4f} ms "
-              f"({r['bound_ms'] / r['ms']:.0%} of the byte bound "
-              f"{r['bound_ms']:.5f} ms, {r['nbytes']} B), plain "
+              f"({r['bound_ms'] / r['ms']:.0%} of the {r['bound_by']} "
+              f"bound {r['bound_ms']:.5f} ms, {r['nbytes']} B), plain "
               f"{r['plain_ms']:.4f} ms, max |err| {r['max_abs_err']:.2e}; "
               f"{r['ptxas']}")
     print(f"phase 15a: {n} smoke cases, S2 bitwise its plain loop and S3 "
@@ -5377,9 +5378,10 @@ def _train_row(run, batch, seq, model, what):
     """Median step ms over steps 3.. (host clock; each step ends in a host
     read of its loss), tokens/s and the model-FLOP share of the card's
     dense bf16 peak (6 N_active FLOPs a token)."""
+    from repro_torch.launch.mesh import H100_BF16_FLOPS
     ms = float(np.median(run.step_s[2:])) * 1e3
     tok_s = batch * seq / ms * 1e3
-    mfu = model.model_flops_per_token() * tok_s / BF16_FLOPS
+    mfu = model.model_flops_per_token() * tok_s / H100_BF16_FLOPS
     return dict(what=what, steps=len(run.losses), step_ms_median=ms,
                 step_ms=[1e3 * x for x in run.step_s], tokens_per_s=tok_s,
                 model_flop_share=mfu, losses=run.losses,
@@ -5612,12 +5614,14 @@ def _phase_train_rg(seed):
     check(got == want, f"16c: S1 launches {got}, expected {want}")
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
           f"16c: loss or grad norm not finite: {losses} {gnorms}")
+    from repro_torch.launch.mesh import H100_BF16_FLOPS
     ms = float(np.median(step_s[2:])) * 1e3
     tok_s = TRAIN_RG["batch"] * TRAIN_RG["seq"] / ms * 1e3
     row = dict(what="16c", layers=kinds, params=model.param_count(params),
                step_ms_median=ms, step_ms=[1e3 * x for x in step_s],
                tokens_per_s=tok_s, model_flop_share=(
-                   model.model_flops_per_token() * tok_s / BF16_FLOPS),
+                   model.model_flops_per_token() * tok_s /
+                   H100_BF16_FLOPS),
                losses=losses, grad_norms=gnorms, peak_gib=peak,
                launches=got, launches_per_step={
                    k: v // TRAIN_RG["steps"] for k, v in got.items()})
@@ -5773,6 +5777,7 @@ def _phase_scan_bwd_kernels(seed, ptxas):
     beside its byte bound, its plain version and its ptxas line.  No
     single PyTorch call computes either, so neither has a library time."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssd_scan as ss
     dev = torch.device("cuda")
@@ -5838,29 +5843,29 @@ def _phase_scan_bwd_kernels(seed, ptxas):
     rows = {}
     a, bx, gh = s1_inputs(*S1_BWD_SHAPE)
     h = rs.rglru_scan(a, bx)
-    nbytes = 5 * a.numel() * 4          # a, h, gh read; d_a, d_bx written
+    count = cost.rglru_scan_bwd(*S1_BWD_SHAPE)  # a, h, gh read; d_a, d_bx
     rows["rglru_scan_bwd"] = dict(
         shape=list(S1_BWD_SHAPE), max_abs_err=0.0, bitwise=True,
         ms=cuda_ms(lambda: rs.rglru_scan_bwd(a, h, gh)),
         plain_ms=cuda_ms(lambda: rs.rglru_scan_bwd_plain(a, h, gh),
                          iters=3, warmup=1),
-        library_ms=None, nbytes=nbytes,
+        library_ms=None, nbytes=count.bytes,
         ptxas=_ptxas_regs(ptxas, "rglru_scan", "rglru_scan_bwd_kernel",
                           "16 B copies"),
-        **_bound(nbytes, 3 * a.numel(), FP32_FLOPS))
+        **cost.bound(count))
     _, (decay, hs, g_s, g_f) = s2_check(S2_BWD_SHAPE, False)
+    count = cost.ssd_state_scan_bwd(*S2_BWD_SHAPE, g_starts=True,
+                                    g_final=True, with_h0=False)
     rows["ssd_state_scan_bwd"] = dict(
         shape=list(S2_BWD_SHAPE), max_abs_err=s2_err, bitwise=False,
         ms=cuda_ms(lambda: ss.ssd_state_scan_bwd(decay, hs, g_s, g_f,
                                                  False)),
         plain_ms=cuda_ms(lambda: ss.ssd_state_scan_bwd_plain(
             decay, hs, g_s, g_f, False), iters=3, warmup=1),
-        library_ms=None,
-        nbytes=(3 * hs.numel() + g_f.numel() + 2 * decay.numel()) * 4,
+        library_ms=None, nbytes=count.bytes,
         ptxas=_ptxas_regs(ptxas, "ssd_scan", "ssd_state_scan_bwd_kernel",
                           "float4"),
-        **_bound((3 * hs.numel() + g_f.numel() + 2 * decay.numel()) * 4,
-                 4 * hs.numel(), FP32_FLOPS))
+        **cost.bound(count))
     for name, r in rows.items():
         print(f"phase 16e {name} {r['shape']}: kernel {r['ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.0%} of the byte bound "
@@ -6801,6 +6806,276 @@ def phase_pp(seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the analysis tools (M14): meta traces against the card, and the
+# dry run's sweep on the one-card meta mesh
+# ---------------------------------------------------------------------------
+
+#: 19a's steps: name -> (arch, mode, batch, sequence (max_seq for a
+#: decode), ModelConfig overrides, pattern units or None for every layer).
+#: Cut from launch/steps.py's SHAPES (prefill_32k: 32 x 32768, decode_32k:
+#: 128 slots at 32768, train_4k: 256 x 4096) to fit one card and a phase of
+#: seconds: prefills of 8 x 2048 (recurrentgemma-9b 2 x 2048 and one
+#: pattern unit with its 2-layer tail, 5 of 38 layers), decodes of 8 slots
+#: at max_seq 4096, a train step of 8 x 2048.
+DRY_STEPS = {
+    "19a stablelm-1.6b flash prefill": ("stablelm-1.6b", "prefill", 8, 2048,
+                                        {"use_flash_attn": True}, None),
+    "19a stablelm-1.6b flash decode": ("stablelm-1.6b", "decode", 8, 4096,
+                                       {"use_flash_attn": True}, None),
+    "19a mamba2-130m prefill": ("mamba2-130m", "prefill", 8, 2048, {}, None),
+    "19a mamba2-130m decode": ("mamba2-130m", "decode", 8, 4096, {}, None),
+    "19a recurrentgemma-9b prefill": ("recurrentgemma-9b", "prefill", 2,
+                                      2048, {}, 1),
+    "19a mamba2-130m train": ("mamba2-130m", "train", 8, 2048, {}, None),
+}
+#: the kernel each 19a step must run
+DRY_KERNELS = {"19a stablelm-1.6b flash prefill": "flash_attention",
+               "19a stablelm-1.6b flash decode": "flash_decode",
+               "19a mamba2-130m prefill": "ssd_state_scan",
+               "19a mamba2-130m decode": "ssd_decode",
+               "19a recurrentgemma-9b prefill": "rglru_scan",
+               "19a mamba2-130m train": "ssd_state_scan_bwd"}
+#: 19a: the meta trace's peak (less its arguments) against the card's
+#: increase of ``max_memory_allocated`` over the step: within this share
+#: of the card's plus this many bytes.  Meta calls allocate what the
+#: kernels allocate (outputs and scratch); cuBLAS's workspace is allocated
+#: by the warm-up run, before the peak is reset; Python's cyclic garbage
+#: collector is off during both counted runs.  On the H100 the card showed:
+#: inference steps within 3.9 MB (0.21%) of the meta peak, the mamba2-130m
+#: train step 1.52% below it
+DRY_PEAK_TOL = (0.02, 4 << 20)
+#: 19b: the use_flash_attn variant's combos, beside every arch x shape
+DRY_VARIANTS = (("stablelm-1.6b", "prefill_32k"),
+                ("stablelm-1.6b", "decode_32k"))
+DRY_JOBS = 8
+
+
+def _dry_inputs(model, mode, batch, seq, device, seed):
+    """A step's arguments after the parameters: meta stand-ins, or seeded
+    inputs on ``device``."""
+    import torch
+    from repro_torch.device import make_generator
+    dev = torch.device(device)
+    g = None if dev.type == "meta" else make_generator(seed + 19, dev)
+
+    def like(spec):
+        if dev.type == "meta":
+            return torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        if spec.dtype in (torch.int32, torch.int64):
+            return torch.randint(0, model.cfg.vocab, spec.shape,
+                                 generator=g, device=dev, dtype=spec.dtype)
+        return torch.randn(spec.shape, generator=g, device=dev) \
+            .to(spec.dtype)
+    specs = {k: like(v) for k, v in
+             model.input_specs(mode, batch, seq).items()}
+    if mode == "decode":
+        return (specs["token"], model.init_cache_stacked(batch, seq, dev))
+    return (specs,)
+
+
+def _dry_step(model, mode, seq):
+    from repro_torch.launch import steps as ST
+    if mode == "train":
+        return ST.make_train_step(model, None, stacked=True)
+    if mode == "prefill":
+        return ST.make_prefill_step(model, None, max_seq=seq, stacked=True)
+    return ST.make_decode_step(model, None, stacked=True)
+
+
+def _dry_run(model, mode, batch, seq, device, seed):
+    """-> (the step, its arguments) on ``device``."""
+    import torch
+    from repro_torch.device import make_generator
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw_init
+    dev = torch.device(device)
+    params = ST.eval_params_shape(model, True) if dev.type == "meta" else \
+        model.init_stacked(make_generator(seed, dev), dev)
+    rest = _dry_inputs(model, mode, batch, seq, device, seed)
+    args = (params, adamw_init(params)) + rest if mode == "train" else \
+        (params,) + rest
+    return _dry_step(model, mode, seq), args
+
+
+def _phase_dryrun(seed, device="cuda"):
+    """19a (module docstring): each step traced on meta, then run on
+    ``device`` under the same counter; FLOPs, bytes and kernel calls equal
+    (hard), the device's kernel calls equal its ``LAUNCHES`` delta (hard,
+    0 on the CPU), the peaks within DRY_PEAK_TOL (on the card), and the
+    device ms against the count's roofline terms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.models.model import build_model
+    card = torch.device(device).type == "cuda"
+    rows = {}
+    for name, (arch, mode, batch, seq, over, units) in DRY_STEPS.items():
+        cfg = dataclasses.replace(get_config(arch), **over)
+        if units is not None:
+            cfg = D._reduced_cfg(cfg, units)[0]
+        if not card:        # the CPU rehearsal: the smoke widths
+            cfg = dataclasses.replace(cfg.smoke(), **over)
+            batch, seq = 2, 64
+        model = build_model(cfg)
+        step, args = _dry_run(model, mode, batch, seq, "meta", seed)
+        meta = HA.CostCounter()
+        meta.track(args)
+        gc.disable()            # storages die by reference count alone,
+        with meta:              # on meta and on the card alike
+            step(*args)
+        gc.enable()
+        del step, args
+        step, args = _dry_run(model, mode, batch, seq, device, seed)
+        step(*args)                         # builds kernels, cuBLAS state
+        if card:
+            torch.cuda.synchronize()
+            dev_ms = _event_ms(lambda: step(*args))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        _reset_launches()
+        real = HA.CostCounter()
+        real.track(args)
+        gc.collect()
+        gc.disable()
+        with real:
+            step(*args)
+        gc.enable()
+        if card:
+            torch.cuda.synchronize()
+            grown = torch.cuda.max_memory_allocated() - base
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        for what in ("flops", "bytes"):
+            check(meta.record()[what] == real.record()[what],
+                  f"{name}: meta {what} {meta.record()[what]} != "
+                  f"{device} {real.record()[what]}")
+        check(meta.kernel_calls() == real.kernel_calls(),
+              f"{name}: meta kernel calls {meta.kernel_calls()} != "
+              f"{device} {real.kernel_calls()}")
+        want = DRY_KERNELS[name]
+        check(meta.kernel_calls().get(want, 0) > 0,
+              f"{name}: {want} not booked: {meta.kernel_calls()}")
+        check(launches == (real.kernel_calls() if card else {}),
+              f"{name}: {device} kernel calls {real.kernel_calls()} != "
+              f"LAUNCHES {launches}")
+        terms = HA.roofline_terms({"flops": real.flops,
+                                   "bytes accessed": real.bytes}, {}, 1,
+                                  dtype=cfg.dtype)
+        temp = meta.peak - meta.tracked
+        row = dict(arch=arch, mode=mode, batch=batch, seq=seq,
+                   layers=cfg.n_layers, flops=real.flops, bytes=real.bytes,
+                   kernels=real.kernel_calls(), launches=launches,
+                   meta_temp_bytes=temp,
+                   counted_temp_bytes=real.peak - real.tracked,
+                   compute_s=terms["compute_s"],
+                   memory_s=terms["memory_s"],
+                   compute_peak=terms["compute_peak"])
+        line = (f"phase {name} ({cfg.n_layers} layers, {batch} x {seq}): "
+                f"meta == {device}: {real.flops:.6g} FLOPs, "
+                f"{real.bytes:.6g} B, kernels {real.kernel_calls()} "
+                f"(== LAUNCHES {launches})")
+        if card:
+            share, slack = DRY_PEAK_TOL
+            row.update(device_ms=dev_ms, card_temp_bytes=grown,
+                       peak_share=(grown - temp) / max(grown, 1),
+                       roofline_share=max(terms["compute_s"],
+                                          terms["memory_s"]) * 1e3 / dev_ms)
+            check(abs(grown - temp) <= share * grown + slack,
+                  f"{name}: meta peak {temp} B against the card's "
+                  f"{grown} B, past {share:.0%} + {slack} B")
+            line += (f"; peak meta {temp} B (the {device} run's counter "
+                     f"{row['counted_temp_bytes']} B) vs card {grown} B "
+                     f"({grown - temp:+d} B, {row['peak_share']:+.3%} of "
+                     f"the card's; tolerance {share:.0%} + {slack} B); "
+                     f"device {dev_ms:.3f} ms vs compute_s "
+                     f"{terms['compute_s'] * 1e3:.3f} ms ({terms['compute_peak']}) / "
+                     f"memory_s {terms['memory_s'] * 1e3:.3f} ms: "
+                     f"{row['roofline_share']:.1%} of the larger")
+        print(line)
+        rows[name] = row
+        del step, args
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _phase_dry_sweep(jobs=DRY_JOBS):
+    """19b (module docstring): ``launch/dryrun.py`` over every arch x shape
+    and the flash variants on the one-card meta mesh, ``jobs`` processes
+    at once; none FAILED."""
+    import os
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import H100_HBM_BYTES
+    out = ROOT / "build" / "dryrun_card"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = [(a, [], "") for a in ARCH_IDS] + [
+        (a, ["--shape", sh, "--set", "use_flash_attn=true"], f"flash-{sh}")
+        for a, sh in DRY_VARIANTS]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs, recs, t0 = [], [], time.perf_counter()
+    pending = list(runs)
+    while pending or procs:
+        while pending and len(procs) < jobs:
+            arch, extra, variant = pending.pop(0)
+            path = out / f"{arch}{'-' + variant if variant else ''}.json"
+            path.unlink(missing_ok=True)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--mesh", "card", "--out", str(path),
+                   *extra] + (["--variant", "flash"] if variant else [])
+            procs.append((subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env, cwd=ROOT), path, arch))
+        proc, path, arch = procs.pop(0)
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"19b {arch}: dryrun exit "
+                                    f"{proc.returncode}\n{log[-3000:]}")
+        recs += json.loads(path.read_text())
+    wall = time.perf_counter() - t0
+    want = len(ARCH_IDS) * len(ST.SHAPES) + len(DRY_VARIANTS)
+    check(len(recs) == want, f"19b: {len(recs)} records, expected {want}")
+    for r in recs:
+        check(r["status"] in ("compiled", "skipped"),
+              f"19b {r['arch']} x {r['shape']}: {r['status']} "
+              f"{r.get('error', '')}")
+        tag = f"{r['arch']} x {r['shape']}" + \
+            (f" ({r['variant']})" if r.get("variant") else "")
+        if r["status"] == "skipped":
+            print(f"phase 19b {tag}: skipped ({r['reason']})")
+            continue
+        rf, peak = r["roofline"], r["memory"]["peak_bytes"]
+        print(f"phase 19b {tag}: compiled, dominant {rf['dominant']} "
+              f"(compute {rf['compute_s']:.3e} s, memory "
+              f"{rf['memory_s']:.3e} s, {rf['compute_peak']}), peak "
+              f"{peak / 1e9:.2f} GB of the card's "
+              f"{H100_HBM_BYTES / 1e9:.0f} GB, model/count "
+              f"{r['model_vs_hlo_flops']:.3f}, trace {r['analysis_s']} s")
+    print(f"phase 19b: {len(recs)} combos, "
+          f"{sum(r['status'] == 'compiled' for r in recs)} compiled, "
+          f"{sum(r['status'] == 'skipped' for r in recs)} skipped, none "
+          f"FAILED, {wall:.1f} s with {jobs} processes")
+    return {"records": recs, "wall_s": wall}
+
+
+def phase_dryrun(seed):
+    """Phase 19: the analysis tools (module docstring)."""
+    rows = {}
+    t0 = time.perf_counter()
+    rows["19a"] = _phase_dryrun(seed)
+    print(f"phase 19a wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["19b"] = _phase_dry_sweep()
+    print(f"phase 19b wall {time.perf_counter() - t0:.1f} s")
+    rows["launches"] = {}
+    for r in rows["19a"].values():
+        for k, v in r["launches"].items():
+            rows["launches"][k] = rows["launches"].get(k, 0) + v
+    return rows
+
+
 def _to_numpy(tree):
     if tree is None:
         return None
@@ -6872,6 +7147,8 @@ def main(argv=None):
     wall("17")
     pp = phase_pp(args.seed)
     wall("18")
+    dry = phase_dryrun(args.seed)
+    wall("19")
 
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
@@ -7042,6 +7319,10 @@ def main(argv=None):
     for row in kernels[4:6]:
         row["launches_phase18"] = {
             k: v[row["name"]] for k, v in pp["launches"].items()}
+    # K5, K6, S1–S3 and S2's backward under 19a's counter (meta == card)
+    for row in kernels[4:11]:
+        if row["name"] in dry["launches"]:
+            row["launches_phase19"] = dry["launches"][row["name"]]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -7058,7 +7339,7 @@ def main(argv=None):
                                    "staged": staged, "qos": qos,
                                    "lossy": lossy, "zoo": zoo, "ssd": ssd,
                                    "train": trained, "mesh": meshed,
-                                   "pp": pp},
+                                   "pp": pp, "dryrun": dry},
                                   indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -146,12 +146,16 @@ def entry(name: str, fn: str, argtypes):
 
 
 def route(name: str, device) -> str:
-    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA tensor; there
-    is no other route and no fallback between the two."""
+    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA tensor,
+    ``"meta"`` for a meta tensor (shapes only: the wrapper returns empty
+    outputs of the kernel's shapes and dtypes and books its count, see
+    ``cost.py``); there is no other route and no fallback between them."""
     if device.type == "cpu":
         return "plain"
     if device.type == "cuda":
         return "kernel"
+    if device.type == "meta":
+        return "meta"
     raise ValueError(f"{name}: no kernel or plain version for {device}")
 
 

@@ -8,7 +8,12 @@ dispatches on the tensors' device:
   (the same blocked online-softmax arithmetic, in f32);
 * a CUDA tensor runs the hand-written Hopper kernel in ``csrc/`` — built at
   first use, see ``build.py`` — or raises.  There is no fallback from the
-  card to the plain version.
+  card to the plain version;
+* a meta tensor passes the card route's checks and gets an empty output of
+  the kernel's shape and dtype (the analysis tools' shape-only route).
+
+Every route books the call's ``cost.py`` count (K6's at the cache's full
+length: the host never reads ``pos``).
 
 K5 has two routes on the card (:func:`prefill_route`): bfloat16 runs the
 tensor-core kernels of ``flash_prefill_sm90.cu`` (wgmma + TMA: one
@@ -46,6 +51,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ..launch.mesh import H100_SMS
+from . import cost
 from .build import (DTYPE_CODE, dtype_code, entry as _lib,
                     raise_on as _raise_on, refuse_grad, route as _route)
 from .ref import NEG_INF
@@ -271,7 +278,10 @@ _SMS: Dict[int, int] = {}
 
 
 def _sm_count(device) -> int:
-    """The card's streaming multiprocessors (read once per device)."""
+    """The card's streaming multiprocessors (read once per device); the
+    H100's 132 for a meta tensor, which stands for one."""
+    if device.type == "meta":
+        return H100_SMS
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _SMS:
@@ -314,11 +324,15 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
         raise ValueError(f"flash_attention: {tuple(q.shape)} q heads vs "
                          f"{tuple(k.shape)} kv heads at kv_groups={kv_groups}")
     refuse_grad("flash_attention", q, k, v)
-    if _route("flash_attention", q.device) == "plain":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     kv_groups=kv_groups)
-    code = _check_cuda("flash_attention", q, k, v)
     sk, dv = v.shape[1], v.shape[2]
+    how = _route("flash_attention", q.device)
+    count = cost.flash_attention(bh, sq, sk, dk, dv, kv_groups, causal,
+                                 q.dtype)
+    if how == "plain":
+        return cost.run_plain("flash_attention", count,
+                              flash_attention_plain, q, k, v, causal=causal,
+                              kv_groups=kv_groups)
+    code = _check_cuda("flash_attention", q, k, v)
     _check_head_dim("flash_attention", dk, dv)
     if bh > 65535:
         raise ValueError(f"flash_attention kernel: {bh} heads exceed the "
@@ -328,6 +342,15 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
         _check_aligned("flash_attention", q, k, v)
     o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     if sq == 0:
+        return o
+    geo = part = None
+    if route == "scalar" and dk != 64:
+        geo = wide_prefill_geometry(bh, sq, sk, dk, kv_groups, causal,
+                                    _sm_count(q.device))
+        part = torch.empty((bh * sq, geo.nc, dv + 4), dtype=torch.float32,
+                           device=q.device) if geo.nc > 1 else None
+    cost.book("flash_attention", count)
+    if how == "meta":       # the card's output and scratch, nothing run
         return o
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                v.stride(0), v.stride(1), o.stride(0), o.stride(1))
@@ -345,10 +368,6 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_groups: int = 1):
                     o.data_ptr(), bh, sq, sk, dk, kv_groups, int(causal),
                     *strides, dk ** -0.5, stream)
         else:
-            geo = wide_prefill_geometry(bh, sq, sk, dk, kv_groups, causal,
-                                        _sm_count(q.device))
-            part = torch.empty((bh * sq, geo.nc, dv + 4), dtype=torch.float32,
-                               device=q.device) if geo.nc > 1 else None
             fn = _lib("flash_prefill", "repro_flash_prefill_wide",
                       _PREFILL_WIDE_ARGS)
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -425,9 +444,11 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}, pos {tuple(pos.shape)} at "
                          f"kv_groups={kv_groups}")
-    if _route("flash_decode", q.device) == "plain":
-        return flash_decode_plain(q, k_cache, v_cache, pos,
-                                  kv_groups=kv_groups)
+    how = _route("flash_decode", q.device)
+    count = cost.flash_decode(s_, h, kvh, dk, dv, smax, q.dtype)
+    if how == "plain":
+        return cost.run_plain("flash_decode", count, flash_decode_plain, q,
+                              k_cache, v_cache, pos, kv_groups=kv_groups)
     refuse_grad("flash_decode", q, k_cache, v_cache)
     code = _check_cuda("flash_decode", q, k_cache, v_cache)
     if pos.device != q.device or pos.dtype != torch.int32 or \
@@ -450,6 +471,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, kv_groups: int = 1):
                                             groups=kv_groups,
                                             dtype=q.dtype),
                        dtype=torch.float32, device=q.device)
+    cost.book("flash_decode", count)
+    if how == "meta":       # the card's output and scratch, nothing run
+        return o
     ks, vs = k_cache.stride(), v_cache.stride()
     strides = (q.stride(0), ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                o.stride(0))

@@ -4,7 +4,9 @@ Ports of ``quantize8_pallas`` and ``dequantize8_pallas`` in
 ``src/repro/kernels/quant8.py``.  Each wrapper dispatches on the tensors'
 device: a CPU tensor runs the plain version (``ref.quantize8_plain`` /
 ``ref.dequantize8_plain``), a CUDA tensor runs the hand-written kernel in
-``csrc/quant8.cu`` or raises.  ``LAUNCHES`` counts kernel launches only.
+``csrc/quant8.cu`` or raises, and a meta tensor gets empty outputs of the
+kernel's shapes (``build.route``).  ``LAUNCHES`` counts kernel launches
+only; every route books the call's ``cost.py`` count.
 Shapes, padding and the stacked framing live in ``ops.py``.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict
 
 import torch
 
+from . import cost
 from .build import entry, raise_on, refuse_grad, route
 from .ref import (QUANT_BM, QUANT_BN, dequantize8_plain, quantize8_plain)
 
@@ -55,14 +58,18 @@ def quantize8(x: torch.Tensor):
     _check_tiles("quantize8", x)
     if x.dtype != torch.float32:
         raise TypeError(f"quantize8: float32 input required, got {x.dtype}")
-    if route("quantize8", x.device) == "plain":
-        return quantize8_plain(x)
+    m, n = x.shape
+    how, count = route("quantize8", x.device), cost.quantize8(m, n)
+    if how == "plain":
+        return cost.run_plain("quantize8", count, quantize8_plain, x)
     refuse_grad("quantize8", x)
     _check_cuda("quantize8", x)
-    m, n = x.shape
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     s = torch.empty((m // QUANT_BM, n // QUANT_BN), dtype=torch.float32,
                     device=x.device)
+    cost.book("quantize8", count)
+    if how == "meta":
+        return q, s
     fn = entry("quant8", "repro_quantize8", _QUANT_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -80,11 +87,16 @@ def dequantize8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
             tuple(scales.shape) != (m // QUANT_BM, n // QUANT_BN):
         raise ValueError(f"dequantize8: int8 {tuple(q.shape)} with f32 "
                          f"scales {tuple(scales.shape)}")
-    if route("dequantize8", q.device) == "plain":
-        return dequantize8_plain(q, scales)
+    how, count = route("dequantize8", q.device), cost.dequantize8(m, n)
+    if how == "plain":
+        return cost.run_plain("dequantize8", count, dequantize8_plain, q,
+                              scales)
     refuse_grad("dequantize8", q, scales)
     x = torch.empty((m, n), dtype=torch.float32, device=q.device)
     _check_cuda("dequantize8", x, q, scales)
+    cost.book("dequantize8", count)
+    if how == "meta":
+        return x
     fn = entry("quant8", "repro_dequantize8", _QUANT_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -22,7 +22,9 @@ backward is a second kernel, ``repro_rglru_scan_bwd`` in the same source
 (the reverse chain g_t = gh_t + a_{t+1} g_{t+1}, writing d_bx = g and
 d_a_t = g_t h_{t-1} from the saved output h), bitwise its plain loop
 ``ref.rglru_scan_bwd_plain``.  A CPU tensor runs the plain forward and
-the plain backward.  ``LAUNCHES`` counts both kernels.
+the plain backward.  ``LAUNCHES`` counts both kernels.  A meta tensor
+gets empty outputs of the kernels' shapes, forward and backward, so a
+step traces on ``meta``; every route books each call's ``cost.py`` count.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Dict
 
 import torch
 
+from . import cost
 from .build import entry, raise_on, route
 from .ref import rglru_scan_bwd_plain, rglru_scan_plain
 
@@ -94,10 +97,17 @@ def _launch(name: str, fn_name: str, argtypes, ins, outs):
 
 
 def _scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
-    if route("rglru_scan", a.device) == "plain":
-        return rglru_scan_plain(a, bx)
+    how, count = route("rglru_scan", a.device), cost.rglru_scan(*a.shape)
+    if how == "plain":
+        return cost.run_plain("rglru_scan", count, rglru_scan_plain, a, bx)
     h = torch.empty_like(a)
-    _launch("rglru_scan", "repro_rglru_scan", _ARGS, [a, bx], [h])
+    if how == "meta":
+        if not (a.is_contiguous() and bx.is_contiguous()):
+            raise ValueError("rglru_scan: the kernel takes contiguous "
+                             "tensors")
+    else:
+        _launch("rglru_scan", "repro_rglru_scan", _ARGS, [a, bx], [h])
+    cost.book("rglru_scan", count)
     return h
 
 
@@ -105,11 +115,20 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, gh: torch.Tensor):
     """The scan's backward: a, its output h and gh, the gradient of h, f32
     [B, S, w] -> (d_a, d_bx) f32 [B, S, w]."""
     _check("rglru_scan_bwd", a, h, gh)
-    if route("rglru_scan_bwd", a.device) == "plain":
-        return rglru_scan_bwd_plain(a, h, gh)
+    how = route("rglru_scan_bwd", a.device)
+    count = cost.rglru_scan_bwd(*a.shape)
+    if how == "plain":
+        return cost.run_plain("rglru_scan_bwd", count, rglru_scan_bwd_plain,
+                              a, h, gh)
     d_a, d_bx = torch.empty_like(a), torch.empty_like(a)
-    _launch("rglru_scan_bwd", "repro_rglru_scan_bwd", _BWD_ARGS,
-            [a, h, gh], [d_a, d_bx])
+    if how == "meta":
+        if not all(t.is_contiguous() for t in (a, h, gh)):
+            raise ValueError("rglru_scan_bwd: the kernel takes contiguous "
+                             "tensors")
+    else:
+        _launch("rglru_scan_bwd", "repro_rglru_scan_bwd", _BWD_ARGS,
+                [a, h, gh], [d_a, d_bx])
+    cost.book("rglru_scan_bwd", count)
     return d_a, d_bx
 
 

@@ -3,8 +3,9 @@
 Port of ``sparse_dec_pallas`` in ``src/repro/kernels/sparse_dec.py``.  The
 wrapper dispatches on the tensors' device: CPU tensors run the plain
 version (``ref.sparse_dec_plain``), CUDA tensors run the hand-written kernel
-in ``csrc/sparse_dec.cu`` or raise.  ``LAUNCHES`` counts kernel launches
-only.
+in ``csrc/sparse_dec.cu`` or raise, meta tensors get an empty output of
+the kernel's shape.  Every route books the call's ``cost.py`` count.
+``LAUNCHES`` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from . import cost
 from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import SPARSE_B, sparse_dec_plain
 
@@ -37,8 +39,10 @@ def sparse_dec(v2: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sparse_dec: values/indices [nb, kb] (int32 "
                          f"indices) required, got {tuple(v2.shape)} / "
                          f"{tuple(i2.shape)} {i2.dtype}")
-    if route("sparse_dec", v2.device) == "plain":
-        return sparse_dec_plain(v2, i2)
+    how = route("sparse_dec", v2.device)
+    count = cost.sparse_dec(v2.shape[0], v2.shape[1], v2.dtype)
+    if how == "plain":
+        return cost.run_plain("sparse_dec", count, sparse_dec_plain, v2, i2)
     refuse_grad("sparse_dec", v2)
     code = dtype_code("sparse_dec", v2.dtype)
     if i2.device != v2.device or not (v2.is_contiguous() and
@@ -47,6 +51,9 @@ def sparse_dec(v2: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
                          "on one device required")
     nb, kb = v2.shape
     out = torch.empty(nb * SPARSE_B, dtype=v2.dtype, device=v2.device)
+    cost.book("sparse_dec", count)
+    if how == "meta":
+        return out
     fn = entry("sparse_dec", "repro_sparse_dec", _DEC_ARGS)
     with torch.cuda.device(v2.device):
         stream = torch.cuda.current_stream(v2.device).cuda_stream

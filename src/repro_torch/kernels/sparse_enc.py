@@ -3,8 +3,9 @@
 Port of ``sparse_enc_pallas`` in ``src/repro/kernels/sparse_enc.py``.  The
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
 version (``ref.sparse_enc_plain``), a CUDA tensor runs the hand-written
-kernel in ``csrc/sparse_enc.cu`` or raises.  ``LAUNCHES`` counts kernel
-launches only, and ``ENC_ROUTE_LAUNCHES`` splits them by the kernel's load
+kernel in ``csrc/sparse_enc.cu`` or raises, a meta tensor gets empty
+outputs of the kernel's shapes.  Every route books the call's ``cost.py``
+count.  ``LAUNCHES`` counts kernel launches only, and ``ENC_ROUTE_LAUNCHES`` splits them by the kernel's load
 route (:func:`enc_route`).  Capacities and the stacked framing live in
 ``ops.py``.
 """
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import cost
 from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import SPARSE_B, sparse_enc_plain
 
@@ -61,9 +63,11 @@ def sparse_enc(flat: torch.Tensor, *, kb: int, threshold: float = 0.0,
     if nb and (fb < 1 or nb % fb):
         raise ValueError(f"sparse_enc: frame_blocks={frame_blocks} must "
                          f"divide the {nb} blocks")
-    if route("sparse_enc", flat.device) == "plain":
-        return sparse_enc_plain(flat, kb, threshold, frame_blocks=fb,
-                                totals=totals)
+    how = route("sparse_enc", flat.device)
+    count = cost.sparse_enc(n, kb, flat.dtype, totals)
+    if how == "plain":
+        return cost.run_plain("sparse_enc", count, sparse_enc_plain, flat,
+                              kb, threshold, frame_blocks=fb, totals=totals)
     refuse_grad("sparse_enc", flat)
     code = dtype_code("sparse_enc", flat.dtype)
     if not flat.is_contiguous():
@@ -76,6 +80,10 @@ def sparse_enc(flat: torch.Tensor, *, kb: int, threshold: float = 0.0,
     idxs = torch.empty(nb * kb, dtype=torch.int32, device=dev)
     cnts = torch.empty(nb, dtype=torch.int32, device=dev)
     tots = torch.empty(nb, dtype=torch.int32, device=dev) if totals else None
+    cost.book("sparse_enc", count)
+    if how == "meta":
+        return (vals, idxs, cnts) if tots is None else \
+            (vals, idxs, cnts, tots)
     load = enc_route(flat)
     fn = entry("sparse_enc", "repro_sparse_enc", _ENC_ARGS)
     with torch.cuda.device(dev):

@@ -8,8 +8,9 @@ and readout of the JAX package's ``ssm_decode``
 
 It is a new kernel, not a port of a TPU kernel.  A CPU tensor runs the
 plain version (``ref.ssd_decode_step_plain``), a CUDA tensor runs
-``csrc/ssd_decode.cu`` or raises.  ``LAUNCHES`` counts kernel launches
-only.  The kernel reads h once and writes h' once, into a fresh tensor
+``csrc/ssd_decode.cu`` or raises, and a meta tensor gets empty outputs
+of the kernel's shapes.  Every route books the call's ``cost.py`` count.
+``LAUNCHES`` counts kernel launches only.  The kernel reads h once and writes h' once, into a fresh tensor
 (the caller's cache keeps h until it rebinds its leaf), launches on the
 current stream and allocates nothing itself, so a CUDA graph captures it.
 
@@ -25,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import cost
 from .build import dtype_code, entry, raise_on, refuse_grad, route
 from .ref import ssd_decode_step_plain
 
@@ -83,11 +85,14 @@ def ssd_decode_step(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     it is False keep h) -> (h' f32 [B, H, N, hd], fresh; y f32 [B, H,
     hd])."""
     _check(h, dt, A, B, C, x, D, active)
-    if route("ssd_decode", h.device) == "plain":
-        return ssd_decode_step_plain(h, dt, A, B, C, x, D, active)
+    b, nh, n, hd = h.shape
+    how = route("ssd_decode", h.device)
+    count = cost.ssd_decode(b, nh, n, hd, B.dtype, active is not None)
+    if how == "plain":
+        return cost.run_plain("ssd_decode", count, ssd_decode_step_plain, h,
+                              dt, A, B, C, x, D, active)
     refuse_grad("ssd_decode", h, dt, A, B, C, x, D)
     code = dtype_code("ssd_decode", B.dtype)
-    b, nh, n, hd = h.shape
     if THREADS % hd:
         raise ValueError(f"ssd_decode_step: head dim {hd} must divide "
                          f"{THREADS}")
@@ -104,6 +109,9 @@ def ssd_decode_step(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              f"rows (element stride {t.stride(-1)})")
     h_out = torch.empty_like(h)
     y = torch.empty((b, nh, hd), dtype=torch.float32, device=h.device)
+    cost.book("ssd_decode", count)
+    if how == "meta":
+        return h_out, y
     fn = entry("ssd_decode", "repro_ssd_decode", _ARGS)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream

@@ -23,7 +23,9 @@ order (per-thread, warp butterfly, then the warps' partials in index
 order: no atomics, so a row's bits do not depend on B or the run).  A
 gradient that autograd leaves ``None`` (h_final in training) is read as
 zeros.  A CPU tensor runs the plain forward and the plain backward.
-``LAUNCHES`` counts both kernels.
+``LAUNCHES`` counts both kernels.  A meta tensor gets empty outputs of
+the kernels' shapes, forward and backward, so a step traces on ``meta``;
+every route books each call's ``cost.py`` count.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import cost
 from .build import entry, raise_on, route
 from .ref import ssd_state_scan_bwd_plain, ssd_state_scan_plain
 
@@ -69,14 +72,20 @@ def _forward(decay: torch.Tensor, states: torch.Tensor,
         raise TypeError("ssd_state_scan: float32 inputs required")
     if any(t.device != states.device for t in tensors):
         raise ValueError("ssd_state_scan: inputs on different devices")
-    if route("ssd_state_scan", states.device) == "plain":
-        return ssd_state_scan_plain(decay, states, h0)
+    how = route("ssd_state_scan", states.device)
+    count = cost.ssd_state_scan(b, nc, nh, n, hd, h0 is not None)
+    if how == "plain":
+        return cost.run_plain("ssd_state_scan", count, ssd_state_scan_plain,
+                              decay, states, h0)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_state_scan: the kernel takes contiguous "
                          "tensors")
     h_starts = torch.empty_like(states)
     h_final = torch.empty((b, nh, n, hd), dtype=torch.float32,
                           device=states.device)
+    cost.book("ssd_state_scan", count)
+    if how == "meta":
+        return h_starts, h_final
     fn = entry("ssd_scan", "repro_ssd_state_scan", _ARGS)
     with torch.cuda.device(states.device):
         stream = torch.cuda.current_stream(states.device).cuda_stream
@@ -102,9 +111,13 @@ def ssd_state_scan_bwd(decay: torch.Tensor, h_starts: torch.Tensor,
             (g_final is not None and tuple(g_final.shape) != (b, nh, n, hd)):
         raise ValueError("ssd_state_scan_bwd: f32 gradients of h_starts "
                          "and h_final on the states' device required")
-    if route("ssd_state_scan_bwd", h_starts.device) == "plain":
-        return ssd_state_scan_bwd_plain(decay, h_starts, g_starts, g_final,
-                                        with_h0)
+    how = route("ssd_state_scan_bwd", h_starts.device)
+    count = cost.ssd_state_scan_bwd(b, nc, nh, n, hd, g_starts is not None,
+                                    g_final is not None, with_h0)
+    if how == "plain":
+        return cost.run_plain("ssd_state_scan_bwd", count,
+                              ssd_state_scan_bwd_plain, decay, h_starts,
+                              g_starts, g_final, with_h0)
     tensors = [decay, h_starts] + grads
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_state_scan_bwd: the kernel takes contiguous "
@@ -117,6 +130,9 @@ def ssd_state_scan_bwd(decay: torch.Tensor, h_starts: torch.Tensor,
                        device=h_starts.device) if with_h0 else None
     partial = torch.empty((b * nc * nh, cap), dtype=torch.float32,
                           device=h_starts.device)
+    cost.book("ssd_state_scan_bwd", count)
+    if how == "meta":       # the card's outputs and scratch, nothing run
+        return d_decay, d_states, d_h0
     fn = entry("ssd_scan", "repro_ssd_state_scan_bwd", _BWD_ARGS)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(h_starts.device):

@@ -11,6 +11,10 @@ Single pod = 16 x 16 devices, axes (data, model); multi-pod = 2 x 16 x 16,
 axes (pod, data, model): the ``pod`` axis is the among-device axis, the
 paper's device boundary.
 
+The H100 constants (``H100_*``) take the place of the JAX package's
+``V5E_*``: the roofline of the analysis tools (``launch/hlo_analysis.py``)
+and the bounds of ``kernels/cost.py`` divide by them.
+
 :class:`P` is the port's partition spec: one entry per tensor dimension,
 ``None`` (not split), an axis name, or a tuple of axis names (split over
 their product, the first axis outermost).  ``launch/spmd.py`` splits and
@@ -27,7 +31,26 @@ import torch
 
 __all__ = ["Mesh", "P", "make_host_mesh", "make_production_mesh",
            "mesh_axis_sizes", "data_axes", "data_axis_size", "batch_spec",
-           "set_mesh", "current_mesh", "mesh_fingerprint"]
+           "set_mesh", "current_mesh", "mesh_fingerprint", "H100_NAME",
+           "H100_BF16_FLOPS", "H100_F32_FLOPS", "H100_HBM_BW",
+           "H100_HBM_BYTES", "H100_NVLINK_BW", "H100_SMS"]
+
+#: the card the constants below describe (``torch.cuda.get_device_name``)
+H100_NAME = "NVIDIA H100 80GB HBM3"
+#: dense bf16 FLOP/s on the tensor cores (NVIDIA H100 SXM5 data sheet:
+#: 989.4 TFLOPS without sparsity)
+H100_BF16_FLOPS = 989e12
+#: float32 FLOP/s outside the tensor cores (the data sheet's 67 TFLOPS FP32)
+H100_F32_FLOPS = 67e12
+#: HBM3 bytes/s (the data sheet's 3.35 TB/s)
+H100_HBM_BW = 3.35e12
+#: HBM3 bytes on the card (80 GB)
+H100_HBM_BYTES = 80e9
+#: streaming multiprocessors of the SXM5 card
+H100_SMS = 132
+#: NVLink 4 bytes/s a direction per card: 18 links of 25 GB/s (the data
+#: sheet's 900 GB/s bidirectional); takes the place of ``V5E_ICI_BW``
+H100_NVLINK_BW = 450e9
 
 
 class P(tuple):
@@ -108,18 +131,31 @@ def _visible_cuda() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     """The 16 x 16 (data, model) pod mesh, or 2 x 16 x 16 (pod, data,
     model) with ``multi_pod``, over the visible CUDA devices; raises when
-    fewer are visible, as ``jax.make_mesh`` does."""
+    fewer are visible, as ``jax.make_mesh`` does.  ``devices``: one device
+    a slot instead (a single device, e.g. ``"meta"``, fills every slot: the
+    dry run's counterpart of the JAX package's forged host devices)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    need, have = int(np.prod(shape)), _visible_cuda()
-    if have < need:
-        raise ValueError(f"the production mesh {shape} needs {need} CUDA "
-                         f"devices; {have} visible")
-    devs = [torch.device("cuda", i) for i in range(need)]
-    return Mesh(np.array(devs, dtype=object).reshape(shape), axes)
+    need = int(np.prod(shape))
+    if devices is not None:
+        devs = [devices] * need if isinstance(devices, (str, torch.device)) \
+            else list(devices)
+        if len(devs) != need:
+            raise ValueError(f"the production mesh {shape} needs {need} "
+                             f"slots; {len(devs)} given")
+    else:
+        have = _visible_cuda()
+        if have < need:
+            raise ValueError(f"the production mesh {shape} needs {need} "
+                             f"CUDA devices; {have} visible")
+        devs = [torch.device("cuda", i) for i in range(need)]
+    arr = np.empty(need, dtype=object)
+    for i, d in enumerate(devs):
+        arr[i] = d
+    return Mesh(arr.reshape(shape), axes)
 
 
 def make_host_mesh(model_parallel: int = 1, devices=None) -> Mesh:

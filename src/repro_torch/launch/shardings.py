@@ -50,7 +50,11 @@ def _div(n: int, size: int) -> bool:
 
 def tree_map_with_path(fn: Callable, tree, path: Tuple = ()):
     """``fn(path, leaf)`` over a tree of dicts, lists and tuples; a path is
-    the tuple of dict keys and list indices down to the leaf."""
+    the tuple of dict keys and list indices down to the leaf.  ``None`` is
+    an empty subtree, as in a JAX pytree (a stacked tree with no repeated
+    unit holds one)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}

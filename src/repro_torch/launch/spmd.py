@@ -13,8 +13,23 @@ slot's device.
   along one axis (or a tuple of axes); ``psum`` adds the slots in slot
   order, so its result does not depend on the devices;
 * :func:`slot_map` runs a local phase on every slot, under its device;
+* :func:`broadcast_from` gives every slot along an axis one slot's part
+  (what the JAX package writes as ``psum`` of a masked value);
 * :class:`Replicated` holds one copy of a tree per distinct device, not
   one per slot.
+
+While a counter of the analysis tools is active (``kernels/cost.py``,
+``launch/hlo_analysis.py``), each collective books the bytes a device
+receives under the HLO kind the JAX package's collective compiles to:
+``psum``, ``pmean`` and ``broadcast_from`` as ``all-reduce``,
+``ppermute`` as ``collective-permute``.  A device's bytes are one slot's
+output bytes, averaged over the slots: what ``collective_bytes`` reads
+from a per-device HLO program.  No operation here stands for an
+``all-gather``, ``reduce-scatter`` or ``all-to-all``; :func:`split` and
+:func:`gather` lay tensors out at a body's boundary, as ``shard_map``'s
+in and out specs do, and book nothing.  The collectives' own tensor
+operations (the adds of a sum, the copies between devices) are the
+communication, so the counter does not count them as operations.
 """
 from __future__ import annotations
 
@@ -24,10 +39,11 @@ import numpy as np
 import torch
 
 from ..core.buffers import tree_flatten, tree_unflatten
+from ..kernels import cost
 from .mesh import Mesh, P
 
-__all__ = ["split", "gather", "psum", "pmean", "ppermute", "axis_index",
-           "slot_map", "slots", "Replicated", "to_device"]
+__all__ = ["split", "gather", "psum", "pmean", "ppermute", "broadcast_from",
+           "axis_index", "slot_map", "slots", "Replicated", "to_device"]
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -131,10 +147,30 @@ def _tree_add(a, b):
     return tree_unflatten(td, [x + y.to(x.device) for x, y in zip(la, lb)])
 
 
-def psum(parts: np.ndarray, mesh: Mesh, axis) -> np.ndarray:
-    """Sum over the slots along ``axis`` (a name or a tuple of names), in
-    slot order: ((p0 + p1) + p2) + ...; every slot of a group gets the sum
-    on its own device.  A part may be a tensor or a tree of tensors."""
+def _nbytes(tree, dtype=None) -> int:
+    return sum(l.numel() * (dtype or l.dtype).itemsize
+               for l in tree_flatten(tree)[0]
+               if isinstance(l, torch.Tensor))
+
+
+def _collective(kind: str, fn, moves: bool, dtype=None):
+    """Run ``fn`` (-> per-slot parts) with the active counter paused, then
+    book its mean output bytes a slot as ``kind`` (counted in ``dtype``
+    where the JAX package's collective moves another dtype); nothing when
+    it ``moves`` no data (one slot along the axis, no pairs), as XLA drops
+    such a collective."""
+    c = cost.active()
+    if c is None:
+        return fn()
+    with c.paused():
+        out = fn()
+    if moves:
+        c.collective(kind, sum(_nbytes(out[idx], dtype) for idx in
+                               np.ndindex(out.shape)) / max(out.size, 1))
+    return out
+
+
+def _psum(parts: np.ndarray, mesh: Mesh, axis) -> np.ndarray:
     axes = _axes(axis)
     out = np.empty(parts.shape, dtype=object)
     for group in _groups(mesh, axes):
@@ -146,29 +182,59 @@ def psum(parts: np.ndarray, mesh: Mesh, axis) -> np.ndarray:
     return out
 
 
+def psum(parts: np.ndarray, mesh: Mesh, axis) -> np.ndarray:
+    """Sum over the slots along ``axis`` (a name or a tuple of names), in
+    slot order: ((p0 + p1) + p2) + ...; every slot of a group gets the sum
+    on its own device.  A part may be a tensor or a tree of tensors."""
+    return _collective("all-reduce", lambda: _psum(parts, mesh, axis),
+                       _count(mesh.shape, _axes(axis)) > 1)
+
+
 def pmean(parts: np.ndarray, mesh: Mesh, axis) -> np.ndarray:
     """:func:`psum` divided by the slots along ``axis``."""
     n = _count(mesh.shape, _axes(axis))
-    summed = psum(parts, mesh, axis)
-    out = np.empty(parts.shape, dtype=object)
-    for idx in np.ndindex(parts.shape):
-        out[idx] = summed[idx] / n
-    return out
+
+    def run():
+        summed = _psum(parts, mesh, axis)
+        out = np.empty(parts.shape, dtype=object)
+        for idx in np.ndindex(parts.shape):
+            out[idx] = summed[idx] / n
+        return out
+    return _collective("all-reduce", run, n > 1)
 
 
 def ppermute(parts: np.ndarray, mesh: Mesh, axis: str,
              pairs: List[Tuple[int, int]]) -> np.ndarray:
     """Along ``axis``: slot ``j`` gets slot ``i``'s part for every pair
     ``(i, j)``, moved to its device; a slot no pair reaches gets zeros."""
-    out = np.empty(parts.shape, dtype=object)
-    src_of = {j: i for i, j in pairs}
-    for group in _groups(mesh, (axis,)):
-        for j, idx in enumerate(group):
-            if j in src_of:
-                out[idx] = parts[group[src_of[j]]].to(mesh.devices[idx])
-            else:
-                out[idx] = torch.zeros_like(parts[idx])
-    return out
+    def run():
+        out = np.empty(parts.shape, dtype=object)
+        src_of = {j: i for i, j in pairs}
+        for group in _groups(mesh, (axis,)):
+            for j, idx in enumerate(group):
+                if j in src_of:
+                    out[idx] = parts[group[src_of[j]]].to(mesh.devices[idx])
+                else:
+                    out[idx] = torch.zeros_like(parts[idx])
+        return out
+    return _collective("collective-permute", run, bool(pairs))
+
+
+def broadcast_from(parts: np.ndarray, mesh: Mesh, axis: str, index: int,
+                   wire_dtype=None) -> np.ndarray:
+    """Along ``axis``: every slot gets the part of the slot at position
+    ``index`` (the same tensor where both are on one device).  The JAX
+    package writes this as ``psum(x * (axis_index == index))``, so it is
+    booked as that all-reduce, its bytes counted in ``wire_dtype`` when
+    the JAX package sums in another dtype than the part's."""
+    def run():
+        out = np.empty(parts.shape, dtype=object)
+        for group in _groups(mesh, (axis,)):
+            src = parts[group[index]]
+            for idx in group:
+                out[idx] = to_device(src, mesh.devices[idx])
+        return out
+    return _collective("all-reduce", run, mesh.shape[axis] > 1, wire_dtype)
 
 
 def axis_index(mesh: Mesh, axis: str) -> np.ndarray:

@@ -239,7 +239,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict
     b = token.shape[0]
     pos = cache["pos"]
     limit = min(cache["self"][0]["k"].shape[1], params["pos_dec"].shape[0])
-    if pos.is_cuda:
+    if pos.is_cuda or pos.is_meta:        # no host read: graphs, meta traces
         torch._assert_async((pos < limit).all(),
                             f"decoder position past the decoder's {limit} "
                             f"positions")

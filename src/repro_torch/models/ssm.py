@@ -202,6 +202,9 @@ def ssm_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def ssm_train(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    mesh = _seq_parallel_mesh(cfg, x)
+    if mesh is not None:
+        return ssm_train_seq_parallel(p, cfg, x, mesh)
     return ssm_prefill(p, cfg, x)[0]
 
 
@@ -217,17 +220,20 @@ def ssm_train(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def ssm_train_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
                            ) -> torch.Tensor:
-    return _ssm_prefill_seq_parallel(p, cfg, x, mesh)[0]
+    return _ssm_prefill_seq_parallel(p, cfg, x, mesh, with_cache=False)[0]
 
 
 def _ssm_prefill_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                              mesh) -> Tuple[torch.Tensor, Dict]:
+                              mesh, with_cache: bool = True
+                              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B, S, d] -> (y [B, S, d], cache) with S split over ``model`` and
     B over the data axes (replicated when B does not tile them).  The
-    cache is the last model slot's inclusive state and conv tail."""
+    cache is the last model slot's inclusive state and conv tail, which
+    every model slot gets (the JAX package's masked ``psum``; the conv
+    tail summed in f32); ``with_cache=False`` (training) makes none."""
     from ..launch.mesh import P, data_axes
-    from ..launch.spmd import (axis_index, gather, ppermute, slot_map,
-                               split)
+    from ..launch.spmd import (axis_index, broadcast_from, gather, ppermute,
+                               slot_map, split)
     b, s, _ = x.shape
     d_inner, h, hd, n = _dims(cfg)
     m = mesh.shape["model"]
@@ -279,7 +285,10 @@ def _ssm_prefill_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     shift = 1
     while shift < m:
         pairs = [(i, i + shift) for i in range(m - shift)]
-        d_in = ppermute(d_acc, mesh, "model", pairs)
+        # the last round's decay product is dead, so its permute is not
+        # made (XLA drops it from the JAX package's program too)
+        d_in = d_acc if 2 * shift >= m else \
+            ppermute(d_acc, mesh, "model", pairs)
         s_in = ppermute(s_acc, mesh, "model", pairs)
 
         def combine(d_in_l, s_in_l, d_l, s_l, pos_l, _shift=shift):
@@ -302,15 +311,13 @@ def _ssm_prefill_seq_parallel(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         return (y * F.silu(z_l)) @ pp["w_out"][idx]
     out = slot_map(finish, mesh, y0, C, cum, h0, z, idxs)
 
-    last = np.empty(mesh.devices.shape, dtype=object)
-    last_conv = np.empty(mesh.devices.shape, dtype=object)
-    for idx in np.ndindex(last.shape):
-        src = tuple(m - 1 if a == "model" else i
-                    for a, i in zip(mesh.axis_names, idx))
-        last[idx] = s_acc[src]
-        last_conv[idx] = conv_tail[src]
     home = x.device
     y = gather(out, mesh, P(bspec, "model", None), home)
+    if not with_cache:
+        return y, None
+    last = broadcast_from(s_acc, mesh, "model", m - 1)
+    last_conv = broadcast_from(conv_tail, mesh, "model", m - 1,
+                               wire_dtype=torch.float32)
     cache = {"h": gather(last, mesh, P(bspec, None, None, None), home),
              "conv": gather(last_conv, mesh, P(bspec, None, None),
                             home).contiguous()}

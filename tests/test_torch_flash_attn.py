@@ -189,14 +189,16 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
 
 
 def test_a_device_that_is_neither_cpu_nor_cuda_raises():
-    q = torch.empty((2, 8, 16), device="meta")
+    """Nor ``meta``, the analysis tools' shape-only route
+    (``tests/test_torch_kernel_cost.py``)."""
+    from elsewhere import Elsewhere
+    q = Elsewhere(2, 8, 16)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        fa.flash_decode(torch.empty((2, 16), device="meta"),
-                        torch.empty((1, 8, 2, 16), device="meta"),
-                        torch.empty((1, 8, 2, 16), device="meta"),
-                        torch.empty((1,), dtype=torch.int32, device="meta"))
+        fa.flash_decode(Elsewhere(2, 16), Elsewhere(1, 8, 2, 16),
+                        Elsewhere(1, 8, 2, 16),
+                        Elsewhere(1, dtype=torch.int32))
 
 
 def test_wrappers_reject_mismatched_shapes():

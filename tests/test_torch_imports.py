@@ -130,6 +130,30 @@ def test_the_scan_covers_pp_serve_and_the_example_twins():
         p.name for p in (ROOT / "examples").glob("*.py"))
 
 
+#: the analysis tools (M14): the dry run, its counter, the kernels' counts
+ANALYSIS_MODULES = ("launch/dryrun.py", "launch/hlo_analysis.py",
+                    "kernels/cost.py", "launch/mesh.py")
+
+
+def test_the_scan_covers_the_analysis_modules():
+    for rel in ANALYSIS_MODULES:
+        assert PORT / rel in SCANNED, rel
+    # every module of the JAX package has its counterpart but jaxcompat.py
+    ref = ROOT / "src" / "repro"
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (PORT / p.relative_to(ref)).exists()]
+    assert missing == ["jaxcompat.py"], missing
+
+
+def test_the_dry_run_imports_no_jax():
+    code = ("import sys, repro_torch.launch.dryrun; "
+            "sys.exit(int('jax' in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):

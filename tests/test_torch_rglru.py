@@ -173,8 +173,9 @@ def test_scan_wrapper_checks_its_inputs():
         scan_mod.rglru_scan(a.double(), a.double())
     with pytest.raises(ValueError):
         scan_mod.rglru_scan(a[0], a[0])
+    from elsewhere import Elsewhere     # neither cpu, cuda nor meta
     with pytest.raises(ValueError):
-        scan_mod.rglru_scan(a.to("meta"), a.to("meta"))
+        scan_mod.rglru_scan(Elsewhere(1, 4, 8), Elsewhere(1, 4, 8))
 
 
 #: S at one ring stage - 1, one stage and one stage + 1, at widths that are

@@ -250,8 +250,9 @@ def test_state_scan_wrapper_checks_its_inputs():
         scan_mod.ssd_state_scan(d, s, torch.zeros((1, 3, 4, 4)))
     with pytest.raises(TypeError):
         scan_mod.ssd_state_scan(d.double(), s.double())
+    from elsewhere import Elsewhere     # neither cpu, cuda nor meta
     with pytest.raises(ValueError):
-        scan_mod.ssd_state_scan(d.to("meta"), s.to("meta"))
+        scan_mod.ssd_state_scan(Elsewhere(1, 2, 3), Elsewhere(1, 2, 3, 4, 5))
 
 
 def _decode_inputs(rng, b, h, n, hd, dtype=torch.float32, device="cpu"):
@@ -282,8 +283,10 @@ def test_decode_step_wrapper_checks_its_inputs():
         dec_mod.ssd_decode_step(**{**a, "B": a["B"].double()})
     with pytest.raises(TypeError):
         dec_mod.ssd_decode_step(**a, active=torch.ones(2, dtype=torch.int32))
+    from elsewhere import Elsewhere     # neither cpu, cuda nor meta
     with pytest.raises(ValueError):
-        dec_mod.ssd_decode_step(**{k: v.to("meta") for k, v in a.items()})
+        dec_mod.ssd_decode_step(**{k: Elsewhere(*v.shape, dtype=v.dtype)
+                                   for k, v in a.items()})
     hnew, y = dec_mod.ssd_decode_step(**a)     # CPU: plain, strided views
     assert tuple(hnew.shape) == (2, 3, 8, 16) and tuple(y.shape) == (2, 3, 16)
     assert hnew.data_ptr() != a["h"].data_ptr()
