@@ -1201,7 +1201,7 @@ def _graph_since(mark):
 
 def _serve_batcher(rt):
     from repro_torch.core.batching import StreamingQueryBatcher
-    return next(b for b in rt._batchers.values()
+    return next(b for b in rt.batchers()
                 if isinstance(b, StreamingQueryBatcher))
 
 
@@ -2646,7 +2646,7 @@ def _tokens(runs):
 
 
 def _batcher_of(rt, run):
-    return next(b for b in rt._batchers.values() if b.run is run)
+    return next(b for b in rt.batchers() if b.run is run)
 
 
 def _conserved(qb, what):
@@ -3113,7 +3113,7 @@ STAGE_SWAP_REQUEST_TICK = 5
 
 def _coord(rt):
     from repro_torch.core.batching import StagedStreamingBatcher
-    return next(b for b in rt._batchers.values()
+    return next(b for b in rt.batchers()
                 if isinstance(b, StagedStreamingBatcher))
 
 
@@ -3264,8 +3264,6 @@ def _phase_staged_serve(seed, serve4, n_stages):
           f"imply {prefill} + {hops} decode hops")
     shares = [r.params["lm"] for r in srvs]
     dec = [1e3 * x for x in coord.decode_times]
-    hop_ms = {k: float(np.median(v)) * 1e3
-              for k, v in sorted(coord.hop_times.items())}
     row = dict(n_stages=n_stages, ticks=rt.ticks, wall_s=wall,
                prefills=st["prefills"], decode_ticks=st["decode_ticks"],
                tokens=st["tokens_generated"],
@@ -3273,7 +3271,6 @@ def _phase_staged_serve(seed, serve4, n_stages):
                st["prefills"],
                decode_ms_min_median_max=[min(dec), float(np.median(dec)),
                                          max(dec)],
-               hop_ms_median_by_stage=hop_ms,
                tokens_per_s=st["tokens_generated"] / wall,
                hop_bytes_per_tick=per_tick,
                hop_bytes_per_prefill=prefill / st["prefills"],
@@ -3288,8 +3285,7 @@ def _phase_staged_serve(seed, serve4, n_stages):
           f"the same slots; prefill chain "
           f"{row['prefill_chain_ms_per_request']:.2f} ms/request; decode "
           f"ms/tick min/median/max {_fmt(row['decode_ms_min_median_max'])}"
-          f"; hop ms median by stage {_fmt(list(hop_ms.values()))} "
-          f"(stage 0 its own tick); {row['tokens_per_s']:.1f} tokens/s; "
+          f"; {row['tokens_per_s']:.1f} tokens/s; "
           f"hop bytes {per_tick} a tick, "
           f"{row['hop_bytes_per_prefill']:.0f} a prefill chain (the hop "
           f"channels booked {booked}); {graph['graphs']} graphs captured "
@@ -4018,7 +4014,7 @@ def _phase_qos_small(seed):
     check(coord.admission.enabled and t["standard"]["shed"] >= 1 and
           t["best-effort"]["shed"] >= 1 and t["realtime"]["shed"] == 0,
           f"12b chain: stage 0's ledger {t}")
-    for b in rt._batchers.values():
+    for b in rt.batchers():
         if isinstance(b, StageQueryBatcher):
             hs = b.stats()
             check(not b.admission.enabled and hs["shed_requests"] == 0 and
@@ -5953,7 +5949,7 @@ def _mesh_offload(seed, mesh, codecs, ticks, timed=0, fault=False,
         rt.add_device(hub)
         servers.append((hub, run, ps.elements["ssrc"]))
     if eager_route:
-        for b in rt._batchers.values():
+        for b in rt.batchers():
             b._mesh_may_take = lambda n: True
     runs = []
     for i, codec in enumerate(codecs):
@@ -6024,7 +6020,7 @@ def _phase_mesh_offload(seed, devices, tag):
               OFFLOAD_CLIENTS * total,
               f"{tag} {codec}: sharded {qb['sharded_frames']} of "
               f"{qb['batched_frames']} frames, expected {want}")
-        rep = next(iter(rt_m._batchers.values()))._mesh_params
+        rep = rt_m.batchers()[0]._mesh_params
         check(rep is not None and (len(mesh.distinct_devices()) > 1 or
                                    rep.nbytes() == 0),
               f"{tag}: the mesh-placed params copy the weights on one card")
@@ -6118,7 +6114,7 @@ def _phase_mesh_offload(seed, devices, tag):
     _free_card()
     # auto: one probe per batch size, answers bitwise whatever it picks
     rt_a, runs_a, _, _, _, _ = _mesh_offload(seed, mesh, q8, MESH_TICKS)
-    batcher = next(iter(rt_a._batchers.values()))
+    batcher = rt_a.batchers()[0]
     pick = dict(batcher.placements)
     check(set(pick) == ({OFFLOAD_CLIENTS} if OFFLOAD_CLIENTS % n_slots == 0
                         else set()),

@@ -51,9 +51,12 @@ construction (DESIGN.md §9 spells out the contract).
 from __future__ import annotations
 
 import itertools
+import time
 from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from .trace import TRACER
 
 __all__ = ["TenantSpec", "QoSConfig", "AdmissionRecord", "AdmissionQueue",
            "DEFAULT_TENANT", "percentile_from_hist", "merge_tenant_stats"]
@@ -131,6 +134,8 @@ class AdmissionRecord:
     deadline: float = _INF          # absolute tick; _INF = no deadline
     priority: int = 1
     client_id: Optional[int] = None
+    #: ``time.time_ns()`` at ingest while the tracer is on, else 0
+    ingest_ns: int = 0
 
     def order_key(self) -> Tuple:
         """(priority, deadline, arrival) — the slot-admission sort key the
@@ -264,6 +269,8 @@ class AdmissionQueue:
                               seq=next(self._seq), enqueue_tick=now,
                               deadline=deadline, priority=priority,
                               client_id=client_id)
+        if TRACER.on:
+            rec.ingest_ns = time.time_ns()
         ts.queue.append(rec)
         self._queued += 1
         if client_id is not None:

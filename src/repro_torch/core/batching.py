@@ -46,6 +46,7 @@ from .broker import BrokerError
 from .buffers import StreamBuffer, structure_key, to_device, \
     unstack_buffers
 from .query import QueryServerEndpoint
+from .trace import TRACER
 from . import compression as comp
 from . import netfault
 
@@ -638,7 +639,10 @@ class StreamingQueryBatcher(QueryBatcher):
 
     ``prefill_seconds`` / ``decode_seconds`` are host clock sums around
     the prefills (replays included) and decode ticks; both end in a host
-    read of the result, so they include the device time."""
+    read of the result, so they include the device time.  With the tracer
+    on (``core/trace.py``) each prefill is a ``prefill`` span and each
+    decode tick a ``decode`` span split into ``decode.admit``,
+    ``decode.serve``, ``decode.read`` and ``decode.deliver``."""
 
     def __init__(self, *args, tick_source: Optional[Callable[[], int]] = None,
                  **kwargs):
@@ -730,9 +734,16 @@ class StreamingQueryBatcher(QueryBatcher):
             # what a fresh build answers)
             replays, self._replay = self._replay, []
             for rec in replays:
+                on = TRACER.on
+                if on:
+                    arec = rec.get("adm")
+                    sp = TRACER.begin("prefill",
+                                      None if arec is None else arec.seq)
                 t0 = time.perf_counter()
                 tok, cache = elem.host_prefill(params, rec["prompt"])
                 self.prefill_seconds += time.perf_counter() - t0
+                if on:
+                    TRACER.end(sp)
                 self.prefills += 1
                 self.tokens_generated += 1
                 rec["tokens"] = [tok]
@@ -753,9 +764,17 @@ class StreamingQueryBatcher(QueryBatcher):
             arec = recs[0]
             clean, routing = self._decode(arec.raw)
             gen = int(clean.meta.get("gen", 1))
+            on = TRACER.on
+            if on:
+                t = time.time_ns()
+                sp = TRACER.begin("prefill", arec.seq, t)
+                if arec.ingest_ns:
+                    TRACER.wait("queue_wait", arec.seq, arec.ingest_ns, t)
             t0 = time.perf_counter()
             tok, cache = elem.host_prefill(params, clean.tensors[0])
             self.prefill_seconds += time.perf_counter() - t0
+            if on:
+                TRACER.end(sp)
             self.prefills += 1
             self.streams_started += 1
             self.tokens_generated += 1
@@ -788,6 +807,10 @@ class StreamingQueryBatcher(QueryBatcher):
         """ONE decode call over the whole slot table: waiting streams join
         (admitted eagerly, in place), every active slot emits a token
         through the cached serve tick, spent slots leave."""
+        on = TRACER.on
+        if on:
+            top = TRACER.begin("decode")
+            sp = TRACER.begin("decode.admit")
         run = self.run
         plan = run.pipe.plan
         elem = self._serve_elem()
@@ -805,13 +828,19 @@ class StreamingQueryBatcher(QueryBatcher):
         sink = plan.query_sinks[0].name
         t0 = time.perf_counter()
         elem.admit(run.state[elem.name], elem.build_admit(admits))
+        if on:
+            sp = TRACER.then(sp, "decode.serve")
         outputs, run.state = self._serve_tick()(
             run.params, run.state, {src: elem.empty_admit()})
         toks, emitted, finished = outputs[sink].tensors
+        if on:
+            sp = TRACER.then(sp, "decode.read")
         lanes = torch.stack([toks, emitted.to(torch.int32),
                              finished.to(torch.int32)]).cpu().numpy()
         self.decode_times.append(time.perf_counter() - t0)
         self.decode_seconds += self.decode_times[-1]
+        if on:
+            sp = TRACER.then(sp, "decode.deliver")
         toks, emitted, finished = lanes
         self.decode_ticks += 1
         run.frames += 1
@@ -829,6 +858,9 @@ class StreamingQueryBatcher(QueryBatcher):
                 self._finish(rec)
                 del self._slots[slot]
                 done += 1
+        if on:
+            TRACER.end(sp)
+            TRACER.end(top)
         return done
 
     def _finish(self, rec: Dict):
@@ -1104,10 +1136,7 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
     rejected (``hop_corrupt``), a late duplicate of an earlier hop's answer
     dropped (``hop_dups``).  The stage's guard dedups a replayed request
     and re-fires its committed answer, and the stage element's memo keyed
-    on the id backs it up, so a hop never advances a slot twice.
-
-    ``hop_times[k]`` holds the host seconds of each decode hop of stage k
-    (stage 0: its admit and serve tick; not in :meth:`stats`)."""
+    on the id backs it up, so a hop never advances a slot twice."""
 
     def __init__(self, *args, broker=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -1133,7 +1162,6 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
         self.hop_dups = 0
         self.hop_corrupt = 0
         self.hop_push_drops = 0
-        self.hop_times: Dict[int, List[float]] = {}
 
     @property
     def n_stages(self) -> int:
@@ -1377,7 +1405,6 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
             self._slots[slot] = rec
             for k in range(1, self.n_stages):
                 self._readmit.setdefault(k, {})[slot] = rec["sid"]
-        t0 = time.perf_counter()
         active = np.zeros((elem.slots,), np.bool_)
         tok = np.zeros((elem.slots,), np.int32)
         for slot, rec in self._slots.items():
@@ -1391,7 +1418,6 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
             torch.from_numpy(tok).to(run.device), active_t, admits0))
         outputs, run.state = self._serve_tick()(run.params, run.state,
                                                 {src: hop})
-        self.hop_times.setdefault(0, []).append(time.perf_counter() - t0)
         self.decode_ticks += 1
         run.frames += 1
         n_active = int(active.sum())
@@ -1416,13 +1442,11 @@ class StagedStreamingBatcher(StreamingQueryBatcher):
             admit = tuple((int(slot), int(sid))
                           for slot, sid in sorted(rd.items())
                           if active[slot])
-            t0 = time.perf_counter()
             ans = self._hop(k, (x, ph["active_t"]),
                             {"hop": "decode", "admit": admit, "live": live})
             if ans is None:
                 ph["k"], ph["x"] = k, x
                 return 0
-            self.hop_times.setdefault(k, []).append(time.perf_counter() - t0)
             # x is now part of stage k's committed history: retain it as
             # replay feedstock AFTER the hop (an in-flight step must not be
             # replayed into a cache it never reached).  Hop outputs are

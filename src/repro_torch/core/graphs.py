@@ -35,6 +35,9 @@ but each gets its own graph over its own state.
   on every replay.
 * A capture that fails raises :class:`GraphCaptureError`; nothing runs
   ``fn`` eagerly in its place.
+* With the tracer on (``core/trace.py``) a call's run, replay or eager,
+  with its outputs' clones is a ``graph.launch`` span, and a capture a
+  ``graph.capture`` span.
 * All graphs on a device share one memory pool.  That is safe because no
   graph reads pool memory another graph wrote: a graph's inputs and state
   live outside the pool, and its outputs are cloned out right after its
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from .buffers import tree_flatten, tree_unflatten
+from .trace import TRACER
 
 __all__ = ["GraphedCallable", "GraphCaptureError", "binding_key",
            "call_device", "write_back", "detach_outputs", "graph_stats"]
@@ -340,12 +344,18 @@ class GraphedCallable:
 
     # -- calls -----------------------------------------------------------------
     def __call__(self, params, state, *args, **static):
+        on = TRACER.on
         fp, fs, fa = tree_flatten(params), tree_flatten(state), \
             tree_flatten(args)
         dev = _device_of(fp[0] + fs[0] + fa[0])
         if self.graph_factory is None and (dev is None or
                                            dev.type != "cuda"):
-            return self.fn(params, state, *args, **static)
+            if on:
+                sp = TRACER.begin("graph.launch")
+            res = self.fn(params, state, *args, **static)
+            if on:
+                TRACER.end(sp)
+            return res
         key = _key(fp, fs, fa, static, self.donate, dev)
         b = self._bindings.get(key)
         if b is None:
@@ -360,19 +370,32 @@ class GraphedCallable:
         leaves, state_td = fs
         work = self._working_state(b, leaves)
         if b.calls == 1:
+            if on:
+                sp = TRACER.begin("graph.launch")
             res = self._body(params, work, state_td, args, static,
                              capturing=False)
-            if len(res) == 2:       # the state changed its structure
-                return res
-            return self._finish(res, clone_outputs=not self.donate)
+            if len(res) != 2:       # 2: the state changed its structure
+                res = self._finish(res, clone_outputs=not self.donate)
+            if on:
+                TRACER.end(sp)
+            return res
         if b.graph is None:
+            if on:
+                sp = TRACER.begin("graph.capture")
             self._capture(b, dev or torch.device("cpu"), params, work,
                           state_td, args, static)
+            if on:
+                TRACER.end(sp)
         else:
             _copy_into(b.args, fa[0])
+        if on:
+            sp = TRACER.begin("graph.launch")
         b.graph.replay()
         _counter_add(b.launches)
-        return self._finish(b.result, clone_outputs=True)
+        res = self._finish(b.result, clone_outputs=True)
+        if on:
+            TRACER.end(sp)
+        return res
 
     def _working_state(self, b: _Binding, state_leaves: List) -> List:
         """The state leaves ``fn`` runs on: the caller's (donated), or the

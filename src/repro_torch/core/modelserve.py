@@ -48,6 +48,7 @@ import torch
 from .buffers import StreamBuffer, tree_flatten
 from .element import Element, PipelineContext, register_element
 from .formats import Caps
+from .trace import TRACER
 
 __all__ = ["ModelServeElement", "ModelServeStageElement", "TokenPromptSrc",
            "SERVE_MODELS", "register_serve_model"]
@@ -200,11 +201,19 @@ class ModelServeElement(Element):
         """Prefill one request: prompt int[L] -> (first token int, batch-1
         decode cache on the serve device)."""
         from ..models import transformer
+        on = TRACER.on
+        if on:
+            sp = TRACER.begin("prefill.launch")
         toks = torch.as_tensor(prompt).to(device=self._device,
                                           dtype=torch.long)[None]
         logits, cache = transformer.lm_prefill(params, self.cfg, toks,
                                                self.max_seq)
-        return int(transformer.greedy(logits)[0]), cache
+        if on:
+            sp = TRACER.then(sp, "prefill.read")
+        tok = int(transformer.greedy(logits)[0])
+        if on:
+            TRACER.end(sp)
+        return tok, cache
 
     def empty_admit(self) -> StreamBuffer:
         """No-join tick: a fresh, tensor-free bundle (fresh meta dict every

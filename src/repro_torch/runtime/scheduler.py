@@ -97,6 +97,10 @@ runtime's device type.
 
 Every pipeline's tensors live on one device: the GPU unless the caller
 passes ``device="cpu"``.
+
+With the tracer on (``core/trace.py``, off by default) a tick is a
+``sched.tick`` span tiled by ``sched.clients``, ``sched.dispatch`` and
+``sched.drain``, the batchers' spans nested inside.
 """
 from __future__ import annotations
 
@@ -121,6 +125,7 @@ from ..core.query import (QueryServerEndpoint, TensorQueryClient,
                           TensorQueryServerSrc)
 from ..core.reconfig import ReconfigManager, ReconfigPlan
 from ..core.sync import PipelineClock, SimClock
+from ..core.trace import TRACER
 from ..core import compression as comp
 from ..core import netfault
 from ..device import DeviceLike, make_generator, resolve_device
@@ -865,6 +870,9 @@ class Runtime:
             self._deliver_frame(run, outputs)
 
     def tick(self):
+        on = TRACER.on
+        if on:
+            top = TRACER.begin("sched.tick")
         self.ticks += 1
         if self.fabric is not None:
             # the fault clock first: frames the network held (delay,
@@ -894,6 +902,8 @@ class Runtime:
         busy = {id(run) for run, _ in pending} | \
             {id(run) for run, _, _ in self._parked}
         fresh: List[Tuple[_PipeRun, PendingQuery]] = []
+        if on:
+            sp = TRACER.begin("sched.clients")
         for dev in self.devices:
             if not dev.alive:
                 continue
@@ -917,13 +927,24 @@ class Runtime:
                     self._run_burst(run, n)
                 else:
                     self._run_once(run)
+        if on:
+            sp = TRACER.then(sp, "sched.dispatch")
         pending.extend(self._dispatch_round(fresh))
+        if on:
+            sp = TRACER.then(sp, "sched.drain")
         self._drain_queries(pending)
+        if on:
+            TRACER.end(sp)
+            TRACER.end(top)
 
     def run(self, n_ticks: int):
         for _ in range(n_ticks):
             self.tick()
         return self
+
+    def batchers(self) -> List[QueryBatcher]:
+        """The batchers of the runtime-wired servers, in wiring order."""
+        return list(self._batchers.values())
 
     # -- stats ------------------------------------------------------------------
     def stats(self) -> Dict[str, Dict]:
