@@ -35,7 +35,9 @@ Phases, one result line each (any failure exits non-zero):
 4. serve — stablelm-1.6b at full width (24 layers, bf16, flash attention)
    behind ``serve_pipeline(slots=8, max_seq=1024)`` with 8 staggered
    clients; checks every answer, token conservation, the kernels' launch
-   counts on this run, continuous == sequential decode bitwise for every
+   counts on this run (S4 2 a layer + 1 and S5 1 a layer a prefill and a
+   decode tick, no eager norm or rotary on the card), continuous ==
+   sequential decode bitwise for every
    stream (replayed in the slot it was served in), and a small fp32 server
    on the card against the port's CPU path;
 5. (``--profile``) where one prefill and one decode tick spend device time
@@ -213,7 +215,18 @@ Phases, one result line each (any failure exits non-zero):
    256], positions up to max_seq - 1; each dtype against its plain version
    (the bf16 and fp32 limits above), timed beside SDPA and the bounds,
    with the compiled kernel's name and ptxas's registers and spills
-   (phase 3b's rows, same code).  14b, granite-20b whole
+   (phase 3b's rows, same code).  14g, S4 (``norm.cu``) and S5
+   (``rotary.cu``), the model step's norm and rotary, at granite-20b's
+   prefill and decode shapes (RMSNorm [1774, 6144] and [64, 6144]; q [1,
+   1774, 48, 128] + k [1, 1774, 1, 128] and 64 decode rows) and
+   stablelm-1.6b's prefill (LayerNorm [1020, 2048]; q, k [1, 1020, 32, 64],
+   rot 16): S5 bitwise its plain version, S4 within one bf16 ulp of it (of
+   |y| + |bias| for LayerNorm) and rows alone bitwise the same rows in the
+   batch; timed beside the plain versions (the eager expressions they
+   replaced), the bounds and ptxas; S4 also beside PyTorch's
+   ``rms_norm``/``layer_norm`` on the same f32 weights (time, ulps, and
+   whether its rows depend on the batch) and on bf16 weights.  14b,
+   granite-20b whole
    (52 layers, bf16, ``granite-20b-flash``) behind ``serve_pipeline(slots=
    8, max_seq=1024)``, phase 4's client schedule with prompts of 128–512
    tokens; 14c, gemma3-4b whole (``gemma3-4b-flash``, 34 layers LLLLLG)
@@ -222,7 +235,9 @@ Phases, one result line each (any failure exits non-zero):
    8 of 56 layers; 14e, deepseek-v2-236b at full width, the dense first
    layer and 3 MoE layers (MLA latent cache, 160 experts top-6, 2
    shared).  Each: every answer bitwise ``sequential_decode`` in its slot,
-   token conservation, K5/K6 launches by head dim and by compiled kernel
+   token conservation, S4/S5 launches a prefill and a decode tick by the
+   model's layers and no eager norm or rotary on the card, K5/K6 launches
+   by head dim and by compiled kernel
    (one a global layer a prefill and a decode tick, bf16 at 128/256 all
    on the warp-specialised prefill and the grouped-head decode; phase 4's
    head dim 64 all on the one-warpgroup prefill and the split-KV decode),
@@ -282,7 +297,10 @@ Phases, one result line each (any failure exits non-zero):
    norms, every parameter moved, the mean loss of the last 5 steps below
    the first 5's; median ms a step over steps 3-20, tokens/s, the model-
    FLOP share of the dense bf16 peak, peak GiB, one profiled step and the
-   device ms of forward + backward and of AdamW.  16b, mamba2-130m whole
+   device ms of forward + backward and of AdamW; no kernel launches (S4
+   and S5 have no backward, so its norms and rotary run the eager
+   expression, counted in ``layers.EAGER_ON_CARD`` and printed).  16b,
+   mamba2-130m whole
    at 8 x 2048 (nc = 16): 5 steps with a checkpoint at step 5 (restored
    bitwise), then a run to step 10 resumed from it whose first loss is
    bitwise the step-5 state's loss on batch 0 (a fresh iterator, as the
@@ -395,6 +413,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -661,6 +680,15 @@ def _kernel_name(mangled):
     m = re.search(r"ssd_state_scan(?:_bwd)?_kernelILb([01])E", mangled)
     if m:                                       # S2's kVec (and backward's)
         tag = "float4" if m.group(1) == "1" else "float"
+    m = re.search(r"norm_rows_kernelI(?:13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if m:       # S4's chunk and chunks a thread (not a head dim: "rows_")
+        tag = tag.partition(",D=")[0] + ",VEC={},VPT={}".format(*m.groups())
+    m = re.search(r"rotary_kernelI(?:13__nv_bfloat16|f)Li(\d+)E([ilx])E",
+                  mangled)
+    if m:                                       # S5's chunk and position type
+        tag += f",VEC={m.group(1)},pos=" + \
+            ("int32" if m.group(2) == "i" else "int64")
     names = []   # a length may follow a hex digit of a namespace's hash,
     for i in range(len(mangled)):   # so the shortest identifier wins
         m = re.match(r"\d+", mangled[i:])
@@ -1230,7 +1258,7 @@ def phase_serve(seed):
     from repro_torch.configs import stablelm_1_6b
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import model_serve as ms
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
 
     cfg = dataclasses.replace(stablelm_1_6b.config(), use_flash_attn=True)
     ms.register_serve_model("stablelm-1.6b-flash", lambda: cfg)
@@ -1244,11 +1272,13 @@ def phase_serve(seed):
         clients.append((2 * i, prompts, gens))
 
     _reset_launches()
+    eager = dict(layers.EAGER_ON_CARD)
     mark = _graph_mark()
     rt, srv, runs, wall = _serve(None, "stablelm-1.6b-flash", 8, 1024,
                                  clients, seed, max_ticks=400)
     graph = _graph_since(mark)
     launches = dict(fa.LAUNCHES)
+    all_launches = _launch_counts()
     routes = dict(fa.PREFILL_ROUTE_LAUNCHES)
     kernels = {k: v for k, v in fa.KERNEL_LAUNCHES.items() if v}
     answers = _check_answers(runs, clients, cfg.vocab, 8)
@@ -1270,6 +1300,7 @@ def phase_serve(seed):
           f"{qb['decode_ticks']}")
     check(qb["batched_frames"] > qb["decode_ticks"],
           "the decode batch was never wider than one stream")
+    norm_rope = _check_norm_rope("4a", cfg, qb, all_launches, eager)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     serve = dict(ticks=rt.ticks, wall_s=wall, prefills=qb["prefills"],
                  decode_ticks=qb["decode_ticks"],
@@ -1281,6 +1312,7 @@ def phase_serve(seed):
                  mean_active_slots=qb["batched_frames"] / qb["decode_ticks"],
                  tokens_per_s=qb["tokens_generated"] / wall,
                  peak_gib=peak_gib, launches=launches,
+                 norm_rope_launches=norm_rope,
                  prefill_route_launches=routes, kernel_launches=kernels,
                  decode_ms=[1e3 * x for x in
                             _serve_batcher(rt).decode_times], **graph)
@@ -1293,7 +1325,8 @@ def phase_serve(seed):
           f"{serve['tokens_per_s']:.1f} tokens/s, peak {peak_gib:.2f} GiB, "
           f"{graph['graphs']} graphs captured holding "
           f"{graph['graph_mib']:.1f} MiB, launches {launches}, K5 by route "
-          f"{routes}, K5/K6 by kernel {kernels}")
+          f"{routes}, K5/K6 by kernel {kernels}, S4/S5 {norm_rope} (eager "
+          f"on the card 0)")
 
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     for prompt, gen, got, slot in answers:
@@ -1542,11 +1575,11 @@ def _client_frames(codec, i, ticks, device):
 
 
 def _kernel_modules():
-    from repro_torch.kernels import (flash_attn, quant8, rglru_scan,
-                                     sparse_dec, sparse_enc, ssd_decode,
-                                     ssd_scan)
+    from repro_torch.kernels import (flash_attn, norm, quant8, rglru_scan,
+                                     rotary, sparse_dec, sparse_enc,
+                                     ssd_decode, ssd_scan)
     return (flash_attn, quant8, sparse_enc, sparse_dec, rglru_scan,
-            ssd_scan, ssd_decode)
+            ssd_scan, ssd_decode, norm, rotary)
 
 
 def _launch_counts():
@@ -3303,12 +3336,15 @@ def _cache_leaves(cache):
     return tree_flatten(cache["layers"])[0]
 
 
-def _replay_probe(elem, params, cfg, seed):
+def _replay_probe(elem, params, seed):
     """On the card: one parked stream's decode step at batch 1 against
     the replay step (the serve batch, in the stream's slot row) and the
-    hop's row.  -> (batch 1 == hop row, replay == hop row)"""
+    hop's row, all three under the stage element's own config (its flash
+    gate too: the hop and the replay run the same attention).  -> (batch 1
+    == hop row, replay == hop row)"""
     import torch
     from repro_torch.models import transformer
+    cfg = elem.cfg
     dev = params["layers"][0]["norm1"]["scale"].device
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = transformer.L.torch_dtype(cfg.dtype)
@@ -3401,8 +3437,7 @@ def _phase_staged_failover(seed):
     check(standby_b.replay_steps == st["stage_replay_steps"] and
           standby_b.decode_hops > 0, "11b: the standby served no replay")
     b1_same, replay_same = _replay_probe(
-        stages[-1][1].pipe.elements["lm"], stages[-1][1].params["lm"], cfg,
-        seed)
+        stages[-1][1].pipe.elements["lm"], stages[-1][1].params["lm"], seed)
     check(replay_same, "11b: a replay step != the decode hop's row")
     k = STAGE_KILL_TICK - 1
     row = dict(streams=len(clients), slotted_at_kill=at["slotted"],
@@ -4596,6 +4631,45 @@ def _flash_layers(cfg):
     return sum(cfg.kind(i) == "G" for i in range(cfg.n_layers))
 
 
+def _norm_rope_per_forward(cfg):
+    """-> (S4, S5) launches of one prefill or one decode tick of ``cfg``'s
+    decoder: a norm before each mixer and before each MLP (an SSD block
+    has none), one before the head; an MLA layer adds its latent's norm
+    (and its query's, under ``q_lora_rank``) and rotates its query and key
+    parts apart, every other attention layer its q and k in one S5."""
+    from repro_torch.kernels.rotary import rotated_dims
+    norms, rotary = 1, 0
+    rot = int(rotated_dims(cfg.resolved_head_dim, cfg.rope_frac) > 0)
+    for i in range(cfg.n_layers):
+        kind = cfg.kind(i)
+        norms += 1 if kind == "S" else 2
+        if kind in ("S", "R"):
+            continue
+        if cfg.mla:
+            norms += 1 + bool(cfg.q_lora_rank)
+            rotary += 2
+        else:
+            rotary += rot
+    return norms, rotary
+
+
+def _check_norm_rope(tag, cfg, qb, launches, eager):
+    """S4/S5 launches of a serve run: :func:`_norm_rope_per_forward` a
+    prefill and a decode tick, and no eager norm or rotary on the card
+    (``eager``: ``layers.EAGER_ON_CARD`` before the run) -> the counts."""
+    from repro_torch.models import layers
+    per = _norm_rope_per_forward(cfg)
+    forwards = qb["prefills"] + qb["decode_ticks"]
+    got = {k: launches[k] for k in ("norm", "rotary")}
+    want = {"norm": per[0] * forwards, "rotary": per[1] * forwards}
+    check(got == want, f"{tag}: S4/S5 launches {got}, expected {want} "
+                       f"({per} a prefill or decode tick)")
+    check(layers.EAGER_ON_CARD == eager,
+          f"{tag}: the eager norm or rotary ran on the card: "
+          f"{layers.EAGER_ON_CARD} (before the run {eager})")
+    return got
+
+
 def _zoo_kernel_shapes():
     """14a's K5 and K6 tables (see K5_FULL), from the serve phases that run
     K5/K6: K5 at each head count, kv groups and head dim at the lengths
@@ -4628,6 +4702,164 @@ def _phase_zoo_kernels(seed, ptxas):
     g = torch.Generator(device="cuda").manual_seed(seed + 14)
     return _kernel_rows("14a", *_zoo_kernel_shapes(), g,
                         np.random.default_rng(seed + 14), ptxas)
+
+
+#: 14g: S4 at granite-20b's prefill and decode norms (a 1774-token mean
+#: prompt, 64 slots) and stablelm-1.6b's prefill norm (LayerNorm), as
+#: (rows, d, layernorm); S5 at the same steps' q and k, as (batch, seq, q
+#: heads, k heads, head dim, arch)
+NORM_SHAPES = {"granite prefill": (1774, 6144, False),
+               "granite decode": (64, 6144, False),
+               "stablelm prefill": (1020, 2048, True)}
+ROTARY_SHAPES = {"granite prefill": (1, 1774, 48, 1, 128, "granite-20b"),
+                 "granite decode": (64, 1, 48, 1, 128, "granite-20b"),
+                 "stablelm prefill": (1, 1020, 32, 32, 64, "stablelm-1.6b")}
+
+
+def _norm_ulps(a, b, bias=None):
+    """Largest |a - b| in bf16 last places of b, or with a LayerNorm's
+    ``bias`` of |b| + |bias| (where the normalised term and the bias
+    cancel, the statistics' f32 rounding is many last places of a
+    near-zero output, though under one of the terms that were added)."""
+    import torch
+    m = b.float().abs() if bias is None else b.float().abs() + bias.abs()
+    step = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    return ((a.float() - b.float()).abs() / step).max().item()
+
+
+def _norm_row(rng, n, d, ln, ptxas, device="cuda"):
+    """S4 at [n, d] bf16 against its plain version (within one bf16 ulp),
+    rows alone == in the batch bitwise; timed beside the plain version,
+    PyTorch's ``rms_norm``/``layer_norm`` on the same f32 scale and bias
+    (its last places and whether its rows depend on the batch, measured)
+    and with bf16 weights, the bounds and ptxas."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import norm as kn
+    x = (torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32)) * 2
+         + 0.3).to(device, torch.bfloat16)
+    scale = torch.as_tensor(1 + 0.1 * rng.standard_normal(d).astype(
+        np.float32), device=device)
+    bias = torch.as_tensor(0.5 * rng.standard_normal(d).astype(np.float32),
+                           device=device) if ln else None
+    y, want = kn.norm(x, scale, bias), ref.norm_plain(x, scale, bias)
+    ulps = _norm_ulps(y, want, bias)
+    err = (y.float() - want.float()).abs().max().item()
+    what = f"S4 {'LayerNorm' if ln else 'RMSNorm'} [{n}, {d}]"
+    check(ulps <= 1.0, f"{what}: {ulps:.2f} bf16 ulps off its plain version")
+    cuts = ((0, 1), (n // 3, n // 3 + 5), (n - 1, n))
+    for lo, hi in cuts:
+        same_bits(kn.norm(x[lo:hi], scale, bias), y[lo:hi],
+                  f"{what} rows {lo}:{hi} alone vs in the batch")
+
+    def library(rows, w, b):
+        return F.layer_norm(rows, (d,), w, b, 1e-5) if ln else \
+            F.rms_norm(rows, (d,), w, 1e-6)
+    w16, b16 = scale.to(x.dtype), None if bias is None else bias.to(x.dtype)
+    vec = d % 8 == 0
+    need = -(-(d // 8 if vec else d) // 256)
+    vpt = next((v for v in (1, 2, 3, 4) if need <= v), 8)
+    row = dict(
+        x=[n, d], dtype="bfloat16", layernorm=ln, ulps=ulps,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: kn.norm(x, scale, bias)),
+        plain_ms=cuda_ms(lambda: ref.norm_plain(x, scale, bias)),
+        library="torch.nn.functional." + ("layer_norm" if ln else "rms_norm")
+        + ", f32 weights", library_ms=None,
+        ptxas=_ptxas_regs(ptxas, "norm", "norm_rows_kernel", "bf16",
+                          f"VEC={8 if vec else 1}", f"VPT={vpt}"),
+        **cost.bound(cost.norm(n, d, x.dtype, ln)))
+    # PyTorch's norm on the port's f32 weights: it may refuse them, or fall
+    # back from its fused kernel with a warning; both are recorded
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        try:
+            lib_y = library(x, scale, bias)
+        except RuntimeError as e:
+            lib_y, row["library_refused"] = None, str(e)
+    if said:
+        row["library_warning"] = str(said[0].message)
+    if lib_y is not None:
+        row.update(
+            library_ms=cuda_ms(lambda: library(x, scale, bias)),
+            library_ulps=_norm_ulps(lib_y, want, bias),
+            library_rows_alone_bitwise=all(
+                torch.equal(library(x[lo:hi], scale, bias), lib_y[lo:hi])
+                for lo, hi in cuts))
+    row["library_bf16_weights_ms"] = cuda_ms(lambda: library(x, w16, b16))
+    return row
+
+
+def _rotary_row(rng, b, s, hq, hk, hd, arch, ptxas, device="cuda"):
+    """S5 on a layer's q [b, s, hq, hd] and k [b, s, hk, hd] (bf16, the
+    arch's rope_frac and theta; positions 0..s-1, or drawn up to 8191 for
+    a decode row) bitwise its plain version on each; timed beside the plain
+    version run on both, the bounds and ptxas.  No single PyTorch call
+    computes it, so it has no library time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import rotary as kr
+    cfg = get_config(arch)
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(
+            np.float32)).to(device, torch.bfloat16)
+    q, k = randn(b, s, hq, hd), randn(b, s, hk, hd)
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None] if s > 1 \
+        else torch.as_tensor(rng.integers(0, 8192, (b, 1)).astype(np.int32),
+                             device=device)
+    rope = (pos, cfg.rope_frac, cfg.rope_theta)
+    got = kr.rotary(q, k, *rope)
+    for t, out, name in ((q, got[0], "q"), (k, got[1], "k")):
+        same_bits(out, ref.rotary_plain(t, *rope),
+                  f"S5 {arch} {name} {list(t.shape)}")
+    rot = kr.rotated_dims(hd, cfg.rope_frac)
+    return dict(
+        q=[b, s, hq, hd], k=[b, s, hk, hd], rot=rot, dtype="bfloat16",
+        bitwise=True, max_abs_err=0.0,
+        ms=cuda_ms(lambda: kr.rotary(q, k, *rope)),
+        plain_ms=cuda_ms(lambda: (ref.rotary_plain(q, *rope),
+                                  ref.rotary_plain(k, *rope))),
+        library_ms=None,
+        ptxas=_ptxas_regs(ptxas, "rotary", "rotary_kernel", "bf16", "VEC=8",
+                          "pos=int32"),
+        **cost.bound(cost.rotary(b, s, hq + hk, hd, rot, q.dtype, 2)))
+
+
+def _phase_norm_rope_kernels(seed, ptxas, device="cuda"):
+    """14g: S4 and S5, the model step's norm and rotary kernels, at the
+    shapes granite-20b's and stablelm-1.6b's serve steps give them
+    (NORM_SHAPES, ROTARY_SHAPES): S5 bitwise its plain version, S4 within
+    one bf16 ulp of it with rows independent of the batch; each timed
+    beside its plain version (the eager expression it replaced), S4 beside
+    PyTorch's own norm, and the bounds.  ``device="cpu"`` rehearses the
+    phase on the plain routes."""
+    rng = np.random.default_rng(seed + 147)
+    rows = {}
+    for name, shape in NORM_SHAPES.items():
+        rows[f"S4 {name}"] = _norm_row(rng, *shape, ptxas, device)
+    for name, shape in ROTARY_SHAPES.items():
+        rows[f"S5 {name}"] = _rotary_row(rng, *shape, ptxas, device)
+    for name, r in rows.items():
+        if name.startswith("S5"):
+            what = f"rot {r['rot']} of {r['q'][-1]}, bitwise"
+        else:
+            lib = f"refused ({r['library_refused']})" \
+                if r["library_ms"] is None else \
+                (f"{r['library_ms']:.4f} ms, {r['library_ulps']:.2f} ulps, "
+                 f"rows alone "
+                 f"{'==' if r['library_rows_alone_bitwise'] else '!='} in "
+                 f"the batch" + (" (not fused: PyTorch's warning)"
+                                 if "library_warning" in r else ""))
+            what = (f"{r['ulps']:.2f} ulps; {r['library']} {lib}; on bf16 "
+                    f"weights {r['library_bf16_weights_ms']:.4f} ms")
+        print(f"phase 14g {name} {r.get('x') or [r['q'], r['k']]}: kernel "
+              f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%} of the "
+              f"{r['bound_by']} bound {r['bound_ms']:.5f} ms), plain "
+              f"{r['plain_ms']:.4f} ms; {what}; ptxas {r['ptxas']}")
+    return rows
 
 
 def _zoo_clients(seed, vocab, prompt_range):
@@ -4705,12 +4937,14 @@ def _phase_zoo_serve(tag, seed):
     from repro_torch.core.buffers import tree_flatten
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import model_serve as ms
+    from repro_torch.models import layers
     from repro_torch.models import moe as MOE
     preset, max_seq, prange = {**ZOO_SERVE, **SSD_SERVE}[tag]
     cfg = ms.SERVE_MODELS[preset]()
     clients = _zoo_clients(seed, cfg.vocab, prange)
     _free_card()
     _reset_launches()
+    eager = dict(layers.EAGER_ON_CARD)
     mark = _graph_mark()
     t0 = time.perf_counter()
     rt, srv, runs, wall = _serve(None, preset, 8, max_seq, clients, seed,
@@ -4746,6 +4980,7 @@ def _phase_zoo_serve(tag, seed):
             "ssd_decode": n_ssd * qb["decode_ticks"]}
     check(ssd == want, f"{tag} {preset}: S2/S3 launches {ssd}, expected "
                        f"{want}")
+    norm_rope = _check_norm_rope(f"{tag} {preset}", cfg, qb, launches, eager)
     params, ecfg = srv.params["lm"], srv.pipe.elements["lm"].cfg
     weight_gb = sum(t.numel() * t.element_size()
                     for t in tree_flatten(params)[0]) / 1e9
@@ -4781,7 +5016,8 @@ def _phase_zoo_serve(tag, seed):
           f"{row['tokens_per_s']:.1f} tokens/s; weights {weight_gb:.2f} GB,"
           f" peak {peak_gib:.2f} GiB; {graph['graphs']} graphs; K5/K6 "
           f"launches by head dim {by_dim}, by kernel {by_kernel}" +
-          (f"; S2/S3 launches {ssd}" if n_ssd else ""))
+          (f"; S2/S3 launches {ssd}" if n_ssd else "") +
+          f"; S4/S5 launches {norm_rope}, eager on the card 0")
     row["profile"] = _zoo_profile(tag, srv.pipe.elements["lm"], params, ecfg,
                                   seed)
     drops = []
@@ -4924,6 +5160,9 @@ def phase_zoo(seed, ptxas):
     t0 = time.perf_counter()
     rows["14a"] = _phase_zoo_kernels(seed, ptxas)
     print(f"phase 14a wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["14g"] = _phase_norm_rope_kernels(seed, ptxas)
+    print(f"phase 14g wall {time.perf_counter() - t0:.1f} s")
     for tag in ZOO_SERVE:
         rows[tag] = _phase_zoo_serve(tag, seed)
         print(f"phase {tag} wall {rows[tag]['phase_s']:.1f} s")
@@ -4936,6 +5175,11 @@ def phase_zoo(seed, ptxas):
             for k, v in rows[tag][key].items():
                 counts[k] = counts.get(k, 0) + v
         rows[key] = counts
+    # S4/S5 on 14b-14e's serve path, by preset
+    rows["launches_norm_rope"] = {
+        ZOO_SERVE[tag][0]: {k: rows[tag]["launches"][k]
+                            for k in ("norm", "rotary")}
+        for tag in ZOO_SERVE}
     return rows
 
 
@@ -5405,13 +5649,15 @@ def _phase_train_lm(seed):
     from repro_torch.device import make_generator
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, layers
     from repro_torch.optim import adamw_update
     _free_card()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    before = dict(layers.EAGER_ON_CARD)
     run = train.run(_train_argv(TRAIN_LM))
     launches = _launch_counts()
+    eager = {k: v - before[k] for k, v in layers.EAGER_ON_CARD.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _check_trained(run, "16a")
     cfg = get_config(TRAIN_LM["arch"])
@@ -5423,11 +5669,13 @@ def _phase_train_lm(seed):
                       f"parameter leaves did not move")
     del init
     check(not any(launches.values()), f"16a: a kernel ran where none is on "
-                                      f"the path (no flash, no scan): "
-                                      f"{launches}")
+                                      f"the path (no flash, no scan, and "
+                                      f"S4/S5 have no backward): {launches}")
+    check(all(eager.values()), f"16a: the norms and rotary of a train step "
+                               f"did not take the eager expression: {eager}")
     row = _train_row(run, TRAIN_LM["batch"], TRAIN_LM["seq"], model, "16a")
     row.update(peak_gib=peak, params=model.param_count(run.params),
-               n_active=model.active_param_count())
+               n_active=model.active_param_count(), eager_on_card=eager)
     step = ST.make_train_step(model, total_steps=TRAIN_LM["steps"])
     tokens = next(make_train_iterator(vocab=cfg.vocab,
                                       global_batch=TRAIN_LM["batch"],
@@ -5461,7 +5709,11 @@ def _phase_train_lm(seed):
           f"{row['step_ms_median']:.1f} ms/step (steps 3-20, host clock), "
           f"{row['tokens_per_s']:.0f} tokens/s, model-FLOP share "
           f"{row['model_flop_share']:.1%} of 989 TFLOP/s dense bf16 (6 N "
-          f"with N = {row['n_active'] / 1e9:.3f} B), peak {peak:.2f} GiB")
+          f"with N = {row['n_active'] / 1e9:.3f} B), peak {peak:.2f} GiB; "
+          f"eager norm / rotary calls on the card (S4/S5 have no backward) "
+          f"{eager['norm']} / {eager['rotary']}, "
+          f"{eager['norm'] / TRAIN_LM['steps']:.0f} / "
+          f"{eager['rotary'] / TRAIN_LM['steps']:.0f} a step")
     print(f"phase 16a profiled step: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms (idle {row['profile']['idle_share']:.1%}, GEMMs "
           f"{gemm:.1f} ms); forward + backward {row['fwd_bwd_ms']:.1f} ms "
@@ -5477,8 +5729,9 @@ def _phase_train_ssm(seed):
     ``launch/train.py`` at 8 x 2048 (nc = 16): 5 steps with a checkpoint
     at step 5, every restored leaf bitwise the in-memory state; then a run
     to step 10 that resumes from it, whose first loss (batch 0 again: a
-    fresh iterator, as the reference's launcher) is bitwise a forward pass
-    of the in-memory step-5 state on batch 0.  S2 launches a step: forward
+    fresh iterator, as the reference's launcher) is bitwise the loss the
+    train step computes (the gradient flowing) from the in-memory step-5
+    state on batch 0.  S2 launches a step: forward
     twice a layer (the step and remat's recomputation), backward once."""
     import shutil
     import tempfile
@@ -5486,6 +5739,7 @@ def _phase_train_ssm(seed):
     from repro_torch.checkpoint import latest_step, load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.data import make_train_iterator
+    from repro_torch.launch import steps as ST
     from repro_torch.launch import train
     from repro_torch.models import build_model
     _free_card()
@@ -5520,10 +5774,11 @@ def _phase_train_ssm(seed):
         tokens = next(make_train_iterator(
             vocab=cfg.vocab, global_batch=TRAIN_SSM["batch"],
             seq=TRAIN_SSM["seq"]))["tokens"]
-        with torch.no_grad():
-            want_loss = model.loss_stacked(
-                first.params, {"tokens": torch.as_tensor(tokens,
-                                                         device="cuda")})[0]
+        # the loss as the train step computes it, with the gradient flowing
+        # (so its norms run the eager expression: S4 has no backward)
+        (want_loss, _), _ = ST.value_and_grad(
+            model.loss_stacked, first.params,
+            {"tokens": torch.as_tensor(tokens, device="cuda")})
         want_loss = float(want_loss)
         del first
         _free_card()
@@ -7211,6 +7466,15 @@ def main(argv=None):
     rows.append(("flash_decode_gqa_f32", "flash_decode_gqa.cu",
                  "src/repro/kernels/flash_attn.py:110",
                  zoo["14a"]["K6 fp32 d=128 S=8 max_seq=1024"], f32_wide))
+    # S4 and S5 carry every norm and rotary of the model step: phase 14's
+    # serve runs count them (14b-14e), 14g times them at granite-20b's and
+    # stablelm-1.6b's shapes
+    norm_rope = {k: sum(v[k] for v in zoo["launches_norm_rope"].values())
+                 for k in ("norm", "rotary")}
+    rows.append(("norm", "norm.cu", "src/repro/models/layers.py:41",
+                 zoo["14g"]["S4 granite prefill"], norm_rope))
+    rows.append(("rotary", "rotary.cu", "src/repro/models/layers.py:63",
+                 zoo["14g"]["S5 granite prefill"], norm_rope))
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": where, "launches": launches[name],
@@ -7315,8 +7579,29 @@ def main(argv=None):
     for row in kernels[4:6]:
         row["launches_phase18"] = {
             k: v[row["name"]] for k, v in pp["launches"].items()}
-    # K5, K6, S1–S3 and S2's backward under 19a's counter (meta == card)
-    for row in kernels[4:11]:
+    for row, prefix, what in ((kernels[15], "S4", "apply_norm's"),
+                              (kernels[16], "S5", "apply_rope's")):
+        row["note"] = (f"new kernel, not a TPU port: takes the place of "
+                       f"the eager chain of {what} expression "
+                       f"(src/repro_torch/models/layers.py), which XLA "
+                       f"fuses in the JAX package")
+        row["ptxas"] = zoo["14g"][f"{prefix} granite prefill"]["ptxas"]
+        row["by_shape"] = {
+            name: {f: r[f] for f in timed + ("ptxas",)}
+            for name, r in zoo["14g"].items() if name.startswith(prefix)}
+        row["launches_phase14"] = {
+            preset: v[row["name"]]
+            for preset, v in zoo["launches_norm_rope"].items()}
+        row["launches_phase4"] = serve["norm_rope_launches"][row["name"]]
+    for name, r in zoo["14g"].items():
+        if name.startswith("S4"):
+            kernels[15]["by_shape"][name].update(
+                {k: r[k] for k in ("ulps", "library", "library_ulps",
+                                   "library_rows_alone_bitwise",
+                                   "library_refused", "library_warning",
+                                   "library_bf16_weights_ms") if k in r})
+    # K5, K6, S1–S5 and S2's backward under 19a's counter (meta == card)
+    for row in kernels[4:11] + kernels[15:17]:
         if row["name"] in dry["launches"]:
             row["launches_phase19"] = dry["launches"][row["name"]]
     if args.out:

@@ -178,13 +178,14 @@ def _copy_into(dst: List, src: List):
 # ---------------------------------------------------------------------------
 
 def _counters() -> List[Dict[str, int]]:
-    from ..kernels import (flash_attn, quant8, rglru_scan, sparse_dec,
-                           sparse_enc, ssd_decode, ssd_scan)
+    from ..kernels import (flash_attn, norm, quant8, rglru_scan, rotary,
+                           sparse_dec, sparse_enc, ssd_decode, ssd_scan)
     return [flash_attn.LAUNCHES, flash_attn.PREFILL_ROUTE_LAUNCHES,
             flash_attn.HEAD_DIM_LAUNCHES, flash_attn.KERNEL_LAUNCHES,
             quant8.LAUNCHES, sparse_enc.LAUNCHES,
             sparse_enc.ENC_ROUTE_LAUNCHES, sparse_dec.LAUNCHES,
-            rglru_scan.LAUNCHES, ssd_scan.LAUNCHES, ssd_decode.LAUNCHES]
+            rglru_scan.LAUNCHES, ssd_scan.LAUNCHES, ssd_decode.LAUNCHES,
+            norm.LAUNCHES, rotary.LAUNCHES]
 
 
 def counter_snapshot() -> List[Dict[str, int]]:

@@ -38,6 +38,8 @@ SOURCES: Dict[str, str] = {
     "rglru_scan": "rglru_scan.cu",
     "ssd_scan": "ssd_scan.cu",
     "ssd_decode": "ssd_decode.cu",
+    "norm": "norm.cu",
+    "rotary": "rotary.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -159,14 +161,19 @@ def route(name: str, device) -> str:
     raise ValueError(f"{name}: no kernel or plain version for {device}")
 
 
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and an input requires grad (``None`` entries are
+    ignored): autograd would have to pass a gradient through the call."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors):
     """Raise when autograd would have to pass a gradient through a kernel
-    that has no backward: grad mode is on and an input requires grad.
-    Without this the kernel's output (written through ctypes) would come
-    back with no ``grad_fn`` and ``backward()`` would skip it silently.
-    ``None`` entries are ignored."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    that has no backward (:func:`needs_grad`).  Without this the kernel's
+    output (written through ctypes) would come back with no ``grad_fn`` and
+    ``backward()`` would skip it silently."""
+    if needs_grad(*tensors):
         raise RuntimeError(
             f"{name}: the kernel has no backward, so it cannot run on "
             f"inputs that require grad (wrap the call in torch.no_grad() "

@@ -30,7 +30,8 @@ from ..launch.mesh import H100_BF16_FLOPS, H100_F32_FLOPS, H100_HBM_BW
 
 __all__ = ["Count", "quantize8", "dequantize8", "sparse_enc", "sparse_dec",
            "flash_attention", "flash_decode", "rglru_scan", "rglru_scan_bwd",
-           "ssd_state_scan", "ssd_state_scan_bwd", "ssd_decode", "peak_flops",
+           "ssd_state_scan", "ssd_state_scan_bwd", "ssd_decode", "norm",
+           "rotary", "peak_flops",
            "bound", "bound_ms", "book", "run_plain", "active", "COUNTERS"]
 
 
@@ -162,6 +163,33 @@ def ssd_decode(b: int, h: int, n: int, hd: int, dtype,
         + b * (2 * n + h * hd) * _size(dtype) + 2 * h * 4 \
         + (b if active else 0)
     return Count(5.0 * state, nbytes)
+
+
+def norm(rows: int, d: int, dtype, layernorm: bool = False) -> Count:
+    """S4: x [rows, d] in ``dtype`` and f32 scale (and bias) [d] read, y
+    [rows, d] written.  FLOPs by XLA's rules (one an element of each
+    elementwise op, a dtype conversion included; ``in - out`` a reduction;
+    the rsqrt a transcendental, not counted) over the expression it
+    replaces, ``ref.norm_plain``: the dry run's totals stay those of the
+    JAX package's program."""
+    size, n = _size(dtype), rows * d
+    per = (8 if layernorm else 4) + (2 if size == 2 else 0)
+    return Count(float(per * n + rows),
+                 2 * n * size + d * 4 * (2 if layernorm else 1))
+
+
+def rotary(b: int, s: int, heads: int, hd: int, rot: int, dtype,
+           tensors: int = 1, pos_size: int = 4) -> Count:
+    """S5: ``tensors`` tensors of ``heads`` heads in all, [B, S, heads, hd]
+    in ``dtype``, read and written whole, and the positions [B, S] read
+    once.  FLOPs by XLA's rules over ``ref.rotary_plain`` run once a tensor
+    (as :func:`norm`): four products, a difference and a sum a pair, the
+    rounding to bf16, and each call's angle table."""
+    size = _size(dtype)
+    per = 3 + (1 if size == 2 else 0)
+    table = b * s + b * s * (rot // 2) + 3 * (rot // 2)
+    return Count(float(b * s * heads * rot * per + tensors * table),
+                 2 * b * s * heads * hd * size + b * s * pos_size)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// VEC consecutive elements from ``p`` into ``v`` (and back): one 16-byte
+// access when VEC elements fill 16 bytes (``p`` then 16-byte aligned, the
+// caller's check), element by element otherwise.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[VEC]) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = p[i];
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[VEC]) {
+  if constexpr (sizeof(T) * VEC == 16) {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) p[i] = v[i];
+  }
+}
+
 // Asynchronous global -> shared copies (cp.async, sm_80+), in commit groups.
 // ``cp_async16`` copies 16 bytes, or writes 16 zero bytes when ``full`` is
 // false (src-size 0: nothing is read, so ``src`` need only be a valid

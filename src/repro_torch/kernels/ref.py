@@ -19,6 +19,9 @@
   ``ssd_state_scan_bwd_plain``): explicit reverse loops with the backward
   kernels' arithmetic, where the JAX package differentiates
   ``associative_scan`` and ``lax.scan`` itself.
+* The plain versions of the model step's norm and rotary kernels, S4
+  (``norm_plain``) and S5 (``rotary_plain``): the expressions of
+  ``models/layers.py``, which the JAX package writes the same way.
 * Full-softmax attention (``attn_ref``, ``attn_decode_ref``): they
   materialize the whole score tensor in f32 — the thing the flash kernels
   exist to avoid — and serve as the oracles the flash kernels and their
@@ -255,3 +258,42 @@ def ssd_decode_step_plain(h: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         hnew = torch.where(active[:, None, None, None], hnew, h)
     y = torch.einsum("bn,bhnd->bhd", C.float(), hnew)
     return hnew, y + D[None, :, None] * xh
+
+
+def norm_plain(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of S4: x [..., d] -> y in x's dtype, statistics in
+    f32 with f32 ``scale`` (and ``bias``) [d]: RMSNorm (eps 1e-6) without
+    ``bias``, LayerNorm (eps 1e-5) with it (``models/layers.py``
+    ``apply_norm``'s expression, as the JAX package writes it)."""
+    xf = x.float()
+    if bias is not None:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5) * scale + bias
+    else:
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+        y = y * scale
+    return y.to(x.dtype)
+
+
+def rotary_plain(x: torch.Tensor, positions: torch.Tensor, rope_frac: float,
+                 theta: float) -> torch.Tensor:
+    """The plain version of S5: x [B, S, H, hd]; positions [B, S] absolute.
+    Rotates the leading ``rope_frac`` of hd in interleaved pairs (partial
+    rotary); ``models/layers.py``'s expression, as the JAX package writes
+    it."""
+    hd = x.shape[-1]
+    rot = int(hd * rope_frac) // 2 * 2
+    if rot == 0:
+        return x
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=x.device) / rot
+    freqs = 1.0 / (theta ** exps)                                  # [rot/2]
+    ang = positions[..., None].float() * freqs                     # [B,S,r/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)

@@ -7,7 +7,10 @@ embedding.
 Port of ``src/repro/models/layers.py`` (MLA lives in ``mla.py``).
 Parameters are plain dicts of tensors keyed exactly as in the JAX package
 (``attn/wq``, ``norm1/scale``, ...).  Compute dtype follows ``cfg.dtype``;
-norms and RoPE angles run in f32, attention logits and softmax in f32
+norms and RoPE angles run in f32 (kernels S4 and S5 on the card, one launch
+a norm and one for a layer's q and k; their plain versions, the
+expressions as they were, on the CPU and wherever a gradient must flow
+through them), attention logits and softmax in f32
 unless ``attn_f32_logits=False`` (bf16 logits, f32 softmax rounded back to
 bf16, as the JAX ``_sdpa``); ``attn_additive_mask`` adds a -1e30 causal
 bias in place of the boolean select in prefill.
@@ -38,8 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.formats import TORCH_DTYPES
+from ..kernels.build import needs_grad
 from ..kernels.flash_attn import flash_attention, flash_decode
-from ..kernels.ref import NEG_INF
+from ..kernels.norm import norm
+from ..kernels.ref import NEG_INF, norm_plain, rotary_plain
+from ..kernels.rotary import rotary, rotated_dims
 from .config import ModelConfig
 
 
@@ -101,36 +107,46 @@ def embed_init(g, cfg: ModelConfig, device) -> Dict:
 # norms, RoPE
 # ---------------------------------------------------------------------------
 
+#: how often the eager norm and rotary expressions ran on a CUDA tensor
+#: (where a gradient must flow through them; every other call on the card
+#: is a launch of S4 or S5)
+EAGER_ON_CARD: Dict[str, int] = {"norm": 0, "rotary": 0}
+
+
+def _eager(name: str, x: torch.Tensor):
+    if x.is_cuda:
+        EAGER_ON_CARD[name] += 1
+
+
 def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
-    if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
-    else:
-        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
-        y = y * p["scale"]
-    return y.to(x.dtype)
+    """RMSNorm, or LayerNorm under ``cfg.norm == "layernorm"``: kernel S4
+    (``kernels/norm.py``; its plain version on the CPU), or the eager
+    expression where a gradient must flow through it."""
+    bias = p["bias"] if cfg.norm == "layernorm" else None
+    if needs_grad(x, p["scale"], bias):
+        _eager("norm", x)
+        return norm_plain(x, p["scale"], bias)
+    return norm(x, p["scale"], bias)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_frac: float,
                theta: float) -> torch.Tensor:
     """x [B, S, H, hd]; positions [B, S] absolute.  Rotates the leading
-    ``rope_frac`` of hd in interleaved pairs (partial rotary)."""
-    hd = x.shape[-1]
-    rot = int(hd * rope_frac) // 2 * 2
-    if rot == 0:
-        return x
-    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=x.device) / rot
-    freqs = 1.0 / (theta ** exps)                                  # [rot/2]
-    ang = positions[..., None].float() * freqs                     # [B,S,r/2]
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    xr, xp = x[..., :rot], x[..., rot:]
-    x1, x2 = xr[..., 0::2], xr[..., 1::2]
-    y1 = x1 * cos - x2 * sin
-    y2 = x2 * cos + x1 * sin
-    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
-    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+    ``rope_frac`` of hd in interleaved pairs (partial rotary): kernel S5
+    (``kernels/rotary.py``), or the eager expression where a gradient must
+    flow through it."""
+    return rope_pair(x, None, positions, rope_frac, theta)[0]
+
+
+def rope_pair(q: torch.Tensor, k: Optional[torch.Tensor],
+              positions: torch.Tensor, rope_frac: float, theta: float):
+    """:func:`apply_rope` of q and of k (or None), one S5 launch for both."""
+    if rotated_dims(q.shape[-1], rope_frac) and needs_grad(q, k):
+        _eager("rotary", q)
+        return tuple(None if t is None else
+                     rotary_plain(t, positions, rope_frac, theta)
+                     for t in (q, k))
+    return rotary(q, k, positions, rope_frac, theta)
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +159,8 @@ def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_frac,
-                   cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_frac,
-                   cfg.rope_theta)
+    q, k = rope_pair(q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
+                     positions, cfg.rope_frac, cfg.rope_theta)
     return q, k, v.reshape(b, s, kv, hd)
 
 

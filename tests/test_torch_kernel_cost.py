@@ -28,8 +28,10 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels import norm as kn
 from repro_torch.kernels import quant8 as kq
 from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import rotary as kr
 from repro_torch.kernels import sparse_dec as kd
 from repro_torch.kernels import sparse_enc as ke
 from repro_torch.kernels import ssd_decode as sd
@@ -41,7 +43,7 @@ from repro_torch.launch.mesh import make_host_mesh, set_mesh
 from repro_torch.models.model import build_model
 
 torch.set_num_threads(2)
-MODULES = (kq, ke, kd, fa, rs, ss, sd)
+MODULES = (kq, ke, kd, fa, rs, ss, sd, kn, kr)
 
 
 def _launches():
@@ -107,6 +109,14 @@ WRAPPERS = {
                        cost.ssd_state_scan(2, 3, 4, 8, 16, True)),
     "ssd_decode": (sd.ssd_decode_step, _s3_args(torch.bfloat16), {},
                    cost.ssd_decode(3, 4, 8, 16, torch.bfloat16, True)),
+    "norm": (kn.norm, (_rand(3, 5, 64, dtype=torch.bfloat16), _rand(64),
+                       _rand(64)), {},
+             cost.norm(15, 64, torch.bfloat16, layernorm=True)),
+    "rotary": (kr.rotary, (_rand(2, 7, 4, 32, dtype=torch.bfloat16),
+                           _rand(2, 7, 2, 32, dtype=torch.bfloat16),
+                           torch.arange(7, dtype=torch.int32)[None]
+                           .expand(2, 7).contiguous(), 0.5, 10000.0), {},
+               cost.rotary(2, 7, 6, 32, 16, torch.bfloat16, 2)),
 }
 
 
@@ -184,6 +194,8 @@ PERF_BOUNDS = {
     "S1": (cost.rglru_scan(1, 3000, 4096), 0.04402),
     "S2": (cost.ssd_state_scan(1, 16, 24, 128, 64), 0.00775),
     "S3": (cost.ssd_decode(8, 24, 128, 64, torch.bfloat16), 0.00378),
+    "S4": (cost.norm(1774, 6144, torch.bfloat16), 0.01302),
+    "S5": (cost.rotary(1, 1774, 49, 128, 128, torch.bfloat16, 2), 0.01329),
     "S1 bwd": (cost.rglru_scan_bwd(2, 2048, 4096), 0.10016),
     "S2 bwd": (cost.ssd_state_scan_bwd(8, 16, 24, 128, 64, True, True,
                                        False), 0.09203),
@@ -268,11 +280,13 @@ def test_full_width_combos_trace_on_the_one_card_mesh(arch, shape, over):
     if over:
         k5 = cost.flash_attention(1024, 32768, 32768, 64, 64, 1, True,
                                   torch.bfloat16)
-        assert kern == {"flash_attention": cfg.n_layers}
+        assert kern == {"flash_attention": cfg.n_layers,
+                        "norm": 2 * cfg.n_layers + 1,
+                        "rotary": cfg.n_layers}
         assert rec["roofline"]["compute_peak"] == "bf16"
         assert rec["scanned_cost_raw"]["flops"] > cfg.n_layers * k5.flops
     if arch == "mamba2-130m":
-        assert kern == {"ssd_decode": cfg.n_layers}
+        assert kern == {"ssd_decode": cfg.n_layers, "norm": cfg.n_layers + 1}
 
 
 def test_flash_prefill_books_the_k5_count_of_its_shape():
