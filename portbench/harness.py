@@ -15,7 +15,31 @@ and capture its graph); the window then calls ``Runtime.tick()`` for
 Everything of one configuration, one cell or one per-layer metric is a
 file found by name: ``configs/<config>.json`` (through ``BENCHMARK.json``),
 ``workloads/<cell>.json``, ``metrics/<metric>.py`` and
-``references/<reference>.py``.
+``references/<reference>.py``.  So a cell of another kind of model comes
+as new files alone:
+
+* **The configuration file** names the program's serve preset
+  (``port.preset``; with ``port.arch`` and ``port.overrides`` the harness
+  registers it where the program has no preset of that name) and states
+  the widths in Hugging Face's key names.  :func:`serve_preset` holds the
+  preset to every key of :data:`_PORT_FIELDS` that the file states, and
+  to each ``port.fields`` entry (a ``ModelConfig`` field and its value).
+  Every file states :data:`_REQUIRED`, and :data:`_UNLESS_MLA` unless it
+  states ``kv_lora_rank``.  A preset may depart from a dense
+  global-attention flash decoder only in what the file states: routed
+  experts with ``n_routed_experts``, latent attention with
+  ``kv_lora_rank``, a layer pattern other than ``"G"`` or a window with
+  ``sliding_window`` or ``port.fields.layer_pattern``, a logit softcap with
+  ``port.fields.logit_softcap``, flash attention off with
+  ``port.fields.use_flash_attn: false``.
+* **The weights**: :func:`draw_weights` draws vectors, the embedding
+  table, ``[d_in, d_out]`` matrices, and two kinds of rank-3 leaf at their
+  fan-in's scale: routed experts' stacks ``[E, d_in, d_out]`` and latent
+  attention's head tensors ``[fan_in, heads, d]``.  Any other leaf raises.
+* **A per-layer metric** that sets ``PROGRAM_TRACE = True`` in its module
+  turns the program's tracer (``repro_torch.core.trace``) on for the
+  window of a ``--trace 1`` run and reads what it recorded, tick by tick,
+  in :attr:`Reading.trace`.  Without such a metric the tracer stays off.
 """
 from __future__ import annotations
 
@@ -131,8 +155,9 @@ def load_reference(cell: Cell):
 # the program
 # ---------------------------------------------------------------------------
 
-#: the configuration file's keys and the program's ModelConfig fields that
-#: must agree, so that the preset serves what the file states
+#: the configuration file's keys (Hugging Face's names) and the program's
+#: ModelConfig fields that must agree, so that the preset serves what the
+#: file states; each is compared where the file states it
 _PORT_FIELDS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
                 "num_attention_heads": "n_heads",
                 "num_key_value_heads": "n_kv_heads", "head_dim": "head_dim",
@@ -140,30 +165,79 @@ _PORT_FIELDS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
                 "norm": "norm", "mlp_glu": "mlp_glu",
                 "rope_theta": "rope_theta", "rope_fraction": "rope_frac",
                 "attention_bias": "qkv_bias",
-                "tie_word_embeddings": "tie_embeddings", "dtype": "dtype"}
+                "tie_word_embeddings": "tie_embeddings", "dtype": "dtype",
+                # routed experts and latent attention (DeepSeek-V2's and
+                # Mixtral's config.json)
+                "n_routed_experts": "n_experts",
+                "num_experts_per_tok": "top_k",
+                "n_shared_experts": "n_shared_experts",
+                "moe_intermediate_size": "d_ff_expert",
+                "first_k_dense_replace": "first_dense",
+                "kv_lora_rank": "kv_lora_rank", "q_lora_rank": "q_lora_rank",
+                "qk_nope_head_dim": "qk_nope_dim",
+                "qk_rope_head_dim": "qk_rope_dim",
+                "v_head_dim": "v_head_dim", "sliding_window": "window"}
+#: keys every configuration file states
+_REQUIRED = ("num_hidden_layers", "hidden_size", "num_attention_heads",
+             "intermediate_size", "vocab_size", "norm", "act", "mlp_glu",
+             "rope_theta", "tie_word_embeddings", "dtype")
+#: keys every file states unless it states ``kv_lora_rank`` (latent
+#: attention has no key/value heads of its own)
+_UNLESS_MLA = ("num_key_value_heads", "head_dim", "rope_fraction",
+               "attention_bias")
 _ACTS = {"silu": "silu", "gelu_tanh": "gelu"}
+
+
+def _unstated(mc, config: dict, fields: dict) -> List[str]:
+    """How preset ``mc`` departs from a dense global-attention flash
+    decoder where the file does not state it."""
+    kinds = {
+        "routed experts": (mc.n_experts, "n_routed_experts" in config),
+        "latent attention": (mc.mla, "kv_lora_rank" in config),
+        "a layer pattern or window": (
+            mc.layer_pattern != "G" or mc.window is not None,
+            "sliding_window" in config or "layer_pattern" in fields),
+        "a logit softcap": (mc.logit_softcap, "logit_softcap" in fields),
+        "flash attention off": (not mc.use_flash_attn,
+                                fields.get("use_flash_attn") is False)}
+    return [k for k, (serves, stated) in kinds.items()
+            if serves and not stated]
 
 
 def serve_preset(config: dict) -> str:
     """Register the configuration's serve preset with the program where it
     is not one of the program's own, and check that it serves the
-    configuration's widths and equations."""
+    configuration's widths and equations (the module docstring's rules)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import model_serve as ms
+    from repro_torch.models.config import ModelConfig
     port = config["port"]
     key = port["preset"]
+    required = _REQUIRED + (() if "kv_lora_rank" in config else _UNLESS_MLA)
+    missing = [k for k in required if k not in config]
+    if missing:
+        raise ValueError(f"the configuration file of preset {key!r} does "
+                         f"not state {missing}")
+    fields = port.get("fields", {})
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    if set(fields) - known:
+        raise ValueError(f"port.fields names {sorted(set(fields) - known)}, "
+                         f"which ModelConfig lacks")
     if key not in ms.SERVE_MODELS:
         base = dataclasses.replace(get_config(port["arch"]),
                                    **port.get("overrides", {}))
         ms.register_serve_model(key, lambda: base)
     mc = ms.SERVE_MODELS[key]()
     diff = {k: (config[k], getattr(mc, f)) for k, f in _PORT_FIELDS.items()
-            if config[k] != getattr(mc, f)}
+            if k in config and config[k] != getattr(mc, f)}
+    diff.update({f: (v, getattr(mc, f)) for f, v in fields.items()
+                 if v != getattr(mc, f)})
     if _ACTS[config["act"]] != mc.act:
         diff["act"] = (config["act"], mc.act)
-    if mc.layer_pattern != "G" or mc.n_experts or mc.mla or \
-            mc.logit_softcap or not mc.use_flash_attn:
-        diff["kind"] = "not a dense global-attention flash decoder"
+    unstated = _unstated(mc, config, fields)
+    if unstated:
+        diff["kind"] = (f"not a dense global-attention flash decoder, and "
+                        f"the file does not state {', '.join(unstated)}")
     if diff:
         raise ValueError(f"preset {key!r} departs from the configuration "
                          f"file: {diff}")
@@ -181,12 +255,23 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
+#: rank-3 leaves by the last two parts of their path, and the axis of
+#: their fan-in: routed experts' stacks ``[E, d_in, d_out]``
+#: (``models/moe.py`` ``_expert_weights``) and latent attention's head
+#: tensors ``[fan_in, heads, d]`` (``models/mla.py`` ``_heads_init``)
+_FAN_IN_AXIS = {"moe/w_up": 1, "moe/w_gate": 1, "moe/w_down": 1,
+                "attn/w_uk": 0, "attn/w_uv": 0, "attn/w_uq": 0,
+                "attn/w_q": 0}
+
+
 @torch.no_grad()
 def draw_weights(tree: dict, seed: int):
     """Overwrite every leaf of the served weight tree in place, from
-    ``seed``, on the leaves' device and in their dtype: norm scales
-    ``1 + 0.1 N``, other vectors ``0.1 N``, the embedding table ``0.02
-    N``, each ``[d_in, d_out]`` matrix ``N / sqrt(d_in)``."""
+    ``seed``, on the leaves' device and in their dtype, in the order of
+    their sorted paths: norm scales ``1 + 0.1 N``, other vectors ``0.1
+    N``, the embedding table ``0.02 N``, each ``[d_in, d_out]`` matrix ``N
+    / sqrt(d_in)``, each rank-3 leaf of :data:`_FAN_IN_AXIS` ``N /
+    sqrt(fan_in)``."""
     leaves = list(_leaves(tree))
     g = torch.Generator(device=leaves[0][1].device)
     g.manual_seed(int(np.random.SeedSequence([int(seed), 0x3E16]).
@@ -202,7 +287,11 @@ def draw_weights(tree: dict, seed: int):
         elif t.dim() == 2:
             t.normal_(0.0, t.shape[0] ** -0.5, generator=g)
         else:
-            raise ValueError(f"weight leaf {path} of shape {tuple(t.shape)}")
+            axis = _FAN_IN_AXIS.get("/".join(path.split("/")[-2:]))
+            if t.dim() != 3 or axis is None:
+                raise ValueError(f"weight leaf {path} of shape "
+                                 f"{tuple(t.shape)}")
+            t.normal_(0.0, t.shape[axis] ** -0.5, generator=g)
 
 
 def _client_pipeline(client: traffic.Client):
@@ -244,7 +333,14 @@ class Reading:
     (``steady``) and inside it (``stretch.ticks``).  Per tick: its host
     seconds, the batcher's prefill and decode host seconds and counts, the
     prompt lengths prefilled and the cache positions of the streams that
-    took a decode step."""
+    took a decode step.
+
+    ``trace`` is set where a metric of the cell sets ``PROGRAM_TRACE``: per
+    tick, what ``repro_torch.core.trace.drain()`` returned after that tick
+    of the window (its spans and request intervals, unchanged), ``None``
+    for the ticks before the window; ``trace_dropped`` counts the records
+    the tracer dropped in the window (``TRACER.dropped``).  Elsewhere
+    ``trace`` is ``None`` and the tracer stays off."""
     config: dict
     wl: dict
     steady: List[int]
@@ -257,6 +353,8 @@ class Reading:
     decode_positions: List[List[int]]
     peak_bytes: int
     stretch: Optional[tracing.Stretch] = None
+    trace: Optional[List[Optional[tuple]]] = None
+    trace_dropped: int = 0
 
 
 class _Ticks:
@@ -418,12 +516,17 @@ class Served:
     peak: int
     weights: dict
     stretch: Optional[tracing.Stretch]
+    trace: Optional[List[Optional[tuple]]] = None
+    trace_dropped: int = 0
 
 
 def _serve(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
-           t_start: float, log, min_answers: int) -> Served:
+           t_start: float, log, min_answers: int,
+           program_trace: bool = False) -> Served:
     """Set-up, warm-up and the window.  Every object of the program made
-    here is dropped when this returns, but the weight tree."""
+    here is dropped when this returns, but the weight tree.  With
+    ``program_trace`` the program's tracer records the window, drained
+    after every tick (:class:`Reading`)."""
     from repro_torch.launch import model_serve as ms
     from repro_torch.runtime import Device, Runtime
     wl, cfg = cell.wl, cell.config
@@ -496,32 +599,46 @@ def _serve(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     stretch, prof, p0 = None, None, 0.0
     prof_s = float(wl["profile_seconds"])
     lead = max(0.0, (seconds - prof_s) / 2)
+    tracer, program, dropped = None, None, 0
+    if program_trace:
+        from repro_torch.core import trace as tracer
+        tracer.drain()
+        program, dropped = [None] * first, tracer.TRACER.dropped
+        tracer.enable()
     w0 = time.perf_counter()
     got = 0
-    while time.perf_counter() - w0 < seconds or got < min_answers:
-        if trace and stretch is None and time.perf_counter() - w0 >= lead:
-            sync()
-            stretch = tracing.Stretch()
-            q0 = time.perf_counter()
-            prof = tracing.start(cuda)
-            spans["on"] = stretch
-            p0 = time.perf_counter()
-            log(f"portbench: profiler started in {p0 - q0:.3f} s at "
-                f"{q0 - w0:.3f} s of the window")
-            stretch.t0_ns = time.time_ns()
-        t = ticks.tick(rt, span)
-        got += _poll(runs, clients, reqs, seen, errs, t)
-        if prof is not None:
-            stretch.ticks.append(t)
-            did = sum(ticks.prefills[i] for i in stretch.ticks)
-            now = time.perf_counter()
-            if (now - p0 >= prof_s and did > 0) or now - w0 >= seconds:
+    try:
+        while time.perf_counter() - w0 < seconds or got < min_answers:
+            if trace and stretch is None and \
+                    time.perf_counter() - w0 >= lead:
                 sync()
-                stretch.t1_ns = time.time_ns()
-                stretch.seconds = time.perf_counter() - p0
-                spans["on"] = None
-                tracing.stop(prof, stretch)
-                prof = None
+                stretch = tracing.Stretch()
+                q0 = time.perf_counter()
+                prof = tracing.start(cuda)
+                spans["on"] = stretch
+                p0 = time.perf_counter()
+                log(f"portbench: profiler started in {p0 - q0:.3f} s at "
+                    f"{q0 - w0:.3f} s of the window")
+                stretch.t0_ns = time.time_ns()
+            t = ticks.tick(rt, span)
+            if tracer is not None:
+                program.append(tracer.drain())
+            got += _poll(runs, clients, reqs, seen, errs, t)
+            if prof is not None:
+                stretch.ticks.append(t)
+                did = sum(ticks.prefills[i] for i in stretch.ticks)
+                now = time.perf_counter()
+                if (now - p0 >= prof_s and did > 0) or now - w0 >= seconds:
+                    sync()
+                    stretch.t1_ns = time.time_ns()
+                    stretch.seconds = time.perf_counter() - p0
+                    spans["on"] = None
+                    tracing.stop(prof, stretch)
+                    prof = None
+    finally:
+        if tracer is not None:
+            tracer.disable()
+            dropped = tracer.TRACER.dropped - dropped
     w1 = time.perf_counter()
     sync()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -529,7 +646,8 @@ def _serve(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     gc.unfreeze()
     return Served(clients=clients, reqs=reqs, ticks=ticks, first=first,
                   last=len(ticks.start), setup_s=setup_s, w0=w0, w1=w1,
-                  peak=int(peak), weights=weights, stretch=stretch)
+                  peak=int(peak), weights=weights, stretch=stretch,
+                  trace=program, trace_dropped=dropped)
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
@@ -550,7 +668,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
     wl = cell.wl
     cuda = device == "cuda"
-    s = _serve(cell, seed, seconds, trace, device, t_start, log, min_answers)
+    readers = {m["name"]: load_metric(cell, m["name"])
+               for m in cell.per_layer} if trace else {}
+    s = _serve(cell, seed, seconds, trace, device, t_start, log, min_answers,
+               any(getattr(r, "PROGRAM_TRACE", False)
+                   for r in readers.values()))
     clear_executable_cache()
     gc.collect()
     if cuda:
@@ -586,9 +708,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             prefill_s=ticks.prefill_s, prefills=ticks.prefills,
             decode_s=ticks.decode_s, decode_times=ticks.decode_times,
             prefill_lengths=pre, decode_positions=dec, peak_bytes=s.peak,
-            stretch=s.stretch)
+            stretch=s.stretch, trace=s.trace, trace_dropped=s.trace_dropped)
         for m in cell.per_layer:
-            v = load_metric(cell, m["name"]).read(reading)
+            v = readers[m["name"]].read(reading)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         if s.stretch is not None and s.stretch.ops:

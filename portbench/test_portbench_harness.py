@@ -1,6 +1,7 @@
 """The harness on the CPU: end-to-end metrics over every request of the
 window, cells, configurations and metrics found from files alone, and the
 check on the modules a run loads."""
+import hashlib
 import json
 import subprocess
 import sys
@@ -8,6 +9,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from portbench import harness, testcell, yardstick
 
@@ -98,10 +100,203 @@ def test_a_split_metric_reads_as_its_quantity(tmp_path):
     assert set(res["metrics"]) == {"mfu.host_paced"}
 
 
-def test_a_preset_that_departs_from_its_file_is_refused(tmp_path):
-    root = testcell.make(tmp_path, dict(testcell.SMOKE, hidden_size=512))
-    with pytest.raises(ValueError, match="hidden_size"):
+def _without(config, *keys, **extra):
+    return dict({k: v for k, v in config.items() if k not in keys}, **extra)
+
+
+#: a file of mixtral's equations at the port's ``mixtral-smoke`` widths
+#: (every layer windowed), but for the window
+_MIXTRAL_NO_WINDOW = dict(
+    testcell.SMOKE, name="smoke-moe",
+    port={"arch": "mixtral-8x22b", "preset": "mixtral-smoke",
+          "fields": {"use_flash_attn": False}},
+    norm="rmsnorm", norm_eps=1e-6, rope_theta=1e6, rope_fraction=1.0,
+    n_routed_experts=4, num_experts_per_tok=2, moe_intermediate_size=128)
+
+
+@pytest.mark.parametrize("config,match", [
+    (dict(testcell.SMOKE, hidden_size=512), "hidden_size"),
+    (_without(testcell.SMOKE_MLA_MOE, "n_routed_experts"), "routed experts"),
+    (_without(testcell.SMOKE_MLA_MOE, "kv_lora_rank", num_key_value_heads=4,
+              head_dim=40, rope_fraction=1.0, attention_bias=False),
+     "latent attention"),
+    (_MIXTRAL_NO_WINDOW, "a layer pattern or window"),
+    (dict(testcell.SMOKE, port={"arch": "stablelm-1.6b",
+                                "preset": "stablelm-smoke"}),
+     "flash attention off"),
+    (dict(testcell.SMOKE, port=dict(testcell.SMOKE["port"],
+                                    fields={"use_flash_attn": False})),
+     "use_flash_attn"),
+    (dict(testcell.SMOKE, port=dict(testcell.SMOKE["port"],
+                                    fields={"n_experts_held": 1})),
+     "ModelConfig lacks"),
+    (_without(testcell.SMOKE, "head_dim"), "does not state"),
+], ids=["hidden_size", "experts", "mla", "window", "flash_off",
+        "port_fields", "unknown_field", "missing_key"])
+def test_a_preset_that_departs_from_its_file_is_refused(tmp_path, config,
+                                                        match):
+    root = testcell.make(tmp_path, config)
+    with pytest.raises(ValueError, match=match):
         _run(root)
+
+
+def test_a_file_that_states_the_window_passes():
+    cfg = dict(_MIXTRAL_NO_WINDOW, sliding_window=32)
+    assert harness.serve_preset(cfg) == "mixtral-smoke"
+
+
+#: a stand-in for the plain reference of a DeepSeek-V2-shaped decoder
+_PORT_FORWARD = '''
+"""A stand-in for a plain reference, for the CPU tests alone: teacher-forced
+logits of the port's own fp32 model (``repro_torch.models.transformer.
+lm_train``, latent attention and routed experts) on the drawn weights.  It
+shares the program's code, so it shows that the harness carries such a
+cell, not that the program is right: the plain reference comes with the
+configuration."""
+import torch
+
+
+def served_logits(weights, cfg, seqs, starts, control=False):
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.models.transformer import lm_train
+    if control:
+        raise NotImplementedError("the stand-in has no control")
+    mc = ms.SERVE_MODELS[cfg["port"]["preset"]]()
+    out = []
+    with torch.no_grad():
+        for seq, start in zip(seqs, starts):
+            out.append((lm_train(weights, mc, seq[None])[0][0, start:],
+                        None))
+    return out
+'''
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["untraced", "traced"])
+def test_a_latent_attention_moe_cell_added_as_files(tmp_path, trace):
+    from repro_torch.models import moe
+    root = testcell.make(tmp_path, testcell.SMOKE_MLA_MOE,
+                         leave_out=testcell.DENSE_READERS)
+    (root / "portbench/references/port_forward.py").write_text(_PORT_FORWARD)
+    with moe.drop_log() as log:
+        res = _run(root, trace=trace)
+    assert res["correct"], res["check"]
+    assert res["check"]["logit_gap_max"]["value"] < 1e-3
+    # the MoE layers ran, and dropped no token at the file's capacity
+    assert log and sum(int(d.sum()) for _, _, d in log) == 0
+    if trace:
+        assert {"sched_self_ms", "prefill_ms", "decode_tick_ms"} <= \
+            set(res["metrics"])
+        assert not set(testcell.DENSE_READERS) & set(res["metrics"])
+    else:
+        assert set(res["metrics"]) == {"tokens_per_s", "latency_p95_ms",
+                                       "setup_s"}
+
+
+def _served_tree(preset):
+    from repro_torch.launch import model_serve as ms
+    from repro_torch.runtime import Device
+    srv = Device("hub", device="cpu").add_pipeline(
+        ms.serve_pipeline(model=preset, slots=2, max_seq=16))
+    return srv.params["lm"]
+
+
+def test_rank3_leaves_draw_at_their_fan_in():
+    tree = _served_tree("deepseek-smoke")
+    harness.draw_weights(tree, 2 ** 31 + 7)
+    leaves = dict(harness._leaves(tree))
+    experts = [p for p in leaves if p.split("/")[-2] == "moe"
+               and leaves[p].dim() == 3]
+    heads = [p for p in leaves if p.split("/")[-1] in ("w_uk", "w_uv",
+                                                       "w_uq")]
+    assert len(experts) == 3 and len(heads) == 6
+    for p in experts:
+        for e, w in enumerate(leaves[p]):
+            assert float(w.std()) == pytest.approx(w.shape[0] ** -0.5,
+                                                   rel=0.1), (p, e)
+    for p in heads:
+        w = leaves[p]
+        assert float(w.std()) == pytest.approx(w.shape[0] ** -0.5,
+                                               rel=0.1), p
+
+
+@pytest.mark.parametrize("path,shape", [
+    ("attn/w_other", (4, 2, 3)), ("moe/w_up", (2, 4, 3, 3)),
+    ("mlp/w_up", (2, 4, 3))])
+def test_an_unknown_rank3_leaf_raises(path, shape):
+    head, name = path.split("/")
+    tree = {"layers": [{head: {name: torch.zeros(shape)}}]}
+    with pytest.raises(ValueError, match=name):
+        harness.draw_weights(tree, 1)
+
+
+def _tree_hash(tree):
+    h = hashlib.sha256()
+    for path, t in harness._leaves(tree):
+        h.update(f"{path} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.contiguous().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("preset,digest", [
+    ("stablelm-smoke-flash",
+     "73b9a85209dc6e0fd509b856e7a4d90b8d51959ee8554a29c6f52f539a5e8805"),
+    ("granite-smoke",
+     "46f6aac90de0885cb85ee83a9123e48893c111ca5c612c3b9ebf324b49436fa4")])
+def test_the_dense_trees_draw_as_before(preset, digest):
+    # the digests of the draw before rank-3 leaves had rules
+    tree = _served_tree(preset)
+    harness.draw_weights(tree, 2 ** 31 + 101)
+    assert _tree_hash(tree) == digest
+
+
+def _add_metric(root, name, code):
+    (root / f"portbench/metrics/{name}.py").write_text(textwrap.dedent(code))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["per_layer"].append({
+        "name": name, "unit": "1", "better": "higher",
+        "source": "program_span", "layer": "batcher", "moves":
+        "tokens_per_s", "workloads": ["smoke.chat"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_metric_reads_the_program_trace(tmp_path):
+    from repro_torch.core import trace
+    root = testcell.make(tmp_path)
+    _add_metric(root, "decode_span_share", '''
+        PROGRAM_TRACE = True
+
+
+        def read(r):
+            # the batcher's decode_times end before the answers' delivery
+            assert r.trace[0] is None and r.trace_dropped == 0
+            sign = {"decode": 1, "decode.deliver": -1}
+            spans = sum(sign.get(s.name, 0) * (s.t1_ns - s.t0_ns)
+                        for t in r.steady for s in r.trace[t][0]) / 1e9
+            return spans / sum(x for t in r.steady for x in r.decode_times[t])
+        ''')
+    res = _run(root, trace=True)
+    assert res["correct"], res["check"]
+    assert res["metrics"]["decode_span_share"]["value"] == \
+        pytest.approx(1.0, abs=0.05)
+    assert not trace.TRACER.on
+
+
+def test_the_tracer_stays_off_without_such_a_metric(tmp_path, monkeypatch):
+    from repro_torch.core import trace
+    calls = []
+    monkeypatch.setattr(trace, "enable", lambda: calls.append("enable"))
+    monkeypatch.setattr(trace.TRACER, "begin",
+                        lambda *a, **k: calls.append(a))
+    root = testcell.make(tmp_path)
+    _add_metric(root, "no_trace", '''
+        def read(r):
+            return float(r.trace is None)
+        ''')
+    res = _run(root, trace=True)
+    assert res["correct"], res["check"]
+    assert res["metrics"]["no_trace"]["value"] == 1.0
+    assert calls == [] and not trace.TRACER.on
 
 
 @pytest.mark.parametrize("mods,bad", [
