@@ -4707,13 +4707,21 @@ def _phase_zoo_kernels(seed, ptxas):
 #: 14g: S4 at granite-20b's prefill and decode norms (a 1774-token mean
 #: prompt, 64 slots) and stablelm-1.6b's prefill norm (LayerNorm), as
 #: (rows, d, layernorm); S5 at the same steps' q and k, as (batch, seq, q
-#: heads, k heads, head dim, arch)
+#: heads, k heads, head dim, arch or serve preset), and at the rope parts
+#: of DeepSeek-V2's MLA in the ``deepseek-v2-236b-ep8`` preset (YaRN's
+#: frequency table; q_rope and k_rope rotate in launches of their own, k
+#: heads 0: a 1020-token prompt and the 128-slot decode tick)
 NORM_SHAPES = {"granite prefill": (1774, 6144, False),
                "granite decode": (64, 6144, False),
                "stablelm prefill": (1020, 2048, True)}
+_EP8 = "deepseek-v2-236b-ep8"
 ROTARY_SHAPES = {"granite prefill": (1, 1774, 48, 1, 128, "granite-20b"),
                  "granite decode": (64, 1, 48, 1, 128, "granite-20b"),
-                 "stablelm prefill": (1, 1020, 32, 32, 64, "stablelm-1.6b")}
+                 "stablelm prefill": (1, 1020, 32, 32, 64, "stablelm-1.6b"),
+                 "mla q_rope prefill": (1, 1020, 128, 0, 64, _EP8),
+                 "mla k_rope prefill": (1, 1020, 1, 0, 64, _EP8),
+                 "mla q_rope decode": (128, 1, 128, 0, 64, _EP8),
+                 "mla k_rope decode": (128, 1, 1, 0, 64, _EP8)}
 
 
 def _norm_ulps(a, b, bias=None):
@@ -4792,40 +4800,60 @@ def _norm_row(rng, n, d, ln, ptxas, device="cuda"):
 
 
 def _rotary_row(rng, b, s, hq, hk, hd, arch, ptxas, device="cuda"):
-    """S5 on a layer's q [b, s, hq, hd] and k [b, s, hk, hd] (bf16, the
-    arch's rope_frac and theta; positions 0..s-1, or drawn up to 8191 for
-    a decode row) bitwise its plain version on each; timed beside the plain
-    version run on both, the bounds and ptxas.  No single PyTorch call
-    computes it, so it has no library time."""
+    """S5 on a layer's q [b, s, hq, hd] and k [b, s, hk, hd], or on q alone
+    where ``hk`` is 0 (bf16, the arch's rope_frac and theta, or an MLA
+    preset's rope part whole at its YaRN table, on the strided views the
+    model rotates; positions 0..s-1, or drawn up to 8191 for a decode row)
+    bitwise its plain version on each, in one launch; timed beside the
+    plain version, the bounds and ptxas.  No single PyTorch call computes
+    it, so it has no library time."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import cost, ref
     from repro_torch.kernels import rotary as kr
-    cfg = get_config(arch)
+    from repro_torch.launch.model_serve import SERVE_MODELS
+    from repro_torch.models.mla import yarn_freqs
+    cfg = SERVE_MODELS[arch]() if arch in SERVE_MODELS else get_config(arch)
+    frac = 1.0 if cfg.mla else cfg.rope_frac
+    freqs = yarn_freqs(cfg, device) if cfg.mla else None
 
     def randn(*shape):
         return torch.as_tensor(rng.standard_normal(shape).astype(
             np.float32)).to(device, torch.bfloat16)
-    q, k = randn(b, s, hq, hd), randn(b, s, hk, hd)
+    q, k = randn(b, s, hq, hd), (randn(b, s, hk, hd) if hk else None)
+    if cfg.mla:
+        # the views MLA rotates: q's rope part after each head's nope dims,
+        # the shared k_rope after the latent in the down-projection's row
+        lead = cfg.qk_nope_dim if hq > 1 else cfg.kv_lora_rank
+        q = randn(b, s, hq, lead + hd)[..., lead:] if hq > 1 else \
+            randn(b, s, lead + hd)[..., None, lead:]
     pos = torch.arange(s, dtype=torch.int32, device=device)[None] if s > 1 \
         else torch.as_tensor(rng.integers(0, 8192, (b, 1)).astype(np.int32),
                              device=device)
-    rope = (pos, cfg.rope_frac, cfg.rope_theta)
+    rope = (pos, frac, cfg.rope_theta, freqs)
+    launched = kr.LAUNCHES["rotary"]
     got = kr.rotary(q, k, *rope)
+    launches = kr.LAUNCHES["rotary"] - launched
+    check(launches == (device == "cuda"),
+          f"S5 {arch} {list(q.shape)}: {launches} launches on {device}")
     for t, out, name in ((q, got[0], "q"), (k, got[1], "k")):
-        same_bits(out, ref.rotary_plain(t, *rope),
-                  f"S5 {arch} {name} {list(t.shape)}")
-    rot = kr.rotated_dims(hd, cfg.rope_frac)
+        if t is not None:
+            same_bits(out, ref.rotary_plain(t, *rope),
+                      f"S5 {arch} {name} {list(t.shape)}")
+    rot = kr.rotated_dims(hd, frac)
     return dict(
-        q=[b, s, hq, hd], k=[b, s, hk, hd], rot=rot, dtype="bfloat16",
-        bitwise=True, max_abs_err=0.0,
+        q=[b, s, hq, hd], k=[b, s, hk, hd] if hk else None, rot=rot,
+        dtype="bfloat16", freqs="yarn" if freqs is not None else "theta",
+        strides=list(q.stride()),
+        launches=launches, bitwise=True, max_abs_err=0.0,
         ms=cuda_ms(lambda: kr.rotary(q, k, *rope)),
-        plain_ms=cuda_ms(lambda: (ref.rotary_plain(q, *rope),
-                                  ref.rotary_plain(k, *rope))),
+        plain_ms=cuda_ms(lambda: [ref.rotary_plain(t, *rope)
+                                  for t in (q, k) if t is not None]),
         library_ms=None,
         ptxas=_ptxas_regs(ptxas, "rotary", "rotary_kernel", "bf16", "VEC=8",
                           "pos=int32"),
-        **cost.bound(cost.rotary(b, s, hq + hk, hd, rot, q.dtype, 2)))
+        **cost.bound(cost.rotary(b, s, hq + hk, hd, rot, q.dtype,
+                                 2 if hk else 1)))
 
 
 def _phase_norm_rope_kernels(seed, ptxas, device="cuda"):
@@ -4844,7 +4872,8 @@ def _phase_norm_rope_kernels(seed, ptxas, device="cuda"):
         rows[f"S5 {name}"] = _rotary_row(rng, *shape, ptxas, device)
     for name, r in rows.items():
         if name.startswith("S5"):
-            what = f"rot {r['rot']} of {r['q'][-1]}, bitwise"
+            what = (f"rot {r['rot']} of {r['q'][-1]} at the {r['freqs']} "
+                    f"frequencies, {r['launches']} launch, bitwise")
         else:
             lib = f"refused ({r['library_refused']})" \
                 if r["library_ms"] is None else \
@@ -7594,6 +7623,10 @@ def main(argv=None):
             for preset, v in zoo["launches_norm_rope"].items()}
         row["launches_phase4"] = serve["norm_rope_launches"][row["name"]]
     for name, r in zoo["14g"].items():
+        if name.startswith("S5"):
+            kernels[16]["by_shape"][name].update(
+                {k: r[k] for k in ("q", "k", "freqs", "launches",
+                                   "strides")})
         if name.startswith("S4"):
             kernels[15]["by_shape"][name].update(
                 {k: r[k] for k in ("ulps", "library", "library_ulps",

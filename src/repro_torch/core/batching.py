@@ -840,6 +840,7 @@ class StreamingQueryBatcher(QueryBatcher):
         self.decode_times.append(time.perf_counter() - t0)
         self.decode_seconds += self.decode_times[-1]
         if on:
+            elem.trace_tick_counts()
             sp = TRACER.then(sp, "decode.deliver")
         toks, emitted, finished = lanes
         self.decode_ticks += 1

@@ -100,6 +100,14 @@ class ModelServeElement(Element):
     bool [S], ``token`` int32 [S] (next decode input), ``remaining`` int32
     [S].
 
+    A model with MoE layers counts each layer's tokens, (token, held
+    expert) pairs and dropped choices into two buffers the element keeps on
+    the device for its life (``models/moe.py`` ``count_into``): the decode
+    tick every tick (its graph captures the writes), a prefill while the
+    tracer is on; each is read into the tracer's ``moe.decode`` /
+    ``moe.prefill`` counters only while the tracer is on, after the host
+    read that ends the tick or prefill (``core/trace.py``).
+
     Input frame (injected by the batcher): ``(slots, token, remaining,
     *cache_leaves)`` for the streams joining this tick, or ``()`` with
     ``meta={"empty": True}`` when nobody joins.  Output frame: ``(token,
@@ -116,6 +124,7 @@ class ModelServeElement(Element):
         self.max_seq = int(props.get("max_seq", max_seq))
         self._cfg = None
         self._device = None
+        self._counts = None     # {"decode", "prefill"}: int64 [n_moe, 3]
 
     @property
     def cfg(self):
@@ -141,6 +150,12 @@ class ModelServeElement(Element):
         from ..models import transformer
         self._device = device
         s = self.slots
+        n_moe = sum(map(self.cfg.is_moe_layer, range(self.cfg.n_layers)))
+        if n_moe and (self._counts is None or
+                      self._counts["decode"].device != torch.device(device)):
+            self._counts = {k: torch.zeros((n_moe, 3), dtype=torch.long,
+                                           device=device)
+                            for k in ("decode", "prefill")}
         return {"cache": transformer.cache_init(self.cfg, s, self.max_seq,
                                                 device),
                 "active": torch.zeros((s,), dtype=torch.bool, device=device),
@@ -168,14 +183,16 @@ class ModelServeElement(Element):
     def apply(self, params, inputs: List[StreamBuffer],
               ctx: PipelineContext = None) -> List[StreamBuffer]:
         from ..models import transformer
+        from ..models.moe import count_into
         st = ctx.get_state(self.name)
         # 1. admit (a no-op on the batcher's path, which admitted already)
         self.admit(st, inputs[0])
         cache, token = st["cache"], st["token"]
         remaining, active = st["remaining"], st["active"]
         # 2. one decode step for every slot; inactive slots keep their token
-        token = transformer.serve_decode_step(params, self.cfg, cache, token,
-                                              active)
+        with count_into(self._counts["decode"] if self._counts else None):
+            token = transformer.serve_decode_step(params, self.cfg, cache,
+                                                  token, active)
         # 3. retire: a slot leaves the batch the tick its budget hits zero
         rem_after = remaining - active.to(torch.int32)
         finished = active & (rem_after <= 0)
@@ -201,19 +218,36 @@ class ModelServeElement(Element):
         """Prefill one request: prompt int[L] -> (first token int, batch-1
         decode cache on the serve device)."""
         from ..models import transformer
+        from ..models.moe import count_into
         on = TRACER.on
+        counts = self._counts["prefill"] if on and self._counts else None
         if on:
             sp = TRACER.begin("prefill.launch")
         toks = torch.as_tensor(prompt).to(device=self._device,
                                           dtype=torch.long)[None]
-        logits, cache = transformer.lm_prefill(params, self.cfg, toks,
-                                               self.max_seq)
+        with count_into(counts):
+            logits, cache = transformer.lm_prefill(params, self.cfg, toks,
+                                                   self.max_seq)
         if on:
             sp = TRACER.then(sp, "prefill.read")
         tok = int(transformer.greedy(logits)[0])
+        if counts is not None:
+            self._record_counts("moe.prefill", counts)
         if on:
             TRACER.end(sp)
         return tok, cache
+
+    def trace_tick_counts(self):
+        """Record the last decode tick's MoE counters in the tracer (the
+        batcher calls this at ``decode.read``, once the tick's lanes are
+        on the host, and only while the tracer is on)."""
+        if self._counts:
+            self._record_counts("moe.decode", self._counts["decode"])
+
+    @staticmethod
+    def _record_counts(name: str, counts: torch.Tensor):
+        for row in counts.tolist():
+            TRACER.count(name, row)
 
     def empty_admit(self) -> StreamBuffer:
         """No-join tick: a fresh, tensor-free bundle (fresh meta dict every

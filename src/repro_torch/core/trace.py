@@ -3,14 +3,15 @@
 One process-wide tracer, :data:`TRACER`, off by default (as the kernels'
 launch counters are module-level).  A site reads ``TRACER.on`` once and
 branches: with the tracer off it reads no clock and allocates nothing.
-With it on, it keeps two kinds of record in memory until :func:`drain`:
+With it on, it keeps three kinds of record in memory until :func:`drain`:
 
 * host spans (:class:`Span`): name, ``t0_ns``, ``t1_ns``, the span's id,
   the id of the span open around it (-1 at the top) and an optional
   request id.  A span is recorded when it ends, so a drain between ticks
   returns the spans that ended in the tick, children before parents.
 * request intervals (:class:`Wait`): kind, request id, ``t0_ns``,
-  ``t1_ns``.
+  ``t1_ns``;
+* counters (:class:`Count`): name and a tuple of integers.
 
 Stamps are ``time.time_ns()``, the wall clock that ``torch.profiler``
 converts its events to, so a span and the device operations of a CUDA
@@ -40,7 +41,26 @@ its children cover):
 ``decode.deliver``  finished streams' answers through the serversink
 ``queue_wait``      (interval) a request's wait from its admission
                     queue's ``ingest`` to the start of its ``prefill``
+``mla``             (eager prefill, inside ``prefill.launch``) one
+                    layer's latent attention (``models/transformer.py``
+                    ``block_prefill``)
+``moe``             (eager prefill, inside ``prefill.launch``) one
+                    layer's routed and shared experts
+``moe.prefill``     (counter, read at ``prefill.read``) each MoE layer
+                    of the prefill: ``(tokens, pairs, dropped)``, its
+                    tokens, its (token, held expert) choices and those
+                    that capacity turned away (``models/moe.py``
+                    ``count_into``)
+``moe.decode``      (counter, read at ``decode.read``) the same of each
+                    MoE layer of the decode tick, every slot's row
+                    counted, from the buffer the graphed tick fills
 ==================  =====================================================
+
+The ``mla`` and ``moe`` spans time the host's launch of the layer's work
+(the card runs it later, unless its queue is full); nothing is recorded
+inside a graph's capture or replay.  The counters are device tensors the
+layers write with no host read; the serve path reads them only while the
+tracer is on, after the host read that ends the prefill or tick.
 
 The request id is the admission record's ``seq``.  A site that raises
 leaves its span open; the next span that ends around it closes the stack
@@ -51,8 +71,8 @@ from __future__ import annotations
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
-__all__ = ["Span", "Wait", "Tracer", "TRACER", "CAP", "enable", "disable",
-           "drain"]
+__all__ = ["Span", "Wait", "Count", "Tracer", "TRACER", "CAP", "enable",
+           "disable", "drain"]
 
 #: records the buffer holds between drains
 CAP = 1 << 16
@@ -74,6 +94,11 @@ class Wait(NamedTuple):
     t1_ns: int
 
 
+class Count(NamedTuple):
+    name: str
+    values: Tuple[int, ...]
+
+
 class Tracer:
     """The tracer (module docstring).  ``begin`` returns a token that
     ``end`` or ``then`` takes; sites call them only while ``on``."""
@@ -83,6 +108,7 @@ class Tracer:
         self.cap = cap
         self.spans: List[Span] = []
         self.waits: List[Wait] = []
+        self.counts: List[Count] = []
         self.dropped = 0
         self._open: List[int] = []      # ids of the open spans, innermost last
         self._next = 0
@@ -120,14 +146,21 @@ class Tracer:
         else:
             self.waits.append(Wait(kind, rid, t0, t1))
 
-    def _full(self) -> bool:
-        return len(self.spans) + len(self.waits) >= self.cap
+    def count(self, name: str, values: Tuple[int, ...]):
+        if self._full():
+            self.dropped += 1
+        else:
+            self.counts.append(Count(name, tuple(values)))
 
-    def drain(self) -> Tuple[List[Span], List[Wait]]:
-        """The spans and intervals recorded since the last drain, which
-        leave the buffer."""
-        out = (self.spans, self.waits)
-        self.spans, self.waits = [], []
+    def _full(self) -> bool:
+        return len(self.spans) + len(self.waits) + len(self.counts) >= \
+            self.cap
+
+    def drain(self) -> Tuple[List[Span], List[Wait], List[Count]]:
+        """The spans, intervals and counters recorded since the last drain,
+        which leave the buffer."""
+        out = (self.spans, self.waits, self.counts)
+        self.spans, self.waits, self.counts = [], [], []
         return out
 
 
@@ -146,5 +179,5 @@ def disable():
     TRACER.on = False
 
 
-def drain() -> Tuple[List[Span], List[Wait]]:
+def drain() -> Tuple[List[Span], List[Wait], List[Count]]:
     return TRACER.drain()

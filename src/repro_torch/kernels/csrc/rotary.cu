@@ -7,7 +7,8 @@
 //     y[2i + 1] = x[2i+1] cos a + x[2i] sin a
 //
 // and y = x past rot (partial rotary).  Computed in f32, written in x's
-// dtype (bf16 or f32).
+// dtype (bf16 or f32).  Given a table freqs (f32 [rot / 2], YaRN's:
+// models/mla.py), f_i = freqs[i] in place of theta^(-2i / rot).
 //
 // A new kernel, not a TPU port: the JAX package's apply_rope
 // (src/repro/models/layers.py) is an expression that XLA fuses.  Eager
@@ -28,7 +29,8 @@
 //   * theta ^ e: powf, theta rounded to f32;
 //   * 1 / t: the IEEE reciprocal (Tensor.__rtruediv__ is reciprocal() * 1.0,
 //     and the product by 1.0 is exact);
-//   * float(p) * f_i, then cosf and sinf;
+//   * float(p) * f_i (f_i read from the table where one is given), then
+//     cosf and sinf;
 //   * the four products and the difference and sum of the plain version
 //     (kernels/ref.py rotary_plain), then one rounding to bf16.
 // The untouched part is copied as it is.
@@ -54,8 +56,9 @@ __global__ void __launch_bounds__(kThreads)
 rotary_kernel(const T* __restrict__ q, long long qb, long long qs,
               long long qh, int hq, const T* __restrict__ k, long long kb,
               long long ks, long long kh, int hk, const P* __restrict__ pos,
-              long long pb, long long ps, T* __restrict__ q_out,
-              T* __restrict__ k_out, int seq, int hd, int rot, float theta) {
+              long long pb, long long ps, const float* __restrict__ freqs,
+              T* __restrict__ q_out, T* __restrict__ k_out, int seq, int hd,
+              int rot, float theta) {
   extern __shared__ float tab[];  // cos [rot / 2], then sin [rot / 2]
   const int row = blockIdx.x;     // b * seq + s
   const int b = row / seq;
@@ -64,8 +67,12 @@ rotary_kernel(const T* __restrict__ q, long long qb, long long qs,
   const float inv_rot = __fdiv_rn(1.0f, (float)rot);
   const float p = (float)pos[b * pb + s * ps];
   for (int i = threadIdx.x; i < half; i += kThreads) {
-    const float e = __fmul_rn((float)(2 * i), inv_rot);
-    const float f = __fmul_rn(__frcp_rn(powf(theta, e)), 1.0f);
+    const float f =
+        freqs != nullptr
+            ? freqs[i]
+            : __fmul_rn(__frcp_rn(powf(theta, __fmul_rn((float)(2 * i),
+                                                         inv_rot))),
+                        1.0f);
     const float a = __fmul_rn(p, f);
     tab[i] = cosf(a);
     tab[half + i] = sinf(a);
@@ -113,13 +120,13 @@ template <typename T, int VEC>
 int launch(int pos_code, const void* q, long long qb, long long qs,
            long long qh, int hq, const void* k, long long kb, long long ks,
            long long kh, int hk, const void* pos, long long pb, long long ps,
-           void* q_out, void* k_out, int rows, int seq, int hd, int rot,
-           float theta, cudaStream_t stream) {
+           const float* freqs, void* q_out, void* k_out, int rows, int seq,
+           int hd, int rot, float theta, cudaStream_t stream) {
   const int smem = rot * (int)sizeof(float);
 #define REPRO_ROTARY_LAUNCH(P)                                               \
   rotary_kernel<T, VEC, P><<<rows, kThreads, smem, stream>>>(                \
       (const T*)q, qb, qs, qh, hq, (const T*)k, kb, ks, kh, hk,              \
-      (const P*)pos, pb, ps, (T*)q_out, (T*)k_out, seq, hd, rot, theta)
+      (const P*)pos, pb, ps, freqs, (T*)q_out, (T*)k_out, seq, hd, rot, theta)
   if (pos_code == 0)
     REPRO_ROTARY_LAUNCH(int32_t);
   else
@@ -133,15 +140,16 @@ int launch(int pos_code, const void* q, long long qb, long long qs,
 
 // dtype: repro::kFloat32 or kBFloat16, the type of q, k and the outputs;
 // pos_code 0: int32 positions, 1: int64.  Strides are in elements; hk 0
-// (k and k_out null) rotates q alone.  Shapes, dtypes and the conditions of
-// vec are the wrapper's checks.
+// (k and k_out null) rotates q alone; freqs null computes the frequencies
+// from theta.  Shapes, dtypes and the conditions of vec are the wrapper's
+// checks.
 extern "C" int repro_rotary(int dtype, int vec, int pos_code, const void* q,
                             long long qb, long long qs, long long qh, int hq,
                             const void* k, long long kb, long long ks,
                             long long kh, int hk, const void* pos,
-                            long long pb, long long ps, void* q_out,
-                            void* k_out, int batch, int seq, int hd, int rot,
-                            float theta, void* stream) {
+                            long long pb, long long ps, const float* freqs,
+                            void* q_out, void* k_out, int batch, int seq,
+                            int hd, int rot, float theta, void* stream) {
   const long long rows = (long long)batch * seq;
   if (batch < 0 || seq < 0 || hq < 0 || hk < 0 || hd <= 0 || rot < 2 ||
       rot > hd || rot % 2 != 0 || rows > 2147483647LL ||
@@ -152,17 +160,17 @@ extern "C" int repro_rotary(int dtype, int vec, int pos_code, const void* q,
   const int r = (int)rows;
   if (dtype == repro::kFloat32)
     return vec ? repro::launch<float, 4>(pos_code, q, qb, qs, qh, hq, k, kb,
-                                         ks, kh, hk, pos, pb, ps, q_out, k_out,
+                                         ks, kh, hk, pos, pb, ps, freqs, q_out, k_out,
                                          r, seq, hd, rot, theta, st)
                : repro::launch<float, 2>(pos_code, q, qb, qs, qh, hq, k, kb,
-                                         ks, kh, hk, pos, pb, ps, q_out, k_out,
+                                         ks, kh, hk, pos, pb, ps, freqs, q_out, k_out,
                                          r, seq, hd, rot, theta, st);
   if (dtype == repro::kBFloat16)
     return vec ? repro::launch<__nv_bfloat16, 8>(
                      pos_code, q, qb, qs, qh, hq, k, kb, ks, kh, hk, pos, pb,
-                     ps, q_out, k_out, r, seq, hd, rot, theta, st)
+                     ps, freqs, q_out, k_out, r, seq, hd, rot, theta, st)
                : repro::launch<__nv_bfloat16, 2>(
                      pos_code, q, qb, qs, qh, hq, k, kb, ks, kh, hk, pos, pb,
-                     ps, q_out, k_out, r, seq, hd, rot, theta, st);
+                     ps, freqs, q_out, k_out, r, seq, hd, rot, theta, st);
   return (int)cudaErrorInvalidValue;
 }

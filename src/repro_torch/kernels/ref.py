@@ -278,17 +278,21 @@ def norm_plain(x: torch.Tensor, scale: torch.Tensor,
 
 
 def rotary_plain(x: torch.Tensor, positions: torch.Tensor, rope_frac: float,
-                 theta: float) -> torch.Tensor:
+                 theta: float, freqs: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The plain version of S5: x [B, S, H, hd]; positions [B, S] absolute.
     Rotates the leading ``rope_frac`` of hd in interleaved pairs (partial
     rotary); ``models/layers.py``'s expression, as the JAX package writes
-    it."""
+    it.  ``freqs`` (f32 [rot / 2]) replaces ``theta^(-2i / rot)``: YaRN's
+    table (``models/mla.py``)."""
     hd = x.shape[-1]
     rot = int(hd * rope_frac) // 2 * 2
     if rot == 0:
         return x
-    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=x.device) / rot
-    freqs = 1.0 / (theta ** exps)                                  # [rot/2]
+    if freqs is None:
+        exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                            device=x.device) / rot
+        freqs = 1.0 / (theta ** exps)                              # [rot/2]
     ang = positions[..., None].float() * freqs                     # [B,S,r/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     xr, xp = x[..., :rot], x[..., rot:]

@@ -1,11 +1,13 @@
 """Rotary position embedding on interleaved pairs: the port's kernel S5.
 
-``rotary(q, k, positions, rope_frac, theta)`` is ``models/layers.py``'s
-``apply_rope`` of q and of k in one launch (k may be None: one tensor, as
-MLA rotates its query and key parts apart).  It rotates the leading ``rot =
-int(hd * rope_frac) // 2 * 2`` elements of each head in pairs (2i, 2i + 1)
-by ``position / theta^(2i / rot)`` and copies the rest; with rot 0 the
-inputs come back as they are.  It is a new kernel, not a port of a TPU
+``rotary(q, k, positions, rope_frac, theta, freqs=None)`` is
+``models/layers.py``'s ``apply_rope`` of q and of k in one launch (k may be
+None: one tensor, as MLA rotates its query and key parts apart).  It
+rotates the leading ``rot = int(hd * rope_frac) // 2 * 2`` elements of each
+head in pairs (2i, 2i + 1) by ``position / theta^(2i / rot)``, or by
+``position * freqs[i]`` where a table is given (f32 [rot / 2] on the
+tensors' device: YaRN's, ``models/mla.py``), and copies the rest; with rot 0
+the inputs come back as they are.  It is a new kernel, not a port of a TPU
 kernel (the JAX package leaves the expression to XLA).
 
 A CPU tensor runs the plain version (``ref.rotary_plain`` a tensor, the
@@ -41,7 +43,7 @@ LAUNCHES: Dict[str, int] = {"rotary": 0}
 _c = ctypes
 _ARGS = ([_c.c_int] * 3 + [_c.c_void_p] + [_c.c_longlong] * 3 + [_c.c_int]
          + [_c.c_void_p] + [_c.c_longlong] * 3 + [_c.c_int]
-         + [_c.c_void_p] + [_c.c_longlong] * 2 + [_c.c_void_p] * 2
+         + [_c.c_void_p] + [_c.c_longlong] * 2 + [_c.c_void_p] * 3
          + [_c.c_int] * 4 + [_c.c_float, _c.c_void_p])
 
 _POS_CODE = {torch.int32: 0, torch.int64: 1}
@@ -85,16 +87,24 @@ def _wide(t: torch.Tensor) -> bool:
 
 
 def rotary(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
-           rope_frac: float, theta: float
+           rope_frac: float, theta: float,
+           freqs: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """q [B, S, H, hd], k [B, S, Hk, hd] or None (f32 or bf16); positions
-    [B, S] (or broadcasting to it) -> (q', k'), fresh and contiguous, or the
-    inputs themselves where nothing rotates."""
+    [B, S] (or broadcasting to it); ``freqs`` None or f32 [rot / 2] ->
+    (q', k'), fresh and contiguous, or the inputs themselves where nothing
+    rotates."""
     _check(q, k, positions)
     b, s, h, hd = q.shape
     rot = rotated_dims(hd, rope_frac)
     if rot == 0:
         return q, k
+    if freqs is not None and (
+            freqs.dtype != torch.float32 or tuple(freqs.shape) != (rot // 2,)
+            or freqs.device != q.device):
+        raise ValueError(f"rotary: freqs f32 [{rot // 2}] on {q.device}, got "
+                         f"{freqs.dtype} {tuple(freqs.shape)} on "
+                         f"{freqs.device}")
     tensors = (q,) if k is None else (q, k)
     heads = h + (0 if k is None else k.shape[2])
     how = route("rotary", q.device)
@@ -102,7 +112,8 @@ def rotary(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
                         positions.element_size())
     if how == "plain":
         out = cost.run_plain("rotary", count, lambda: tuple(
-            rotary_plain(t, positions, rope_frac, theta) for t in tensors))
+            rotary_plain(t, positions, rope_frac, theta, freqs)
+            for t in tensors))
         return out[0], (None if k is None else out[1])
     refuse_grad("rotary", q, k)
     code = dtype_code("rotary", q.dtype)
@@ -126,7 +137,9 @@ def rotary(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
         rc = fn(code, int(vec), _POS_CODE[pos.dtype], q.data_ptr(),
                 *q.stride()[:3], h, None if k is None else k.data_ptr(),
                 *ks, 0 if k is None else k.shape[2], pos.data_ptr(),
-                *pos.stride(), q_out.data_ptr(),
+                *pos.stride(),
+                None if freqs is None else freqs.contiguous().data_ptr(),
+                q_out.data_ptr(),
                 None if k is None else k_out.data_ptr(), b, s, hd, rot,
                 theta, stream)
     raise_on(rc, "rotary")

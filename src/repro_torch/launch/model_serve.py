@@ -22,8 +22,8 @@ How the system starts::
     cli.sink_log["res"]     # one StreamBuffer of int32 tokens per answer
 
 The decoder zoo serves the same way: ``model="granite-20b-flash"``,
-``"gemma3-4b-flash"``, ``"mixtral-8x22b-8l"``, ``"deepseek-v2-236b-4l"``
-or ``"mamba2-130m"`` on the card, a ``"<family>-smoke"`` preset
+``"gemma3-4b-flash"``, ``"mixtral-8x22b-8l"``, ``"deepseek-v2-236b-4l"``,
+``"deepseek-v2-236b-ep8"`` or ``"mamba2-130m"`` on the card, a ``"<family>-smoke"`` preset
 (``ZOO_PRESETS``) anywhere.
 
 Staged serving replaces the hub with one Device per stage pipeline
@@ -114,6 +114,19 @@ ZOO_PRESETS = {
     # deepseek-v2-236b at full width: the dense first layer and 3 MoE
     # layers (MLA, 160 experts top-6, 2 shared)
     "deepseek-v2-236b-4l": _zoo("deepseek-v2-236b", n_layers=4),
+    # deepseek-v2-236b as deployed over 32 cards, 8-way expert parallel by
+    # 4 pipeline stages: this card is rank 0 of the first stage's EP8
+    # group.  Layers 0-14 of 60 (the dense first and 14 MoE), every width,
+    # the router over all 160 experts, of which the 20 of routing group 0
+    # are held; the published group-limited router (8 groups, top 3),
+    # unnormalised top-6 times 16, YaRN (factor 40 over 4096 positions,
+    # mscale 0.707); dropless (capacity factor E / k); MLA on its plain
+    # paths (no flash kernel)
+    "deepseek-v2-236b-ep8": _zoo(
+        "deepseek-v2-236b", n_layers=15, experts_held=20, expert_first=0,
+        n_group=8, topk_group=3, norm_topk=False, routed_scale=16.0,
+        capacity_factor=160 / 6, yarn_factor=40.0, yarn_original=4096,
+        yarn_mscale=0.707),
     "qwen1.5-smoke": _zoo_smoke("qwen1.5-110b", use_flash_attn=True),
     "granite-smoke": _zoo_smoke("granite-20b", use_flash_attn=True),
     "gemma3-smoke": _zoo_smoke("gemma3-4b", use_flash_attn=True),

@@ -9,11 +9,17 @@ R, S) with MoE, MLA and the int8 KV cache, and the encoder-decoder.
   R = RG-LRU recurrent block, S = Mamba-2 SSD block.
 MLP kind per layer is derived from the MoE fields (first ``first_dense``
 layers stay dense, as in DeepSeek-V2).
+
+The port's config has fields the JAX package's lacks (:data:`PORT_FIELDS`:
+one rank's share of an expert-parallel MoE layer, DeepSeek-V2's router and
+YaRN rotary positions); at their defaults the port computes what the JAX
+package does, and :func:`reference_fields` gives the JAX package's
+keywords of a config.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from dataclasses import asdict, dataclass, field, fields, replace
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -48,6 +54,15 @@ class ModelConfig:
     first_dense: int = 0                # leading dense layers (deepseek: 1)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # one rank's share of an expert-parallel deployment: the router scores
+    # all ``n_experts``; the layer holds ``experts_held`` of them (0: all)
+    # from ``expert_first`` on (models/moe.py)
+    experts_held: int = 0
+    expert_first: int = 0
+    n_group: int = 0                    # group-limited routing (deepseek:
+    topk_group: int = 0                 # 8 groups, top 3); 0: plain top-k
+    norm_topk: bool = True              # renormalise the top-k weights
+    routed_scale: float = 1.0           # routed weights' factor (deepseek: 16)
 
     # MLA (deepseek-v2)
     mla: bool = False
@@ -56,6 +71,12 @@ class ModelConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # YaRN rotary frequencies and softmax scale (deepseek-v2: factor 40
+    # over 4096 positions, mscale = mscale_all_dim = 0.707); factor 0:
+    # plain RoPE (models/mla.py)
+    yarn_factor: float = 0.0
+    yarn_original: int = 4096
+    yarn_mscale: float = 0.0
 
     # SSM (mamba2 SSD)
     ssm_state: int = 0
@@ -106,6 +127,11 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def held_experts(self) -> int:
+        """Experts a MoE layer holds: ``experts_held``, else all."""
+        return self.experts_held or self.n_experts
 
     def is_moe_layer(self, layer: int) -> bool:
         return self.n_experts > 0 and layer >= self.first_dense
@@ -158,3 +184,21 @@ class ModelConfig:
             max_seq=None if self.max_seq is None else min(self.max_seq, 64),
             dtype="float32",
         )
+
+
+#: the fields the JAX package's ModelConfig lacks
+PORT_FIELDS = ("experts_held", "expert_first", "n_group", "topk_group",
+               "norm_topk", "routed_scale", "yarn_factor", "yarn_original",
+               "yarn_mscale")
+
+
+def reference_fields(cfg: ModelConfig) -> Dict:
+    """``dataclasses.asdict(cfg)`` less :data:`PORT_FIELDS`: the JAX
+    package's ModelConfig keywords of the same model.  Raises where a port
+    field is off its default (the JAX package has no such model)."""
+    defaults = {f.name: f.default for f in fields(ModelConfig)}
+    d = asdict(cfg)
+    off = [k for k in PORT_FIELDS if d[k] != defaults[k]]
+    if off:
+        raise ValueError(f"{cfg.name}: {off} have no JAX counterpart")
+    return {k: v for k, v in d.items() if k not in PORT_FIELDS}

@@ -130,23 +130,26 @@ def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_frac: float,
-               theta: float) -> torch.Tensor:
+               theta: float, freqs: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """x [B, S, H, hd]; positions [B, S] absolute.  Rotates the leading
-    ``rope_frac`` of hd in interleaved pairs (partial rotary): kernel S5
-    (``kernels/rotary.py``), or the eager expression where a gradient must
-    flow through it."""
-    return rope_pair(x, None, positions, rope_frac, theta)[0]
+    ``rope_frac`` of hd in interleaved pairs (partial rotary), at the
+    frequencies ``theta^(-2i / rot)`` or the table ``freqs`` (f32 [rot /
+    2], YaRN's: ``models/mla.py``): kernel S5 (``kernels/rotary.py``), or
+    the eager expression where a gradient must flow through it."""
+    return rope_pair(x, None, positions, rope_frac, theta, freqs)[0]
 
 
 def rope_pair(q: torch.Tensor, k: Optional[torch.Tensor],
-              positions: torch.Tensor, rope_frac: float, theta: float):
+              positions: torch.Tensor, rope_frac: float, theta: float,
+              freqs: Optional[torch.Tensor] = None):
     """:func:`apply_rope` of q and of k (or None), one S5 launch for both."""
     if rotated_dims(q.shape[-1], rope_frac) and needs_grad(q, k):
         _eager("rotary", q)
         return tuple(None if t is None else
-                     rotary_plain(t, positions, rope_frac, theta)
+                     rotary_plain(t, positions, rope_frac, theta, freqs)
                      for t in (q, k))
-    return rotary(q, k, positions, rope_frac, theta)
+    return rotary(q, k, positions, rope_frac, theta, freqs)
 
 
 # ---------------------------------------------------------------------------

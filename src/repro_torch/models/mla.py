@@ -9,6 +9,29 @@ off: bf16 logits, f32 softmax rounded back), decode the absorbed form: the
 query is folded through ``W_uk`` and attention runs against the cached
 latent, ``c_kv`` [B, S, r] and ``k_rope`` [B, S, dr].
 
+**YaRN** (``cfg.yarn_factor``; fields the JAX package lacks, off at their
+default 0).  DeepSeek-V2 stretches its L0 = 4096 trained positions
+(``yarn_original``) by a factor s = 40 (Hugging Face's
+``DeepseekV2YarnRotaryEmbedding``), with YaRN's published beta_fast 32 and
+beta_slow 1.  With rot the rotary dims and base theta, pair i's frequency
+is
+
+    f_i = theta^(-2i / rot) * (1 - r_i)  +  theta^(-2i / rot) / s * r_i,
+    r_i = clamp((i - lo) / (hi - lo), 0, 1),
+    lo  = max(floor(c(beta_fast)), 0),  hi = min(ceil(c(beta_slow)), rot - 1),
+    c(b) = rot * ln(L0 / (2 pi b)) / (2 ln theta)
+
+(:func:`yarn_freqs`; ``hi`` gains 0.001 where it equals ``lo``), so the
+fast pairs keep their frequency and the slow ones are divided by s.
+Hugging Face multiplies cos and sin by ``mscale(s, mscale) / mscale(s,
+mscale_all_dim)``, with ``mscale(s, m) = 0.1 m ln s + 1`` (1 for s <= 1):
+1 where the two are equal, as DeepSeek-V2's 0.707s are, and the port has
+one field for both (``yarn_mscale``).  The softmax scale ``(dn +
+dr)^-0.5`` is multiplied by ``mscale(s, yarn_mscale)^2`` (1.2608^2 for
+DeepSeek-V2), in the prefill and in the absorbed decode alike
+(:func:`softmax_scale`).  The queries' and keys'
+rope parts rotate through kernel S5 with the table of frequencies.
+
 The reference writes the latent at one scalar ``pos``; the port's serve
 cache holds a position per slot, so each row writes its own cache row and
 attends over ``[0, pos[row]]``, as ``layers.attn_decode`` does.  The cache
@@ -16,7 +39,8 @@ is updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +48,59 @@ from ..kernels.ref import NEG_INF
 from .config import ModelConfig
 from .layers import (apply_norm, apply_rope, causal_bias, causal_mask,
                      dense_init, mm_to, norm_init, torch_dtype)
+
+
+def _mscale(s: float, m: float) -> float:
+    return 1.0 if s <= 1 else 0.1 * m * math.log(s) + 1.0
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """``(dn + dr)^-0.5``, times ``mscale(s, yarn_mscale)^2`` under YaRN
+    (module docstring)."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    if cfg.yarn_factor and cfg.yarn_mscale:
+        scale *= _mscale(cfg.yarn_factor, cfg.yarn_mscale) ** 2
+    return scale
+
+
+#: YaRN's published beta_fast and beta_slow (DeepSeek-V2's rope_scaling)
+_BETA_FAST, _BETA_SLOW = 32.0, 1.0
+#: YaRN tables by (device, fields), made outside any graph capture
+_YARN: Dict[tuple, torch.Tensor] = {}
+
+
+def yarn_freqs(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
+    """The YaRN frequencies f32 [qk_rope_dim / 2] of ``cfg`` on ``device``
+    (module docstring), or None for plain RoPE.  Computed with f32 tensor
+    operations, as Hugging Face's model, once a device outside a CUDA
+    graph's capture (a capture computes its own copy into its pool)."""
+    if not cfg.yarn_factor:
+        return None
+    key = (str(device), cfg.qk_rope_dim, cfg.rope_theta, cfg.yarn_factor,
+           cfg.yarn_original)
+    hit = _YARN.get(key)
+    if hit is not None:
+        return hit
+    rot, theta, s = cfg.qk_rope_dim, cfg.rope_theta, cfg.yarn_factor
+
+    def corr(b):
+        return rot * math.log(cfg.yarn_original / (b * 2 * math.pi)) / \
+            (2 * math.log(theta))
+    lo = max(math.floor(corr(_BETA_FAST)), 0)
+    hi = min(math.ceil(corr(_BETA_SLOW)), rot - 1)
+    if lo == hi:
+        hi += 0.001
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (s * theta ** exps)
+    ramp = ((torch.arange(rot // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    keep = 1.0 - ramp               # Hugging Face's inv_freq_mask
+    f = inter * (1 - keep) + extra * keep
+    capturing = f.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not capturing:
+        _YARN[key] = f
+    return f
 
 
 def _heads_init(g, shape, fan_in: int, dt, device):
@@ -58,7 +135,8 @@ def _queries(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     else:
         q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, 1.0, cfg.rope_theta,
+                              yarn_freqs(cfg, x.device))
 
 
 def _latent(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
@@ -66,7 +144,8 @@ def _latent(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     dkv = x @ p["w_dkv"]                                        # [B,S,r+dr]
     c_kv = apply_norm(p["norm_kv"], dkv[..., :r_kv], cfg)       # [B,S,r]
     k_rope = apply_rope(dkv[..., None, r_kv:], positions, 1.0,
-                        cfg.rope_theta)[:, :, 0]                # [B,S,dr]
+                        cfg.rope_theta,
+                        yarn_freqs(cfg, x.device))[:, :, 0]     # [B,S,dr]
     return c_kv, k_rope
 
 
@@ -85,7 +164,7 @@ def mla_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor
     c_kv, k_rope = _latent(p, cfg, x, positions)
     k_nope = torch.einsum("btr,rhd->bthd", c_kv, p["w_uk"])     # [B,S,h,dn]
     v = torch.einsum("btr,rhd->bthd", c_kv, p["w_uv"])          # [B,S,h,dv]
-    scale = (dn + dr) ** -0.5
+    scale = softmax_scale(cfg)
     acc = torch.float32 if cfg.attn_f32_logits else torch.bfloat16
     if cfg.mla_fused_qk:
         q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -157,7 +236,7 @@ def mla_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     cr[rows, at] = kr1[:, 0]
     # absorb W_uk into q: q_lat[b,h,r] = sum_d q_nope[b,h,d] W_uk[r,h,d]
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p["w_uk"])[:, 0]
-    scale = (dn + dr) ** -0.5
+    scale = softmax_scale(cfg)
     logits = (torch.einsum("bhr,btr->bht", q_lat.float(), ck.float()) +
               torch.einsum("bhd,btd->bht", q_rope[:, 0].float(),
                            cr.float())) * scale

@@ -37,8 +37,33 @@ Three places where the port must say exactly what the reference does:
   reference.
 
 :func:`drop_log` collects, for every call in its block, ``(per_row,
-tokens, dropped)``: ``dropped`` the count of (token, expert) choices that
-capacity turned away, as a device tensor (no host read inside the layer).
+tokens, dropped)``: ``dropped`` the count of (token, held expert) choices
+that capacity turned away, as a device tensor (no host read inside the
+layer).  :func:`count_into` writes the same counts, and the (token, held
+expert) pairs, into a buffer on the device: the serve path's counters
+(``core/modelserve.py``, read while the tracer of ``core/trace.py`` is on).
+
+**One rank's share and DeepSeek-V2's router** (``ModelConfig`` fields the
+JAX package lacks; at their defaults the layer is the JAX package's).  The
+router scores all ``n_experts``; the layer holds ``experts_held`` of them
+(``cfg.held_experts``) from ``expert_first`` on, and computes the part of
+the result that its held experts give for the tokens routed to them, plus
+the shared experts once: one rank of an expert-parallel deployment, with
+no exchange and nothing standing in for the absent experts.  Counts,
+offsets and capacity are indexed by the global expert id.  With
+``n_group`` the router is DeepSeek-V2's ``group_limited_greedy``
+(:func:`group_top_k`: a group scores its best expert, the best
+``topk_group`` groups are kept, the top k is taken among their experts);
+``norm_topk`` False leaves the top-k softmax scores unnormalised, and
+``routed_scale`` multiplies them (DeepSeek-V2: 16).
+
+**Capacity** is ``int(T·k/E·capacity_factor)`` slots an expert for a
+group of T tokens, and never more than T: an expert meets a token at most
+once, so slots past T could only be padding.  ``capacity_factor = E / k``
+is therefore dropless: no choice is turned away (DeepSeek-V2's serve
+preset).  The prefill pools its prompt into one group of L tokens and so
+computes each held expert on L rows, most of them padding; the serve
+tick's per-row groups of one token have capacity 1.
 """
 from __future__ import annotations
 
@@ -52,6 +77,9 @@ from .layers import _act, dense_init, torch_dtype
 
 #: the list of the innermost :func:`drop_log` block, else ``None``
 DROP_LOG: Optional[List] = None
+#: the buffer and next row of the innermost :func:`count_into` block, else
+#: ``None``
+COUNTS: Optional[List] = None
 
 
 @contextlib.contextmanager
@@ -67,6 +95,22 @@ def drop_log():
         DROP_LOG = prev
 
 
+@contextlib.contextmanager
+def count_into(out: Optional[torch.Tensor]):
+    """``with count_into(buf):`` — the j-th :func:`apply_moe` call in the
+    block writes ``(tokens, pairs, dropped)`` into ``buf[j]`` (int64 [n, 3]
+    on the layers' device), in place and with no host read: its tokens, its
+    (token, held expert) choices and those of them that capacity turned
+    away.  A CUDA graph captures the writes, so each replay refills the
+    buffer.  ``out`` None counts nothing."""
+    global COUNTS
+    prev, COUNTS = COUNTS, (None if out is None else [out, 0])
+    try:
+        yield
+    finally:
+        COUNTS = prev
+
+
 def _expert_weights(g, e: int, d_in: int, d_out: int, dt, device):
     """[E, d_in, d_out] at scale d_in^-0.5, drawn one expert at a time (one
     expert's f32 draw lives at a time, not all E)."""
@@ -78,15 +122,17 @@ def _expert_weights(g, e: int, d_in: int, d_out: int, dt, device):
 
 
 def moe_init(g: torch.Generator, cfg: ModelConfig, device) -> Dict:
-    """Router (f32, scale 0.02), experts ``w_up``/``w_gate`` [E, d, f] and
-    ``w_down`` [E, f, d] in ``cfg.dtype``, and ``shared`` experts as one
-    gated MLP of width f·n_shared."""
+    """Router (f32, scale 0.02) over all E experts, the held experts'
+    ``w_up``/``w_gate`` [E_held, d, f] and ``w_down`` [E_held, f, d] in
+    ``cfg.dtype``, and ``shared`` experts as one gated MLP of width
+    f·n_shared."""
     d, f, e = cfg.d_model, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts
+    held = cfg.held_experts
     dt = torch_dtype(cfg.dtype)
     p = {"router": dense_init(g, d, e, torch.float32, device, scale=0.02),
-         "w_up": _expert_weights(g, e, d, f, dt, device),
-         "w_gate": _expert_weights(g, e, d, f, dt, device),
-         "w_down": _expert_weights(g, e, f, d, dt, device)}
+         "w_up": _expert_weights(g, held, d, f, dt, device),
+         "w_gate": _expert_weights(g, held, d, f, dt, device),
+         "w_down": _expert_weights(g, held, f, d, dt, device)}
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
         p["shared"] = {"w_up": dense_init(g, d, fs, dt, device),
@@ -102,10 +148,27 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def group_top_k(probs: torch.Tensor, cfg: ModelConfig):
+    """DeepSeek-V2's ``group_limited_greedy`` over probs [..., E]: the E
+    experts in ``n_group`` consecutive groups, a group scored by its best
+    expert, the ``topk_group`` best groups kept (:func:`top_k`), and the
+    top k among the kept groups' experts (the others' scores set to 0, as
+    Hugging Face's ``masked_fill``)."""
+    e, n_g = cfg.n_experts, cfg.n_group
+    grouped = probs.reshape(*probs.shape[:-1], n_g, e // n_g)
+    _, keep = top_k(grouped.amax(-1), cfg.topk_group)
+    mask = torch.zeros(probs.shape[:-1] + (n_g,), dtype=torch.bool,
+                       device=probs.device)
+    mask.scatter_(-1, keep, True)
+    kept = grouped.masked_fill(~mask[..., None], 0.0).reshape(probs.shape)
+    return top_k(kept, cfg.top_k)
+
+
 def capacity(tokens: int, cfg: ModelConfig) -> int:
-    """Expert slots of one dispatch group of ``tokens`` tokens."""
-    return max(1, int(tokens * cfg.top_k / cfg.n_experts *
-                      cfg.capacity_factor))
+    """Expert slots of one dispatch group of ``tokens`` tokens, at most
+    ``tokens`` (module docstring)."""
+    return max(1, min(tokens, int(tokens * cfg.top_k / cfg.n_experts *
+                                  cfg.capacity_factor)))
 
 
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -124,13 +187,17 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _route(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
-    """Router, top-k and the Switch aux over groups xg [G, T, d] -> (topw,
-    topi [G, T, k], aux)."""
+    """Router, top-k (group-limited under ``n_group``) and the Switch aux
+    over groups xg [G, T, d] -> (topw, topi [G, T, k], aux)."""
     e, k = cfg.n_experts, cfg.top_k
     logits = xg.float() @ router                            # [G, T, E]
     probs = torch.softmax(logits, dim=-1)
-    topw, topi = top_k(probs, k)                            # [G, T, k]
-    topw = topw / topw.sum(-1, keepdim=True)
+    topw, topi = group_top_k(probs, cfg) if cfg.n_group else \
+        top_k(probs, k)                                     # [G, T, k]
+    if cfg.norm_topk:
+        topw = topw / topw.sum(-1, keepdim=True)
+    if cfg.routed_scale != 1.0:
+        topw = topw * cfg.routed_scale
     # load-balance aux (Switch): E * sum_e fraction_e * prob_e
     experts = torch.arange(e, device=xg.device)
     hits = (topi[..., None] == experts).float().sum(-2)     # [G, T, E]
@@ -146,7 +213,8 @@ def _dispatch(cfg: ModelConfig, xg, topw, topi, w_gate, w_up, w_down,
     ``first .. first + E_loc`` whose weights are given, capacity per
     group, and the combine: each token's contributions from these experts
     added in ascending expert order onto zeros of ``acc`` -> (y [G, T, d]
-    in ``acc``, kept [G, T, k]: the choices that found a slot)."""
+    in ``acc``, kept [G, T, k]: the choices that found a slot, mine [G, T,
+    k]: the choices of these experts)."""
     e, k = cfg.n_experts, cfg.top_k
     e_loc = w_up.shape[0]
     n_g, t, d = xg.shape
@@ -187,7 +255,7 @@ def _dispatch(cfg: ModelConfig, xg, topw, topi, w_gate, w_up, w_down,
     y = torch.zeros((n_g, t, d), dtype=acc, device=dev)
     for j in range(k):
         y = y + contrib[:, :, j]
-    return y, kept
+    return y, kept, mine
 
 
 def _apply_moe_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -197,10 +265,15 @@ def _apply_moe_dense(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     xg = x.reshape(1, b * s, d) if not per_row else x
     n_g, t = xg.shape[:2]
     topw, topi, aux = _route(cfg, xg, p["router"])
-    y, kept = _dispatch(cfg, xg, topw, topi, p["w_gate"], p["w_up"],
-                        p["w_down"])
+    y, kept, mine = _dispatch(cfg, xg, topw, topi, p["w_gate"], p["w_up"],
+                              p["w_down"], cfg.expert_first)
     if DROP_LOG is not None:
-        DROP_LOG.append((per_row, t, (~kept).sum()))
+        DROP_LOG.append((per_row, t, (mine & ~kept).sum()))
+    if COUNTS is not None:
+        out, j = COUNTS
+        COUNTS[1] = j + 1
+        out[j, 0].fill_(n_g * t)
+        out[j, 1:].copy_(torch.stack((mine, mine & ~kept)).sum((1, 2, 3)))
 
     if "shared" in p:
         sp = p["shared"]
@@ -265,7 +338,8 @@ def _apply_moe_shard_map(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
         topw, topi, aux = _route(cfg, xg, router_l)
         e_loc = wu_l.shape[0]
         first = pos_l * e_loc if e_loc < e else 0
-        y, _ = _dispatch(cfg, xg, topw, topi, wg_l, wu_l, wd_l, first, acc)
+        y, _, _ = _dispatch(cfg, xg, topw, topi, wg_l, wu_l, wd_l, first,
+                            acc)
         return y.reshape(bl * sl, d), aux
     y, aux = slot_map(local, mesh, xs, router, wg, wu, wd, pos, n_out=2)
     if dp_axes:

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.trace import TRACER
 from ..device import DeviceLike, make_generator, resolve_device
 from . import layers as L
 from . import mla as MLA
@@ -212,7 +213,10 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, max_seq: int
     layer, or the prompt's keys/values in rows ``0..S-1`` of ``max_seq``
     rows (quantised under ``kv_cache_quant``); a ring shorter than the
     prompt keeps the last ``size`` positions, position p in row
-    ``p % size`` (the module docstring says how the JAX package differs)."""
+    ``p % size`` (the module docstring says how the JAX package differs).
+    While the tracer is on, the spans ``mla`` (the latent attention and
+    its cache) and ``moe`` (the MoE half with its norm) of
+    ``core/trace.py``."""
     b, s, _ = x.shape
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens exceeds max_seq={max_seq}")
@@ -220,16 +224,26 @@ def block_prefill(p, cfg: ModelConfig, kind: str, x, max_seq: int
     if kind == "S":
         y, cache = SSM.ssm_prefill(p["ssm"], cfg, h)
         return x + y, cache
+    on = TRACER.on
     if kind == "R":
         y, cache = RG.rglru_prefill(p["rec"], cfg, h)
     elif cfg.mla:
+        if on:
+            sp = TRACER.begin("mla")
         y, c_kv, k_rope = MLA.mla_prefill(p["attn"], cfg, h)
         cache = MLA.mla_prefill_cache(cfg, c_kv, k_rope, max_seq, x.device)
+        if on:
+            TRACER.end(sp)
     else:
         window = _window(cfg, kind)
         y, k, v = L.attn_prefill(p["attn"], cfg, h, window)
         cache = L.attn_prefill_cache(cfg, k, v, max_seq, window, x.device)
-    return _mlp_part(p, cfg, x + y)[0], cache
+    if not (on and "moe" in p):
+        return _mlp_part(p, cfg, x + y)[0], cache
+    sp = TRACER.begin("moe")
+    x = _mlp_part(p, cfg, x + y)[0]
+    TRACER.end(sp)
+    return x, cache
 
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos,

@@ -54,6 +54,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import build_model
 from repro_torch.models.sharding import sharding_rules
+from repro_torch.models.config import reference_fields
 
 torch.set_num_threads(2)
 
@@ -140,7 +141,7 @@ def _jax_main(out_path):
             "active_params": int(model.active_param_count())}
     mesh = jax.make_mesh((2, 4), ("data", "model"))
     c = MS._cfg("e8")
-    cfg = JCfg(**{f.name: getattr(c, f.name) for f in dataclasses.fields(c)})
+    cfg = JCfg(**reference_fields(c))
     p = JMOE.moe_init(jax.random.PRNGKey(0), cfg)
     x = jnp.asarray(MS._x(c))
     with set_mesh(mesh):
@@ -149,8 +150,7 @@ def _jax_main(out_path):
                 p, cfg, x, mesh)).lower(p, x).compile()
     out["moe"] = collective_bytes(comp.as_text())
     cfg = dataclasses.replace(
-        JCfg(**{f.name: getattr(SP.CFG, f.name)
-                for f in dataclasses.fields(SP.CFG)}), ssm_seq_parallel=True)
+        JCfg(**reference_fields(SP.CFG)), ssm_seq_parallel=True)
     p = JSSM.ssm_init(jax.random.PRNGKey(0), cfg)
     for b, s in SSD_CASES:
         x = jnp.asarray(SP._inputs(b, s))

@@ -18,7 +18,6 @@ package's ``shard_map`` path on its own (2, 4) mesh of forged host devices
   expert order, as the dense combine adds them); ``per_row=True`` (the
   serve path) ignores the mesh.
 """
-import dataclasses
 import os
 import subprocess
 import sys
@@ -29,7 +28,7 @@ import torch
 
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as MOE
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, reference_fields
 from repro_torch.models.sharding import sharding_rules
 
 torch.set_num_threads(2)
@@ -77,8 +76,7 @@ def _jax_main(out_path):
     out = {}
     for name in CASES:
         c = _cfg(name)
-        cfg = JCfg(**{f.name: getattr(c, f.name)
-                      for f in dataclasses.fields(c)})
+        cfg = JCfg(**reference_fields(c))
         p = JMOE.moe_init(jax.random.PRNGKey(0), cfg)
         for path, v in jax.tree_util.tree_flatten_with_path(p)[0]:
             key = "/".join(str(q.key) for q in path)

@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import pp_serve as PP
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, reference_fields
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import params_from_numpy
 
@@ -103,8 +103,7 @@ def _jax_main(out_path):
     from repro.launch.mesh import set_mesh
     from repro.launch.pp_serve import make_pp_serve_step
     from repro.models import ModelConfig as JCfg, build_model as jbuild
-    cfg = JCfg(**{f.name: getattr(CFG, f.name)
-                  for f in dataclasses.fields(CFG)})
+    cfg = JCfg(**reference_fields(CFG))
     m = jbuild(cfg)
     sp = m.stack_params(m.init(jax.random.PRNGKey(0)))
     toks = jax.random.randint(jax.random.PRNGKey(1), (BATCH, PROMPT), 0,

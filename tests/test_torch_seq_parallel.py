@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, reference_fields
 from repro_torch.models.sharding import sharding_rules
 
 torch.set_num_threads(2)
@@ -56,8 +56,7 @@ def _jax_main(out_path):
     from repro.models import ModelConfig as JCfg
     from repro.models import ssm as JSSM
     from repro.models.sharding import sharding_rules as jrules
-    cfg = JCfg(**{f.name: getattr(CFG, f.name)
-                  for f in dataclasses.fields(CFG)})
+    cfg = JCfg(**reference_fields(CFG))
     p = JSSM.ssm_init(jax.random.PRNGKey(0), cfg)
     out = {f"p_{k}": np.asarray(v) for k, v in p.items()}
     mesh = jax.make_mesh((2, 4), ("data", "model"))

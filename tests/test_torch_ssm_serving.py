@@ -31,6 +31,7 @@ from repro_torch.core.modelserve import ModelServeStageElement
 from repro_torch.launch import model_serve as ms
 from repro_torch.models import transformer as tt
 from repro_torch.runtime import Device, Runtime
+from repro_torch.models.config import reference_fields
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,7 @@ STREAMS = [([5, 6], 5), (list(range(7, 27)), 12), (list(range(40, 73)), 8),
 def model():
     jcfg = jax_config("mamba2-130m").smoke()
     tcfg = ms.SERVE_MODELS["mamba2-smoke"]()
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == reference_fields(tcfg)
     jp = jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
     tp = tt.params_from_numpy(jax.device_get(jp), tcfg, "cpu")
     return jcfg, jp, tcfg, tp

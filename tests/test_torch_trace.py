@@ -37,8 +37,11 @@ DECODE_PARTS = ["decode.admit", "decode.serve", "decode.read",
 
 @pytest.fixture(autouse=True)
 def _tracer_off():
+    # a fresh span count: other test files of the same process (the
+    # benchmark's traced runs) turn the tracer on and begin spans
     trace.disable()
     trace.drain()
+    trace.TRACER._next = 0
     yield
     trace.disable()
     trace.drain()
@@ -76,7 +79,7 @@ def test_off_records_nothing_reads_no_clock(monkeypatch):
     assert calls == []
     assert sum(s.size for s in snap.statistics("filename")) == 0
     assert trace.TRACER._next == 0
-    assert trace.drain() == ([], [])
+    assert trace.drain() == ([], [], [])
 
 
 def _tiled(parent, kids, names):
@@ -97,7 +100,7 @@ def test_on_spans_nest_tile_and_carry_request_ids(monkeypatch):
         ticks.append(trace.drain())
     trace.disable()
     n_decode = n_prefill = 0
-    for spans, waits in ticks:
+    for spans, waits, counts in ticks:
         by_id = {s.sid: s for s in spans}
         kids = {}
         for s in spans:
@@ -133,6 +136,7 @@ def test_on_spans_nest_tile_and_carry_request_ids(monkeypatch):
         for w in waits:
             assert w.kind == "queue_wait"
             assert w.t0_ns <= w.t1_ns == prefills[w.rid].t0_ns
+        assert counts == []         # a dense model records no counter
     assert n_decode == 8 and n_prefill >= 4
     assert trace.TRACER.dropped == 0
 
@@ -142,7 +146,7 @@ def test_graph_capture_recorded_in_warm_up(monkeypatch):
     rt = _runtime()
     trace.enable()
     rt.run(3)
-    spans, _ = trace.drain()
+    spans, _, _ = trace.drain()
     names = {s.sid: s.name for s in spans}
     under = [s.name for s in spans if names.get(s.parent) == "decode.serve"]
     # the decode tick's binding: an eager first call, then a capture, then
@@ -163,7 +167,7 @@ def test_profiler_annotation_lies_inside_the_span():
                 torch.ones(64).sum()
             trace.TRACER.end(sp)
     trace.disable()
-    spans, _ = trace.drain()
+    spans, _, _ = trace.drain()
     inner = sorted((int(e.start_ns()), int(e.start_ns() + e.duration_ns()))
                    for e in prof.profiler.kineto_results.events()
                    if e.name() == "inner")
@@ -180,7 +184,8 @@ def test_cap_drops_and_counts():
     tr.wait("queue_wait", 10, 1, 2)
     tr.end(tr.begin("y"))
     assert len(tr.spans) == 4 and len(tr.waits) == 1 and tr.dropped == 2
-    spans, waits = tr.drain()
+    spans, waits, counts = tr.drain()
     assert [s.rid for s in spans] == [0, 1, 2, 3] and waits[0].rid == 9
+    assert counts == []
     tr.end(tr.begin("z"))
     assert [s.name for s in tr.spans] == ["z"] and tr.dropped == 2
